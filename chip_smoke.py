@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 U-Net serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's int8 U-Net serving path and its U-Net training
+path once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -17,16 +18,35 @@ Phases (any failure raises; the exit code is then non-zero):
    12 requests from 3 client threads; every response equals the direct
    forward, and every forward launched K1 18 times, K2 4 times, K3 once;
 5. times on the card (CUDA events): each kernel against its plain version
-   at batch 32, the served forward at batch 32 and 128, serve latency.
+   at batch 32, the served forward at batch 32 and 128, serve latency;
+6. training kernels: K4 (forward and dgrad) and K5 at the 17 non-stem 3x3
+   conv shapes of the f=32 U-Net at 512x512, batch 8 (the train step's),
+   on integer inputs, bit-equal to the plain versions; K6 in both modes at
+   the 18 BatchNorm shapes, batch 8, within rtol 1e-6 of the float64 plain
+   version (N(1, 1) inputs);
+7. train: the trainer as ``cli train --packed`` builds it (f=32, 10 classes,
+   512x512 synthetic data, batch 8, Adam 1e-3), five steps: loss finite and
+   lower at step 5 than at step 1, and K4/K5/K6 launched 6/3/36 times per
+   step; from the state those steps reached, one step on the kernels
+   against the same step with the plain versions patched in (``GATE``:
+   loss, and per gradient tensor above a norm of 1e-3 the cosine and the
+   norm), and two planted kernel faults that this gate must reject;
+   launches per step with ``mid=deep="kernel"`` 34/17/36;
+8. times on the card: each training kernel summed over the step's calls at
+   batch 8 against its plain version and one library call, the train step
+   at batch 8 and 16 in both conv settings (and the library-conv step),
+   peak memory, and a ``torch.profiler`` breakdown of the step.
 
-The last lines are a JSON object with the kernels, then
-``{"ok": true, "device": {...}}``.
+The last lines are the card's name and power limit, a JSON object with the
+kernels, then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -38,6 +58,10 @@ import numpy as np
 
 F, NC, HW = 32, 10, 512
 SEED = 0
+TRAIN_BATCH = 8
+# H100 SXM published dense peaks and HBM rate (NVIDIA data sheet)
+PEAK = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
+HBM = 3.35e12
 
 # TPU kernels each port kernel replaces (JAX package, file:line of the def)
 _JAX = "retinal_oct_image_segmentation_via_deep_learning_tpu/ops/"
@@ -49,13 +73,29 @@ REPLACES = {
                    _JAX + "pallas_conv_psrp.py:603 ct_up_psrp",
                    _JAX + "pallas_conv_psrp.py:676 ct_psrp"],
     "head_argmax": [_JAX + "pallas_conv_psrp.py:1074 head_argmax_psrp"],
+    "conv3x3_bf16": [_JAX + "pallas_conv_bf16.py:121 _conv_fwd_pallas"],
+    "conv3x3_bf16_wgrad": [_JAX + "pallas_conv_bf16.py:220 _conv_wgrad_pallas"],
+    "bn_pair_sums": [_JAX + "fused_bn.py:66 _pallas_pair_sums"],
 }
 _PKG = "retinal_oct_image_segmentation_via_deep_learning_tpu_torch/"
 SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
            "ct2x2_int8": _PKG + "csrc/ct2x2_int8.cu",
-           "head_argmax": _PKG + "csrc/head_argmax.cu"}
+           "head_argmax": _PKG + "csrc/head_argmax.cu",
+           "conv3x3_bf16": _PKG + "csrc/conv3x3_bf16.cu",
+           "conv3x3_bf16_wgrad": _PKG + "csrc/conv3x3_bf16.cu",
+           "bn_pair_sums": _PKG + "csrc/bn_pair_sums.cu"}
+# kernel step vs plain-version step from the trained state: relative loss,
+# lowest gradient cosine and largest change of a gradient's norm, each
+# between the kernels' own floor (a one-ulp input change) and two planted
+# kernel faults (PERF.md section 6)
+GATE = {"loss": 1e-5, "cosine": 0.9999, "norm": 3e-3}
 LAUNCHES_PER_FORWARD = {"conv3x3_int8": 18, "ct2x2_int8": 4,
                         "head_argmax": 1}
+LAUNCHES_PER_STEP = {
+    "torch": {"conv3x3_bf16": 6, "conv3x3_bf16_wgrad": 3, "bn_pair_sums": 36},
+    "kernel": {"conv3x3_bf16": 34, "conv3x3_bf16_wgrad": 17,
+               "bn_pair_sums": 36},
+}
 
 
 def stages(f=F, hw=HW):
@@ -80,8 +120,515 @@ def stages(f=F, hw=HW):
     return out
 
 
+def train_convs():
+    """The 17 non-stem 3x3 convs of the U-Net: (name, H, cin, cout, setting
+    that puts them on K4: "always" | "mid" | "deep")."""
+    f, hw = F, HW
+    out = [("blk0_conv1", hw, f, f, "always")]
+    h, c = hw // 2, f
+    for i in range(1, 5):
+        group = "mid" if i == 1 else "deep"
+        out += [(f"blk{i}_conv0", h, c, 2 * c, group),
+                (f"blk{i}_conv1", h, 2 * c, 2 * c, group)]
+        h, c = h // 2, 2 * c
+    for blk, h, c, group in ((5, hw // 8, 8 * f, "deep"),
+                             (6, hw // 4, 4 * f, "deep"),
+                             (7, hw // 2, 2 * f, "mid"),
+                             (8, hw, f, "always")):
+        out += [(f"blk{blk}_conv0", h, 2 * c, c, group),
+                (f"blk{blk}_conv1", h, c, c, group)]
+    return out
+
+
+def tpu_row(name, kernel, shape):
+    """The TPU kernel (ROADMAP Queue B id) that ran a serving stage in the
+    JAX graph: PSRP kernels at 512^2 and 256^2, NHWC int8 ones below."""
+    if kernel == "head_argmax":
+        return "B7"
+    if kernel == "ct2x2_int8":
+        return {"ct2": "B5", "ct3": "B6"}.get(name, "B4")
+    if name.startswith("stem"):
+        return "B2"
+    return "B1" if shape[0] >= 256 else "B3"
+
+
+def bn_shapes():
+    """(H, C) of the 18 BatchNorms: the stem's and each conv's."""
+    return [(HW, F)] + [(h, cout) for _, h, _, cout, _ in train_convs()]
+
+
+def bound(ops, nbytes, peak):
+    """(least time in ms, "operations" or "bytes") for ``ops`` at ``peak``
+    op/s and ``nbytes`` at the HBM rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def serving_work(kernel, shape, n):
+    """(int8 ops, bytes) of one serving-stage call at batch n: each input
+    read once, each output written once."""
+    if kernel == "conv3x3_int8":
+        h, cins, cout, pool = shape
+        cin = sum(cins)
+        out = n * h * h * cout * (1.25 if pool else 1)
+        return (2 * n * h * h * 9 * cin * cout,
+                n * h * h * cin + 9 * cin * cout + 8 * cout + out)
+    if kernel == "ct2x2_int8":
+        h, cin, cout = shape
+        return (2 * n * h * h * cin * cout * 4,
+                n * h * h * cin + 4 * cin * cout + 8 * cout
+                + n * 4 * h * h * cout)
+    h, cin = shape
+    return (2 * n * h * h * cin * NC,
+            n * h * h * cin + cin * NC + 8 * NC + n * h * h)
+
+
 def phase(name):
     print(f"\n=== {name} ===", flush=True)
+
+
+@contextlib.contextmanager
+def swapped(module, **repl):
+    """Put ``repl``'s functions in place of ``module``'s entry points of the
+    same names (the op modules look their wrappers up by name at call
+    time)."""
+    saved = {k: getattr(module, k) for k in repl}
+    for k, v in repl.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def train_phases(dev, card, time_ms):
+    """Phases 6-8: the training path. -> the K4-K6 entries of the kernels
+    line."""
+    import torch
+    import torch.nn.functional as tnf
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.config import (
+        OptimConfig,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv_bf16 as k45,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
+        preprocess,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
+        get_model,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training import (
+        packed_unet,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.data import (
+        SyntheticOCTConfig,
+        synth_batch,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.losses import (
+        dice_ce_loss,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.train_state import (
+        create_train_state,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
+        make_train_step,
+    )
+
+    bf16 = torch.bfloat16
+    names = ("conv3x3_bf16", "conv3x3_bf16_wgrad", "bn_pair_sums")
+
+    def wrappers():
+        return {"conv3x3_bf16": k45.conv3x3_bf16_fwd,
+                "conv3x3_bf16_wgrad": k45.conv3x3_bf16_wgrad,
+                "bn_pair_sums": k6.pair_sums}
+
+    def reset():
+        for w in wrappers().values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers().items()}
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def ints(shape):
+        return torch.randint(-2, 3, shape, generator=g, device=dev).to(bf16)
+
+    def normal(shape, mean=0.0):
+        return (torch.randn(shape, generator=g, device=dev) + mean).to(bf16)
+
+    def batch(n, seed):
+        gb = torch.Generator(device=dev).manual_seed(seed)
+        images, labels = synth_batch(gb, n, SyntheticOCTConfig(
+            height=HW, width=HW, num_layers=NC - 2))
+        return preprocess(images), labels
+
+    def unet():
+        return get_model("unet", num_classes=NC, init_features=F,
+                         seed=SEED).to(dev)
+
+    # ------------------------------------------------------------------ 6
+    phase(f"6 training kernels vs plain versions (batch {TRAIN_BATCH})")
+    max_err = {k: 0.0 for k in names}
+    bad = 0
+    nb = TRAIN_BATCH
+    for name, h, cin, cout, group in train_convs():
+        x, w, dy = ints((nb, h, h, cin)), ints((3, 3, cin, cout)), \
+            ints((nb, h, h, cout))
+        got = (k45.conv3x3_bf16_fwd(x, w),
+               k45.conv3x3_bf16_fwd(dy, k45.flip_w(w)),
+               k45.conv3x3_bf16_wgrad(x, dy))
+        want = (k45.conv3x3_bf16_reference(x, w),
+                k45.conv3x3_bf16_dgrad_reference(dy, w),
+                k45.conv3x3_bf16_wgrad_reference(x, dy))
+        torch.cuda.synchronize()
+        mism = [int((a != b).sum()) for a, b in zip(got, want)]
+        for k, a, b in zip(("conv3x3_bf16", "conv3x3_bf16",
+                            "conv3x3_bf16_wgrad"), got, want):
+            max_err[k] = max(max_err[k],
+                             float((a.float() - b.float()).abs().max()))
+        print(f"{name:11s} {h:4d}^2 {cin:4d}->{cout:4d} ({group:6s}) "
+              f"mismatches fwd {mism[0]} dgrad {mism[1]} wgrad {mism[2]}",
+              flush=True)
+        bad += sum(mism)
+        del x, w, dy, got, want
+    worst_rel = 0.0
+    for h, c in bn_shapes():
+        for two in (False, True):
+            a = normal((nb, h, h, c), 1.0)
+            b = normal((nb, h, h, c), 1.0) if two else None
+            got = k6.pair_sums(a, b)
+            want = k6.pair_sums_reference(a, b)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            rel = float((err / want.abs()).max())
+            max_err["bn_pair_sums"] = max(max_err["bn_pair_sums"],
+                                          float(err.max()))
+            worst_rel = max(worst_rel, rel)
+            if rel > 1e-6:
+                print(f"K6 {h}^2 x {c} two={two}: relative error {rel:.3e}")
+                bad += 1
+    print(f"K6 at the 18 BN shapes, both modes: worst relative error "
+          f"{worst_rel:.3e} (limit 1e-6), max abs {max_err['bn_pair_sums']:.3e}")
+    if bad:
+        raise RuntimeError(f"{bad} training-kernel checks failed")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 7
+    phase(f"7 train: cli train --packed (f={F}, {NC} classes, {HW}x{HW}, "
+          f"batch {TRAIN_BATCH}, Adam 1e-3), five steps")
+    args = cli.parser().parse_args([
+        "train", "--packed", "--image-size", str(HW), "--num-classes",
+        str(NC), "--batch-size", str(TRAIN_BATCH), "--num-train",
+        str(TRAIN_BATCH), "--num-val", str(TRAIN_BATCH), "--epochs", "5",
+        "--lr", "1e-3", "--optimizer", "adam", "--device", "cuda",
+        "--model-kwargs", json.dumps({"init_features": F})])
+    trainer, train_ds, val_ds = cli.build_training(args)
+    reset()
+    t0 = time.perf_counter()
+    trained = trainer.fit(train_ds, val_ds).model.state_dict()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = counts()
+    losses = [r["train_loss"] for r in trainer.history]
+    for r in trainer.history:
+        print(f"epoch {r['epoch']} (one step): train_loss {r['train_loss']:.6f}"
+              f" val_loss {r['val_loss']:.6f} time {r['time_s']:.3f} s")
+    print(f"fit: {fit_s:.2f} s for 5 steps + 5 validations; launches "
+          f"{launches}, expected 5 x {LAUNCHES_PER_STEP['torch']}", flush=True)
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"train losses {losses}")
+    if not losses[4] < losses[0]:
+        raise RuntimeError(f"loss did not go down: {losses}")
+    if any(launches[k] != 5 * v for k, v in LAUNCHES_PER_STEP["torch"].items()):
+        raise RuntimeError("launch counts do not match the train step")
+    del trainer, train_ds, val_ds
+    torch.cuda.empty_cache()
+
+    x8, y8 = batch(TRAIN_BATCH, SEED + 20)
+
+    def loss_and_grads(weights, x=x8):
+        model = unet()
+        if weights is not None:
+            model.load_state_dict(weights)
+        logits, _ = packed_unet.packed_unet_apply(model, x)
+        loss = dice_ce_loss(logits, y8)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad.detach().double()
+                                      for n, p in model.named_parameters()}
+
+    def agreement(a, b):
+        """(relative loss difference, (lowest gradient cosine, its tensor),
+        (largest |norm ratio - 1|, its tensor)), over the tensors above a
+        norm of 1e-3."""
+        cos, ratio = (1.0, ""), (0.0, "")
+        for n in a[1]:
+            u, v = a[1][n].flatten(), b[1][n].flatten()
+            nu, nv = float(u.norm()), float(v.norm())
+            if max(nu, nv) > 1e-3:
+                cos = min(cos, (float(u @ v) / (nu * nv), n))
+                ratio = max(ratio, (abs(nu / nv - 1), n))
+        return abs(a[0] - b[0]) / abs(b[0]), cos, ratio
+
+    def passes(agree):
+        """The gate, set between the one-ulp floor and the planted faults
+        (PERF.md section 6)."""
+        return agree[0] < GATE["loss"] and agree[1][0] > GATE["cosine"] \
+            and agree[2][0] < GATE["norm"]
+
+    def reading(agree):
+        return (f"relative loss {agree[0]:.2e}, lowest cosine "
+                f"{agree[1][0]:.6f} ({agree[1][1]}), largest norm change "
+                f"{agree[2][0]:.2e} ({agree[2][1]})")
+
+    # beside each comparison, the same kernel step with one bf16 ulp added
+    # to 1e-4 of the input pixels: how far the function itself moves under a
+    # rounding-sized change. The gate is the trained state's: at the random
+    # init the deep layers' bf16 gradients move that much under such a change
+    gp = torch.Generator(device=dev).manual_seed(SEED + 40)
+    xi = x8.to(bf16).view(torch.int16)
+    hit = torch.rand(xi.shape, generator=gp, device=dev) < 1e-4
+    x_ulp = torch.where(hit, xi + 1, xi).view(bf16)
+    for label, weights in (("the random init", None),
+                           ("the trained state", trained)):
+        kern = loss_and_grads(weights)
+        with swapped(k45, conv3x3_bf16_fwd=k45.conv3x3_bf16_reference,
+                     conv3x3_bf16_wgrad=k45.conv3x3_bf16_wgrad_reference), \
+                swapped(k6, pair_sums=k6.pair_sums_reference):
+            agree = agreement(kern, loss_and_grads(weights))
+        floor = agreement(kern, loss_and_grads(weights, x_ulp))
+        print(f"one step from {label}, kernels vs plain versions: "
+              f"{reading(agree)}; kernels on a 1-ulp input change: "
+              f"{reading(floor)}", flush=True)
+
+    # planted faults, each a wrong kernel the gate must reject
+    wgrad, sums = k45.conv3x3_bf16_wgrad, k6.pair_sums
+
+    def k5_drops_tiles(x, dy):
+        """K5 with every 64th 8x16 output tile (its unit of work) left
+        out."""
+        n, h, w, _ = dy.shape
+        keep = torch.ones(n * -(-h // 8) * -(-w // 16), dtype=dy.dtype,
+                          device=dy.device)
+        keep[::64] = 0
+        keep = keep.view(n, -(-h // 8), -(-w // 16))
+        mask = keep.repeat_interleave(8, 1)[:, :h].repeat_interleave(16, 2)
+        return wgrad(x, (dy * mask[:, :, :w, None]).contiguous())
+
+    def k6_sums_high(a, b=None):
+        """K6 with its sums 0.5% high."""
+        return sums(a, b) * 1.005
+
+    # the real wrappers count their launches under their module names,
+    # which point at the faults while these run
+    k5_drops_tiles.launches = k6_sums_high.launches = 0
+    faults = {}
+    for label, fault in (
+        ("K5 leaves out 1/64 of the output tiles",
+         swapped(k45, conv3x3_bf16_wgrad=k5_drops_tiles)),
+        ("K6 sums 0.5% high", swapped(k6, pair_sums=k6_sums_high)),
+    ):
+        with fault:
+            faults[label] = agreement(kern, loss_and_grads(trained))
+        print(f"planted fault, {label}: {reading(faults[label])}", flush=True)
+    print(f"gate (the trained state): relative loss < {GATE['loss']}, "
+          f"cosine > {GATE['cosine']}, norm change < {GATE['norm']}")
+    if not passes(agree):
+        raise RuntimeError("kernel step and plain step disagree")
+    seen = [label for label, a in faults.items() if not passes(a)]
+    if len(seen) != len(faults):
+        raise RuntimeError(f"the gate sees only the faults {seen}")
+    for setting, want in LAUNCHES_PER_STEP.items():
+        state = create_train_state(unet(), OptimConfig())
+        step = packed_unet.make_packed_train_step(dice_ce_loss, deep=setting,
+                                                  mid=setting)
+        reset()
+        step(state, x8, y8)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"launches per step, mid=deep={setting!r}: {got}")
+        if got != want:
+            raise RuntimeError(f"expected {want}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 8
+    phase(f"8 training times on {card}")
+    nb = TRAIN_BATCH
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "operations": 0.0, "bytes": 0.0} for k in names}
+    every17 = {k: [0.0, 0.0] for k in ("conv3x3_bf16", "conv3x3_bf16_wgrad")}
+
+    def add(k, main, ms, pms, lms, work, peak):
+        b_ms, b_by = bound(*work, peak)
+        if main:
+            for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                           (b_by, b_ms)):
+                rows[k][key] += v
+        return b_ms, b_by
+
+    for name, h, cin, cout, group in train_convs():
+        main = group == "always"  # on K4 in the default (main path) step
+        x, dy = normal((nb, h, h, cin)), normal((nb, h, h, cout))
+        w = normal((3, 3, cin, cout))
+        wf = k45.flip_w(w)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        ops = 2 * nb * h * h * 9 * cin * cout
+        act = 2 * nb * h * h * (cin + cout)
+        runs = 10 if main else 3
+        with torch.no_grad():
+            for label, k, fn, plain, lib, nbytes in (
+                ("fwd", "conv3x3_bf16",
+                 lambda: k45.conv3x3_bf16_fwd(x, w),
+                 lambda: k45.conv3x3_bf16_reference(x, w),
+                 lambda: tnf.conv2d(xc, w_oihw, padding=1),
+                 act + 2 * 9 * cin * cout),
+                ("dgrad", "conv3x3_bf16",
+                 lambda: k45.conv3x3_bf16_fwd(dy, wf),
+                 lambda: k45.conv3x3_bf16_dgrad_reference(dy, w),
+                 lambda: torch.nn.grad.conv2d_input(xc.shape, w_oihw, dyc,
+                                                    padding=1),
+                 act + 2 * 9 * cin * cout),
+                ("wgrad", "conv3x3_bf16_wgrad",
+                 lambda: k45.conv3x3_bf16_wgrad(x, dy),
+                 lambda: k45.conv3x3_bf16_wgrad_reference(x, dy),
+                 lambda: torch.nn.grad.conv2d_weight(xc, w_oihw.shape, dyc,
+                                                     padding=1),
+                 act + 4 * 9 * cin * cout),
+            ):
+                ms = time_ms(fn, runs)
+                pms = time_ms(plain, 3)
+                lms = time_ms(lib, runs)
+                b_ms, b_by = add(k, main, ms, pms, lms, (ops, nbytes),
+                                 PEAK["bf16"])
+                every17[k][0] += ms
+                every17[k][1] += lms
+                print(f"time b{nb} {name:11s} {label:5s} kernel {ms:.4f} ms "
+                      f"({ops / ms / 1e9:.1f} TFLOP/s), plain {pms:.4f}, "
+                      f"library {lms:.4f}, bound {b_ms:.4f} ({b_by})"
+                      f"{' [main path]' if main else ''}", flush=True)
+        del x, dy, w, wf, w_oihw, xc, dyc
+        torch.cuda.empty_cache()
+    for k, (ms, lms) in every17.items():
+        print(f"time b{nb} {k} over all 17 convs (the mid=deep='kernel' "
+              f"step): kernel {ms:.4f} ms, library {lms:.4f} ms")
+    dims = (0, 1, 2)
+    for h, c in bn_shapes():
+        a, b = normal((nb, h, h, c), 1.0), normal((nb, h, h, c), 1.0)
+        m = nb * h * h
+        a2, b2 = a.reshape(m, c), b.reshape(m, c)
+        for label, args, lib, nbytes in (
+            ("fwd", (a,), lambda: torch.var_mean(a, dim=dims, correction=0),
+             2 * m * c + 8 * c),
+            ("bwd", (a, b), lambda: torch.linalg.vecdot(a2, b2, dim=0),
+             4 * m * c + 8 * c),
+        ):
+            ms = time_ms(lambda: k6.pair_sums(*args))
+            pms = time_ms(lambda: k6.pair_sums_reference(*args), 3)
+            lms = time_ms(lib)
+            b_ms, b_by = add("bn_pair_sums", True, ms, pms, lms,
+                             (3 * m * c, nbytes), PEAK["fp32"])
+            print(f"time b{nb} K6 {h:4d}^2 x {c:4d} {label}: kernel {ms:.4f} "
+                  f"ms ({nbytes / ms / 1e6:.0f} GB/s), plain {pms:.4f}, "
+                  f"library {lms:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
+        del a, b, a2, b2
+    for k, r in rows.items():
+        print(f"time b{nb} {k} summed over the default step's calls: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound "
+              f"{r['operations'] + r['bytes']:.4f}")
+    torch.cuda.empty_cache()
+
+    def step_for(setting, n):
+        state = create_train_state(unet(), OptimConfig())
+        if setting == "library":
+            return state, make_train_step(dice_ce_loss)
+        return state, packed_unet.make_packed_train_step(
+            dice_ce_loss, deep=setting, mid=setting)
+
+    for setting in ("torch", "kernel", "library"):
+        for n in (TRAIN_BATCH, 2 * TRAIN_BATCH):
+            xs, ys = batch(n, SEED + 30 + n)
+            torch.cuda.reset_peak_memory_stats()
+            state, step = step_for(setting, n)
+            for _ in range(2):
+                step(state, xs, ys)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                loss = step(state, xs, ys)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 5 * 1e3
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            what = ("packed, mid=deep=" + repr(setting) if setting != "library"
+                    else "unpacked UNet, library convs, autocast bf16")
+            print(f"train step ({what}) batch {n}: {ms:.3f} ms, "
+                  f"{n / ms * 1e3:.1f} B-scans/s, peak memory {peak_gb:.2f} "
+                  f"GB, loss {float(loss):.4f}", flush=True)
+            del state, step, xs, ys, loss
+            torch.cuda.empty_cache()
+
+    state, step = step_for("torch", TRAIN_BATCH)
+    for _ in range(2):
+        step(state, x8, y8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, x8, y8)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    total = sum(dev_us(e) for e in kern) / 1e3
+    if total <= 0:
+        print("profiler: no device time recorded (not measured)")
+    else:
+        groups = {"K4 conv3x3_bf16": "conv3x3_bf16_fwd",
+                  "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
+                  "K6 bn_pair_sums": "pair_sums"}
+        by_group = {gname: sum(dev_us(e) for e in kern if key in e.key) / 1e3
+                    for gname, key in groups.items()}
+        by_group["everything else"] = total - sum(by_group.values())
+        print(f"profile, 3 default steps at batch {TRAIN_BATCH}: wall "
+              f"{wall_ms / 3:.3f} ms/step, device busy {total / 3:.3f} "
+              f"ms/step ({100 * total / wall_ms:.2f}%), idle "
+              f"{100 * (1 - total / wall_ms):.2f}%")
+        for gname, t in by_group.items():
+            print(f"  {gname:24s} {t / 3:8.3f} ms/step {100 * t / total:6.2f}%")
+        for e in sorted(kern, key=dev_us, reverse=True)[:15]:
+            print(f"  {dev_us(e) / 3e3:8.3f} ms/step "
+                  f"{100 * dev_us(e) / 1e3 / total:6.2f}%  {e.key[:100]}")
+    del state, step
+
+    return [{
+        "name": k, "route": "cuda", "source": SOURCES[k],
+        "replaces": "; ".join(REPLACES[k]), "launches": launches[k],
+        "max_abs_err": max_err[k], "ms": rows[k]["ms"],
+        "plain_ms": rows[k]["plain_ms"],
+        "bound_ms": rows[k]["operations"] + rows[k]["bytes"],
+        "bound_by": ("operations" if rows[k]["operations"]
+                     >= rows[k]["bytes"] else "bytes"),
+        "library_ms": rows[k]["library_ms"],
+    } for k in names]
 
 
 def main() -> int:
@@ -342,6 +889,8 @@ def main() -> int:
         return statistics.median(out)
 
     totals = {k: [0.0, 0.0] for k in wrappers}
+    bounds = {k: {"operations": 0.0, "bytes": 0.0} for k in wrappers}
+    by_row = {}  # TPU kernel id -> [stages, kernel ms, plain ms, bound ms]
     for name, kernel, shape in stages():
         args, kw = stage_args(kernel, shape, 32)
         with torch.inference_mode():
@@ -349,13 +898,24 @@ def main() -> int:
             pms = time_ms(lambda: plains[kernel](*args, **kw))
         totals[kernel][0] += ms
         totals[kernel][1] += pms
+        b_ms, b_by = bound(*serving_work(kernel, shape, 32), PEAK["int8"])
+        bounds[kernel][b_by] += b_ms
+        row = by_row.setdefault(tpu_row(name, kernel, shape),
+                                [0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((1, ms, pms, b_ms)):
+            row[i] += v
         print(f"time b32 {name:16s} {kernel:13s} kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms", flush=True)
+              f"plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
         del args
         torch.cuda.empty_cache()
     for k, (ms, pms) in totals.items():
         print(f"time b32 {k} summed over the graph's stages: kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms")
+              f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{sum(bounds[k].values()):.4f} ms {bounds[k]}")
+    for row, (n_stages, ms, pms, b_ms) in sorted(by_row.items()):
+        print(f"time b32 TPU kernel {row} ({n_stages} launches per forward): "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms")
     for n in (32, 128):
         xb = torch.tensor(
             np.random.default_rng(n).uniform(0, 255, (n, HW, HW, 1)),
@@ -370,13 +930,19 @@ def main() -> int:
     print(f"serve latency, one B-scan per request (HTTP, batch-8 loop): "
           f"median {statistics.median(lat):.2f} ms, min {min(lat):.2f} ms")
 
-    # ------------------------------------------------------------------ 6
     kernels = [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": "; ".join(REPLACES[k]), "launches": launches[k],
         "max_abs_err": max_err[k], "ms": totals[k][0],
         "plain_ms": totals[k][1],
+        "bound_ms": sum(bounds[k].values()),
+        "bound_by": max(bounds[k], key=bounds[k].get),
+        # no single PyTorch call computes an int8 conv with requant (K1),
+        # an int8 transposed conv with requant (K2) or head + argmax on
+        # int8 (K3)
+        "library_ms": None,
     } for k in wrappers]
+    kernels += train_phases(dev, card, time_ms)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,28 +1,36 @@
-"""Command line: ``serve`` the int8 U-Net over HTTP.
+"""Command line: ``serve`` the int8 U-Net over HTTP, ``train`` a model.
 
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         serve --model unet --quantize psrp --image-size 512 --device cuda \\
         [--checkpoint state_dict.pt] [--seed 0]
+    python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
+        train --packed --image-size 512 --device cuda [--epochs 10] ...
 
 The served forward is built by ``build_psrp_forward``: model -> BN fold ->
 calibration on a seeded standard-normal batch (after the same
 preprocessing the requests get) -> int8 quantization -> the served graph,
-behind the per-image z-score. ``chip_smoke.py`` builds it the same way.
+behind the per-image z-score. ``train`` builds its trainer and synthetic
+datasets with ``build_training``. ``chip_smoke.py`` builds both the same way.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 import torch
 
+from .config import DataConfig, ModelConfig, OptimConfig, TrainConfig
 from .inference.http_server import serve_forever
 from .inference.psrp import quantize_unet_psrp, unet_psrp_forward
 from .inference.quantized import calibrate_unet, fold_unet_bn
 from .inference.server import ServingLoop
 from .ops.preprocess import preprocess
 from .registry import get_model
+from .training.data import SyntheticOCTConfig, SyntheticOCTDataset
+from .training.trainer import Trainer
+from .utils.logging import MetricLogger
 
 
 def build_model(name: str = "unet", *, num_classes: int,
@@ -64,10 +72,65 @@ def build_psrp_forward(model: torch.nn.Module, *, image_size: int, device,
     return forward, {"layers": layers, "taps": taps, "qparams": qparams}
 
 
-def cmd_serve(args) -> None:
-    device = torch.device(args.device)
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device available")
+        raise SystemExit(f"--device {name}: no CUDA device available")
+    return device
+
+
+def build_training(args):
+    """-> (trainer, train_ds, val_ds) for ``train``'s arguments: the
+    config as the JAX CLI builds it, synthetic Duke-DME-shaped data made on
+    the device (validation from seed 99)."""
+    if args.data:
+        raise NotImplementedError(
+            f"--data {args.data}: the real-data loaders are not ported yet "
+            "(ROADMAP.md, Queue A item 11); omit --data for synthetic data"
+        )
+    device = _device(args.device)
+    cfg = TrainConfig(
+        model=ModelConfig(
+            name=args.model, in_channels=args.in_channels,
+            num_classes=args.num_classes,
+            kwargs=json.loads(args.model_kwargs) if args.model_kwargs else {},
+        ),
+        optim=OptimConfig(optimizer=args.optimizer, learning_rate=args.lr),
+        data=DataConfig(
+            image_size=(args.image_size, args.image_size),
+            batch_size=args.batch_size, num_train=args.num_train,
+            num_val=args.num_val,
+        ),
+        loss=args.loss,
+        num_epochs=args.epochs,
+        checkpoint_dir=args.checkpoint_dir,
+        compute_dtype=args.dtype,
+        early_stop_patience=args.patience,
+        packed_train=args.packed,
+    )
+
+    def dataset(num, seed):
+        height, width = cfg.data.image_size
+        dcfg = SyntheticOCTConfig(height=height, width=width,
+                                  num_layers=max(args.num_classes - 2, 1),
+                                  seed=seed)
+        return SyntheticOCTDataset(dcfg, num, cfg.data.batch_size, device)
+
+    return (Trainer(cfg, device), dataset(cfg.data.num_train, 0),
+            dataset(cfg.data.num_val, 99))
+
+
+def cmd_train(args):
+    trainer, train_ds, val_ds = build_training(args)
+    logger = MetricLogger(args.log_file)
+    state = trainer.fit(train_ds, val_ds)
+    for rec in trainer.history:
+        logger.log(rec)
+    return state
+
+
+def cmd_serve(args) -> None:
+    device = _device(args.device)
     if args.checkpoint is None:
         print("note: no --checkpoint given; using random init from --seed")
     model = build_model(args.model, num_classes=args.num_classes,
@@ -81,7 +144,7 @@ def cmd_serve(args) -> None:
     serve_forever(loop, host=args.host, port=args.port)
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="octseg-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve", help="HTTP serving of the int8 U-Net")
@@ -101,7 +164,41 @@ def main(argv=None) -> None:
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8765)
     s.set_defaults(fn=cmd_serve)
-    args = p.parse_args(argv)
+
+    t = sub.add_parser("train", help="train a model on synthetic data")
+    t.add_argument("--model", default="unet")
+    t.add_argument("--num-classes", type=int, default=10)
+    t.add_argument("--in-channels", type=int, default=1)
+    t.add_argument("--model-kwargs", default="",
+                   help='JSON constructor overrides, e.g. \'{"init_features": 16}\'')
+    t.add_argument("--image-size", type=int, default=256)
+    t.add_argument("--batch-size", type=int, default=8)
+    t.add_argument("--dtype", default="bfloat16")
+    t.add_argument("--device", default="cuda")
+    t.add_argument("--data", default=None,
+                   help="real dataset spec (not ported yet: raises)")
+    t.add_argument("--epochs", type=int, default=10)
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--optimizer", default="adam")
+    t.add_argument("--loss", default="dice_ce")
+    t.add_argument("--num-train", type=int, default=128)
+    t.add_argument("--num-val", type=int, default=16)
+    t.add_argument("--patience", type=int, default=50)
+    t.add_argument("--checkpoint-dir", default=None)
+    t.add_argument("--log-file", default=None)
+    t.add_argument(
+        "--packed", nargs="?", const=True, default=False,
+        choices=[True, "remat"],
+        help="the U-Net's training forward on the CUDA kernels "
+             "(training/packed_unet.py; unet only); 'remat' also "
+             "checkpoints each block",
+    )
+    t.set_defaults(fn=cmd_train)
+    return p
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
     args.fn(args)
 
 

@@ -4,7 +4,8 @@ drawn from an explicit ``torch.Generator``.
 Modules are created uninitialised (``skip_init``, so the global RNG is never
 touched) and then initialised as ``torch.nn`` would: weights
 kaiming-uniform with ``a = sqrt(5)``, biases uniform in +-1/sqrt(fan_in).
-BatchNorm uses eps 1e-5, as the JAX package's ``models/blocks.BatchNorm``.
+BatchNorm is the JAX package's ``models/blocks.BatchNorm``: eps 1e-5, train
+mode through ``ops/fused_bn.bn_train`` with flax's running-stat update.
 """
 
 from __future__ import annotations
@@ -12,8 +13,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
+
+from ..ops.fused_bn import bn_train
 
 BN_EPS = 1e-5
 
@@ -48,5 +52,35 @@ def conv_transpose2x2(cin: int, cout: int,
     )
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                         var: torch.Tensor) -> None:
+    """Flax's update (``_FusedTrainBN``): 0.9 * old + 0.1 * batch, with the
+    biased batch variance (``nn.BatchNorm2d`` would use the unbiased one)."""
+    with torch.no_grad():
+        bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * mean)
+        bn.running_var.copy_(0.9 * bn.running_var + 0.1 * var)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """``BatchNorm2d`` (NCHW, eps 1e-5, same state-dict names) computed as
+    the JAX package's: train mode runs ``bn_train`` on the channels-last
+    view (K6 statistics) and updates the running stats once per call with
+    ``update_running_stats``; eval mode normalises in float32 and returns
+    the input's dtype."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x.float(), self.running_mean,
+                                self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps).to(x.dtype)
+        y, mean, var = bn_train(x.permute(0, 2, 3, 1), self.weight,
+                                self.bias)
+        update_running_stats(self, mean, var)
+        return y.permute(0, 3, 1, 2)
+
+
+def batch_norm(c: int) -> BatchNorm:
+    return BatchNorm(c)

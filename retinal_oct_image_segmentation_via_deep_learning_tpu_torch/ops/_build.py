@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a`` (all started together), and the objects are linked into one
 shared library with a plain C interface, named by a hash of the sources and
 flags, under ``_build/`` in the package. The first call builds; later calls
 (and later processes) reuse the library. Importing the package never builds.
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P = ctypes.c_void_p
@@ -37,6 +38,10 @@ SIGNATURES = {
     "octseg_ct2x2_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P],
     "octseg_head_argmax": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "octseg_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "octseg_conv3x3_bf16_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _P],
+    "octseg_bn_pair_sums": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -75,15 +80,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    tmp = out.with_suffix(f".{tag}")
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+    try:
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+        done = subprocess.run(link, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({done.returncode}):\n"
+                               f"{' '.join(link)}\n{done.stdout}\n"
+                               f"{done.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for _, obj, proc in jobs:
+            proc.wait()
+            obj.unlink(missing_ok=True)
     return out
 
 

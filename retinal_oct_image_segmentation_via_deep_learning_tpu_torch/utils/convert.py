@@ -1,9 +1,13 @@
-"""JAX U-Net weights -> this package's U-Net state dict (and qparams).
+"""JAX U-Net weights <-> this package's U-Net state dict (and JAX qparams
+-> this package's qparams).
 
-The reverse direction is the JAX package's
-``utils/torch_compat.import_torch_state(variables, state_dict,
-transposed=lambda n: "upconv" in n)``. Inputs are numpy arrays (or
-anything ``np.asarray`` takes); nothing of JAX is imported.
+Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing of JAX
+is imported. The reverse direction, ``unet_variables_from_state_dict``,
+gives numpy arrays in the JAX variable tree, so that a model trained here
+can be held against the JAX package (the JAX package's own
+``utils/torch_compat.import_torch_state`` does the same into an existing
+tree). A U-Net built with ``remat_stages=True`` names its blocks
+``CheckpointUNetBlock_N``; both spellings are read.
 
 Layouts: conv kernel (kh, kw, in, out) -> weight (out, in, kh, kw);
 ConvTranspose kernel (k, k, in, out) -> weight (in, out, k, k) (the JAX
@@ -36,7 +40,10 @@ def unet_state_dict_from_jax(variables) -> OrderedDict:
 
     def block(i):
         prefix = BLOCK_PREFIXES[i]
-        p, st = params[f"UNetBlock_{i}"], stats[f"UNetBlock_{i}"]
+        name = f"UNetBlock_{i}"
+        if name not in params:
+            name = "Checkpoint" + name
+        p, st = params[name], stats[name]
         for j in (0, 1):
             sd[f"{prefix}conv{j + 1}.weight"] = _t(
                 p[f"Conv_{j}"]["Conv_0"]["kernel"], (3, 2, 0, 1)
@@ -61,6 +68,45 @@ def unet_state_dict_from_jax(variables) -> OrderedDict:
     sd["conv.weight"] = _t(head["kernel"], (3, 2, 0, 1))
     sd["conv.bias"] = _t(head["bias"])
     return sd
+
+
+def unet_variables_from_state_dict(state_dict, *,
+                                  remat_stages: bool = False) -> dict:
+    """Port U-Net state dict -> JAX ``UNet`` variables {"params",
+    "batch_stats"} as float32 numpy arrays (the inverse of
+    ``unet_state_dict_from_jax``); ``remat_stages`` names the blocks
+    ``CheckpointUNetBlock_N``."""
+    def a(name, perm=None):
+        v = state_dict[name].detach().cpu().float().numpy()
+        return v.transpose(perm) if perm is not None else v
+
+    params, stats = {}, {}
+
+    def block(i):
+        prefix = BLOCK_PREFIXES[i]
+        name = ("CheckpointUNetBlock_" if remat_stages else "UNetBlock_") + \
+            str(i)
+        p, st = params.setdefault(name, {}), stats.setdefault(name, {})
+        for j in (0, 1):
+            p[f"Conv_{j}"] = {"Conv_0": {
+                "kernel": a(f"{prefix}conv{j + 1}.weight", (2, 3, 1, 0))}}
+            norm = f"{prefix}norm{j + 1}"
+            p[f"BatchNorm_{j}"] = {"BatchNorm_0": {
+                "scale": a(f"{norm}.weight"), "bias": a(f"{norm}.bias")}}
+            st[f"BatchNorm_{j}"] = {"BatchNorm_0": {
+                "mean": a(f"{norm}.running_mean"),
+                "var": a(f"{norm}.running_var")}}
+
+    for i in range(5):
+        block(i)
+    for k, name in enumerate(UPCONV_NAMES):
+        params[f"ConvTranspose_{k}"] = {
+            "kernel": a(f"{name}.weight", (2, 3, 0, 1)),
+            "bias": a(f"{name}.bias")}
+        block(5 + k)
+    params["Conv_0"] = {"Conv_0": {"kernel": a("conv.weight", (2, 3, 1, 0)),
+                                   "bias": a("conv.bias")}}
+    return {"params": params, "batch_stats": stats}
 
 
 def unet_qparams_from_jax(qparams) -> dict:

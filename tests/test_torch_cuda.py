@@ -19,7 +19,13 @@ from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.psrp i
     unet_psrp_forward,
 )
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+    conv_bf16 as k45,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
     conv_int8 as k12,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+    fused_bn as k6,
 )
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
     head_argmax as k3,
@@ -117,3 +123,114 @@ def test_graph_kernels_match_plain(dev):
         want = unet_psrp_forward(calib["qparams"], x, 5, reference=True)
     assert got.shape == (3, 64, 64) and got.dtype == torch.int8
     assert torch.equal(got, want)
+
+
+def _bf16(rng, shape, dev, integers=True):
+    v = rng.integers(-2, 3, shape) if integers else rng.standard_normal(shape)
+    return torch.tensor(v, dtype=torch.bfloat16, device=dev)
+
+
+def _bf16_ulp(t):
+    """bf16 ulp of each element's magnitude (float32)."""
+    t = torch.clamp_min(t.float().abs(), 2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(t)) - 7)
+
+
+CONV_SHAPES = [
+    (2, 16, 16, 32, 32),   # 512^2-stage widths, vector loads
+    (1, 7, 9, 5, 3),       # odd channels (scalar loads), partial tiles
+    (2, 10, 20, 24, 40),   # cout not a multiple of 32
+    (1, 8, 16, 64, 96),    # several channel chunks and cout tiles
+]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_SHAPES)
+def test_k4_k5_bit_equal_on_integers(dev, n, h, w, cin, cout):
+    rng = np.random.default_rng(4)
+    x = _bf16(rng, (n, h, w, cin), dev)
+    wt = _bf16(rng, (3, 3, cin, cout), dev)
+    dy = _bf16(rng, (n, h, w, cout), dev)
+    before = (k45.conv3x3_bf16_fwd.launches, k45.conv3x3_bf16_wgrad.launches)
+    y = k45.conv3x3_bf16_fwd(x, wt)
+    dx = k45.conv3x3_bf16_fwd(dy, k45.flip_w(wt))
+    dw = k45.conv3x3_bf16_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert (k45.conv3x3_bf16_fwd.launches, k45.conv3x3_bf16_wgrad.launches) \
+        == (before[0] + 2, before[1] + 1)
+    assert torch.equal(y, k45.conv3x3_bf16_reference(x, wt))
+    assert torch.equal(dx, k45.conv3x3_bf16_dgrad_reference(dy, wt))
+    assert torch.equal(dw, k45.conv3x3_bf16_wgrad_reference(x, dy))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", CONV_SHAPES)
+def test_k4_k5_on_random_data(dev, n, h, w, cin, cout):
+    """fp32 sums in another order, on the tensor cores: K4 within one bf16
+    ulp of the float64 plain version plus 2^-16 of the sum of |products|
+    (where a sum cancels, the tensor cores' fp32 accumulation error is many
+    ulps of the result); K5 within 1e-5 of its largest element."""
+    rng = np.random.default_rng(5)
+    x = _bf16(rng, (n, h, w, cin), dev, integers=False)
+    wt = _bf16(rng, (3, 3, cin, cout), dev, integers=False)
+    dy = _bf16(rng, (n, h, w, cout), dev, integers=False)
+    want = k45.conv3x3_bf16_reference(x, wt).float()
+    mag = k45.conv3x3_bf16_reference(x.abs(), wt.abs()).float()
+    err = (k45.conv3x3_bf16_fwd(x, wt).float() - want).abs()
+    assert bool((err <= _bf16_ulp(want) + 2.0 ** -16 * mag).all())
+    got = k45.conv3x3_bf16_wgrad(x, dy)
+    want = k45.conv3x3_bf16_wgrad_reference(x, dy)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+def test_conv3x3_bf16_autograd_launches(dev):
+    rng = np.random.default_rng(6)
+    x = _bf16(rng, (2, 8, 16, 16), dev).requires_grad_()
+    wt = _bf16(rng, (3, 3, 16, 32), dev).requires_grad_()
+    f0, g0 = k45.conv3x3_bf16_fwd.launches, k45.conv3x3_bf16_wgrad.launches
+    y = k45.conv3x3_bf16(x, wt)
+    dy = _bf16(rng, y.shape, dev)
+    gx, gw = torch.autograd.grad(y, (x, wt), dy)
+    torch.cuda.synchronize()
+    assert k45.conv3x3_bf16_fwd.launches == f0 + 2
+    assert k45.conv3x3_bf16_wgrad.launches == g0 + 1
+    xc, wc, dc = x.detach().cpu(), wt.detach().cpu(), dy.cpu()
+    assert torch.equal(gx.cpu(), k45.conv3x3_bf16_dgrad_reference(dc, wc))
+    assert torch.equal(gw.cpu(),
+                       k45.conv3x3_bf16_wgrad_reference(xc, dc).bfloat16())
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 32), (3, 8, 8, 512), (6, 5),
+                                   (4, 33, 130)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("two", [False, True])
+def test_k6_matches_float64(dev, shape, dtype, two):
+    """K6 within rtol 1e-6 of the float64 sums on N(1, 1) inputs (positive
+    means, so no sum cancels)."""
+    rng = np.random.default_rng(7)
+    a = torch.tensor(rng.normal(1, 1, shape), dtype=dtype, device=dev)
+    b = torch.tensor(rng.normal(1, 1, shape), dtype=dtype, device=dev) \
+        if two else None
+    before = k6.pair_sums.launches
+    got = k6.pair_sums(a, b)
+    torch.cuda.synchronize()
+    assert k6.pair_sums.launches == before + 1
+    want = k6.pair_sums_reference(a, b)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_train_cuda_matches_cpu(dev, dtype):
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.normal(0.5, 2, (2, 8, 10, 32)), dtype=dtype)
+    g = torch.tensor(rng.uniform(0.5, 1.5, 32), dtype=torch.float32)
+    b = torch.tensor(rng.normal(0, 1, 32), dtype=torch.float32)
+    r = torch.tensor(rng.normal(0, 1, x.shape), dtype=dtype)
+    outs = []
+    for d in ("cpu", dev):
+        xs, gs, bs = (t.to(d).requires_grad_() for t in (x, g, b))
+        y, mean, var = k6.bn_train(xs, gs, bs)
+        grads = torch.autograd.grad(y, (xs, gs, bs), r.to(d))
+        outs.append([t.float().cpu() for t in (y, mean, var, *grads)])
+    atol = 1e-5 if dtype == torch.float32 else 0.05
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
