@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 U-Net serving path and its U-Net training
-path once on one NVIDIA GPU.
+"""Drive the PyTorch port's int8 serving paths (U-Net and ReLayNet) and
+its U-Net training path (with and without the fused Dice+CE loss) once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -35,7 +36,29 @@ Phases (any failure raises; the exit code is then non-zero):
 8. times on the card: each training kernel summed over the step's calls at
    batch 8 against its plain version and one library call, the train step
    at batch 8 and 16 in both conv settings (and the library-conv step),
-   peak memory, and a ``torch.profiler`` breakdown of the step.
+   peak memory, and a ``torch.profiler`` breakdown of the step;
+9. fused-loss kernels: K8 and K9 at the train step's logits (8, 512, 512,
+   10) bf16 with int64 labels, uniform and class weights: K8 within rtol
+   1e-5 of the float64 plain version, K9 within one bf16 ulp of the
+   float64 dlogits (plus an fp32 floor of 2^-20 of the largest);
+10. fused-loss training: five steps of ``cli train --packed`` with
+    ``OCTSEG_PACKED_FUSED_LOSS=1``: loss finite and falling, K8/K9
+    launched once each per step (K4-K6 as in phase 7); from the state
+    those steps reached, the fused step against the unfused step
+    (``FUSED_GATE``) and two planted K8/K9 faults the gate must reject;
+11. times: K8 and K9 against their plain versions, both losses' forward +
+    backward, and the train step at batch 8 with and without the fused
+    loss (in turns: unfused, fused, fused, unfused);
+12. ReLayNet kernels: K7 at its 7 stage shapes (f=64, 512x512, batch 2),
+    bit for bit against its plain version (pool values and indices too);
+13. ReLayNet graph (f=64, 10 classes, seeded random weights, batch 8):
+    labels identical to the plain graph's, agreement with the all-int8
+    oracle > 0.995 and the float graph > 0.95;
+14. ReLayNet served as ``cli serve --model relaynet`` builds it: 6 HTTP
+    requests, each equal to the direct forward; K7 7 and K3 1 launches
+    per forward;
+15. ReLayNet times at batch 32: K7 per stage and summed, against its plain
+    version and its bound, and the served forward.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -76,6 +99,10 @@ REPLACES = {
     "conv3x3_bf16": [_JAX + "pallas_conv_bf16.py:121 _conv_fwd_pallas"],
     "conv3x3_bf16_wgrad": [_JAX + "pallas_conv_bf16.py:220 _conv_wgrad_pallas"],
     "bn_pair_sums": [_JAX + "fused_bn.py:66 _pallas_pair_sums"],
+    "conv7x3_int8": [_JAX + "pallas_conv_psrp7.py:197 conv7x3_psrp",
+                     _JAX + "pallas_conv_psrp7.py:360 stem7_psrp"],
+    "dice_ce_stats": [_JAX + "pallas_loss.py:141 _run_fwd"],
+    "dice_ce_bwd": [_JAX + "pallas_loss.py:187 _bwd"],
 }
 _PKG = "retinal_oct_image_segmentation_via_deep_learning_tpu_torch/"
 SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
@@ -83,12 +110,22 @@ SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
            "head_argmax": _PKG + "csrc/head_argmax.cu",
            "conv3x3_bf16": _PKG + "csrc/conv3x3_bf16.cu",
            "conv3x3_bf16_wgrad": _PKG + "csrc/conv3x3_bf16.cu",
-           "bn_pair_sums": _PKG + "csrc/bn_pair_sums.cu"}
+           "bn_pair_sums": _PKG + "csrc/bn_pair_sums.cu",
+           "conv7x3_int8": _PKG + "csrc/conv7x3_int8.cu",
+           "dice_ce_stats": _PKG + "csrc/dice_ce.cu",
+           "dice_ce_bwd": _PKG + "csrc/dice_ce.cu"}
 # kernel step vs plain-version step from the trained state: relative loss,
 # lowest gradient cosine and largest change of a gradient's norm, each
 # between the kernels' own floor (a one-ulp input change) and two planted
 # kernel faults (PERF.md section 6)
 GATE = {"loss": 1e-5, "cosine": 0.9999, "norm": 3e-3}
+# the fused-loss step vs the unfused step from the trained state: the same
+# three readings, each near the geometric middle of the one-ulp floor and
+# the nearest of two planted K8/K9 faults (PERF.md section 6)
+FUSED_GATE = {"loss": 1e-5, "cosine": 0.9997, "norm": 2e-3}
+RELAYNET_F = 64
+RELAYNET_GAIN = 0.75  # the 7x3 weights' scale in phase 13 (see there)
+RELAYNET_LAUNCHES = {"conv7x3_int8": 7, "head_argmax": 1}
 LAUNCHES_PER_FORWARD = {"conv3x3_int8": 18, "ct2x2_int8": 4,
                         "head_argmax": 1}
 LAUNCHES_PER_STEP = {
@@ -183,8 +220,158 @@ def serving_work(kernel, shape, n):
             n * h * h * cin + cin * NC + 8 * NC + n * h * h)
 
 
+def relaynet_stages(f, hw):
+    """ReLayNet's K7 calls of one forward: (name, H, cins, pool)."""
+    return [("b0 stem", hw, (1,), True), ("b1", hw // 2, (f,), True),
+            ("b2", hw // 4, (f,), True), ("b3", hw // 8, (f,), False),
+            ("b4", hw // 4, (f, f), False), ("b5", hw // 2, (f, f), False),
+            ("b6", hw, (f, f), False)]
+
+
+def relaynet_work(h, cins, pool, n, f=64):
+    """(int8 ops, bytes) of one K7 call at batch n: each input read once,
+    each output (with the pool: the pooled values and the indices too)
+    written once."""
+    cin = sum(cins)
+    return (2 * n * h * h * 21 * cin * f,
+            n * h * h * cin + 21 * cin * f + 8 * f
+            + n * h * h * f * (1.5 if pool else 1))
+
+
+T_START = time.perf_counter()
+
+
+def train_batch(dev, n, seed):
+    """Seeded synthetic Duke-DME-shaped B-scans (z-scored) and labels."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
+        preprocess,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.data import (
+        SyntheticOCTConfig,
+        synth_batch,
+    )
+
+    gb = torch.Generator(device=dev).manual_seed(seed)
+    images, labels = synth_batch(gb, n, SyntheticOCTConfig(
+        height=HW, width=HW, num_layers=NC - 2))
+    return preprocess(images), labels
+
+
+def seeded_unet(dev):
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
+        get_model,
+    )
+
+    return get_model("unet", num_classes=NC, init_features=F,
+                     seed=SEED).to(dev)
+
+
+def train_cli_args():
+    """``cli train --packed`` at f=F, NC classes, HW^2, TRAIN_BATCH, Adam
+    1e-3, five one-step epochs."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
+
+    return cli.parser().parse_args([
+        "train", "--packed", "--image-size", str(HW), "--num-classes",
+        str(NC), "--batch-size", str(TRAIN_BATCH), "--num-train",
+        str(TRAIN_BATCH), "--num-val", str(TRAIN_BATCH), "--epochs", "5",
+        "--lr", "1e-3", "--optimizer", "adam", "--device", "cuda",
+        "--model-kwargs", json.dumps({"init_features": F})])
+
+
+def one_ulp_change(x, dev):
+    """``x`` in bf16 with one ulp added to 1e-4 of its elements (seeded):
+    how far a step moves under a rounding-sized change of its input."""
+    import torch
+
+    gp = torch.Generator(device=dev).manual_seed(SEED + 40)
+    xi = x.to(torch.bfloat16).view(torch.int16)
+    hit = torch.rand(xi.shape, generator=gp, device=dev) < 1e-4
+    return torch.where(hit, xi + 1, xi).view(torch.bfloat16)
+
+
+def agreement(a, b):
+    """Of two (loss, {name: gradient}) results: (relative loss difference,
+    (lowest gradient cosine, its tensor), (largest |norm ratio - 1|, its
+    tensor)), over the tensors above a norm of 1e-3."""
+    cos, ratio = (1.0, ""), (0.0, "")
+    for n in a[1]:
+        u, v = a[1][n].flatten(), b[1][n].flatten()
+        nu, nv = float(u.norm()), float(v.norm())
+        if max(nu, nv) > 1e-3:
+            cos = min(cos, (float(u @ v) / (nu * nv), n))
+            ratio = max(ratio, (abs(nu / nv - 1), n))
+    return abs(a[0] - b[0]) / abs(b[0]), cos, ratio
+
+
+def gate_passes(agree, gate):
+    """A gate set between the one-ulp floor and planted faults (PERF.md
+    section 6)."""
+    return agree[0] < gate["loss"] and agree[1][0] > gate["cosine"] \
+        and agree[2][0] < gate["norm"]
+
+
+def reading(agree):
+    return (f"relative loss {agree[0]:.2e}, lowest cosine "
+            f"{agree[1][0]:.6f} ({agree[1][1]}), largest norm change "
+            f"{agree[2][0]:.2e} ({agree[2][1]})")
+
+
+def profile_breakdown(fn, runs, what, groups):
+    """``torch.profiler`` over ``runs`` calls of ``fn``: wall and device
+    busy time per call, device time by kernel group (name substring) and
+    the 15 largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    total = sum(dev_us(e) for e in kern) / 1e3
+    if total <= 0:
+        print("profiler: no device time recorded (not measured)")
+        return
+    by_group = {gname: sum(dev_us(e) for e in kern if key in e.key) / 1e3
+                for gname, key in groups.items()}
+    by_group["everything else"] = total - sum(by_group.values())
+    print(f"profile, {runs} x {what}: wall {wall_ms / runs:.3f} ms each, "
+          f"device busy {total / runs:.3f} ms ({100 * total / wall_ms:.2f}%), "
+          f"idle {100 * (1 - total / wall_ms):.2f}%")
+    for gname, t in by_group.items():
+        print(f"  {gname:24s} {t / runs:8.3f} ms {100 * t / total:6.2f}%")
+    for e in sorted(kern, key=dev_us, reverse=True)[:15]:
+        print(f"  {dev_us(e) / runs / 1e3:8.3f} ms "
+              f"{100 * dev_us(e) / 1e3 / total:6.2f}%  {e.key[:100]}")
+
+
+def http_post(url, arr):
+    """POST one array to the server's /predict; -> the returned array."""
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    req = urllib.request.Request(f"{url}/predict", data=buf.getvalue(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return np.load(io.BytesIO(r.read()), allow_pickle=False)
+
+
 def phase(name):
-    print(f"\n=== {name} ===", flush=True)
+    print(f"\n=== {name} === (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 @contextlib.contextmanager
@@ -207,8 +394,6 @@ def train_phases(dev, card, time_ms):
     line."""
     import torch
     import torch.nn.functional as tnf
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.config import (
@@ -220,18 +405,8 @@ def train_phases(dev, card, time_ms):
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
         fused_bn as k6,
     )
-    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
-        preprocess,
-    )
-    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
-        get_model,
-    )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training import (
         packed_unet,
-    )
-    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.data import (
-        SyntheticOCTConfig,
-        synth_batch,
     )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.losses import (
         dice_ce_loss,
@@ -267,14 +442,10 @@ def train_phases(dev, card, time_ms):
         return (torch.randn(shape, generator=g, device=dev) + mean).to(bf16)
 
     def batch(n, seed):
-        gb = torch.Generator(device=dev).manual_seed(seed)
-        images, labels = synth_batch(gb, n, SyntheticOCTConfig(
-            height=HW, width=HW, num_layers=NC - 2))
-        return preprocess(images), labels
+        return train_batch(dev, n, seed)
 
     def unet():
-        return get_model("unet", num_classes=NC, init_features=F,
-                         seed=SEED).to(dev)
+        return seeded_unet(dev)
 
     # ------------------------------------------------------------------ 6
     phase(f"6 training kernels vs plain versions (batch {TRAIN_BATCH})")
@@ -326,13 +497,7 @@ def train_phases(dev, card, time_ms):
     # ------------------------------------------------------------------ 7
     phase(f"7 train: cli train --packed (f={F}, {NC} classes, {HW}x{HW}, "
           f"batch {TRAIN_BATCH}, Adam 1e-3), five steps")
-    args = cli.parser().parse_args([
-        "train", "--packed", "--image-size", str(HW), "--num-classes",
-        str(NC), "--batch-size", str(TRAIN_BATCH), "--num-train",
-        str(TRAIN_BATCH), "--num-val", str(TRAIN_BATCH), "--epochs", "5",
-        "--lr", "1e-3", "--optimizer", "adam", "--device", "cuda",
-        "--model-kwargs", json.dumps({"init_features": F})])
-    trainer, train_ds, val_ds = cli.build_training(args)
+    trainer, train_ds, val_ds = cli.build_training(train_cli_args())
     reset()
     t0 = time.perf_counter()
     trained = trainer.fit(train_ds, val_ds).model.state_dict()
@@ -367,38 +532,14 @@ def train_phases(dev, card, time_ms):
         return float(loss.detach()), {n: p.grad.detach().double()
                                       for n, p in model.named_parameters()}
 
-    def agreement(a, b):
-        """(relative loss difference, (lowest gradient cosine, its tensor),
-        (largest |norm ratio - 1|, its tensor)), over the tensors above a
-        norm of 1e-3."""
-        cos, ratio = (1.0, ""), (0.0, "")
-        for n in a[1]:
-            u, v = a[1][n].flatten(), b[1][n].flatten()
-            nu, nv = float(u.norm()), float(v.norm())
-            if max(nu, nv) > 1e-3:
-                cos = min(cos, (float(u @ v) / (nu * nv), n))
-                ratio = max(ratio, (abs(nu / nv - 1), n))
-        return abs(a[0] - b[0]) / abs(b[0]), cos, ratio
-
     def passes(agree):
-        """The gate, set between the one-ulp floor and the planted faults
-        (PERF.md section 6)."""
-        return agree[0] < GATE["loss"] and agree[1][0] > GATE["cosine"] \
-            and agree[2][0] < GATE["norm"]
-
-    def reading(agree):
-        return (f"relative loss {agree[0]:.2e}, lowest cosine "
-                f"{agree[1][0]:.6f} ({agree[1][1]}), largest norm change "
-                f"{agree[2][0]:.2e} ({agree[2][1]})")
+        return gate_passes(agree, GATE)
 
     # beside each comparison, the same kernel step with one bf16 ulp added
     # to 1e-4 of the input pixels: how far the function itself moves under a
     # rounding-sized change. The gate is the trained state's: at the random
     # init the deep layers' bf16 gradients move that much under such a change
-    gp = torch.Generator(device=dev).manual_seed(SEED + 40)
-    xi = x8.to(bf16).view(torch.int16)
-    hit = torch.rand(xi.shape, generator=gp, device=dev) < 1e-4
-    x_ulp = torch.where(hit, xi + 1, xi).view(bf16)
+    x_ulp = one_ulp_change(x8, dev)
     for label, weights in (("the random init", None),
                            ("the trained state", trained)):
         kern = loss_and_grads(weights)
@@ -583,40 +724,11 @@ def train_phases(dev, card, time_ms):
     state, step = step_for("torch", TRAIN_BATCH)
     for _ in range(2):
         step(state, x8, y8)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step(state, x8, y8)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    total = sum(dev_us(e) for e in kern) / 1e3
-    if total <= 0:
-        print("profiler: no device time recorded (not measured)")
-    else:
-        groups = {"K4 conv3x3_bf16": "conv3x3_bf16_fwd",
-                  "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
-                  "K6 bn_pair_sums": "pair_sums"}
-        by_group = {gname: sum(dev_us(e) for e in kern if key in e.key) / 1e3
-                    for gname, key in groups.items()}
-        by_group["everything else"] = total - sum(by_group.values())
-        print(f"profile, 3 default steps at batch {TRAIN_BATCH}: wall "
-              f"{wall_ms / 3:.3f} ms/step, device busy {total / 3:.3f} "
-              f"ms/step ({100 * total / wall_ms:.2f}%), idle "
-              f"{100 * (1 - total / wall_ms):.2f}%")
-        for gname, t in by_group.items():
-            print(f"  {gname:24s} {t / 3:8.3f} ms/step {100 * t / total:6.2f}%")
-        for e in sorted(kern, key=dev_us, reverse=True)[:15]:
-            print(f"  {dev_us(e) / 3e3:8.3f} ms/step "
-                  f"{100 * dev_us(e) / 1e3 / total:6.2f}%  {e.key[:100]}")
+    profile_breakdown(lambda: step(state, x8, y8), 3,
+                      f"default steps at batch {TRAIN_BATCH}",
+                      {"K4 conv3x3_bf16": "conv3x3_bf16_fwd",
+                       "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
+                       "K6 bn_pair_sums": "pair_sums"})
     del state, step
 
     return [{
@@ -629,6 +741,496 @@ def train_phases(dev, card, time_ms):
                      >= rows[k]["bytes"] else "bytes"),
         "library_ms": rows[k]["library_ms"],
     } for k in names]
+
+
+def k9_within_ulp(dx, exact):
+    """K9's dlogits against the float64 ones: (elements beyond one ulp of
+    dx's dtype plus the fp32 floor of 2^-20 of the largest, largest error
+    in ulps). The floor: dlogit is an fp32 sum of terms as large as the
+    largest element, which can cancel."""
+    import torch
+
+    want = exact.to(dx.dtype).float().abs().clamp_min(2.0 ** -126)
+    if dx.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(want)) - 7)
+    else:
+        ulp = want * 2.0 ** -23
+    err = (dx.double() - exact).abs()
+    floor = 2.0 ** -20 * float(exact.abs().max())
+    return (int((err > ulp.double() + floor).sum()),
+            float((err / ulp.double()).max()))
+
+
+def fused_loss_phases(dev, card, time_ms):
+    """Phases 9-11: the fused Dice+CE loss (K8, K9) on the packed train
+    step. -> the K8 and K9 entries of the kernels line."""
+    import os
+
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.config import (
+        OptimConfig,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv_bf16 as k45,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        dice_ce as k89,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training import (
+        packed_unet,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.losses import (
+        dice_ce_loss,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.train_state import (
+        create_train_state,
+    )
+
+    names = ("dice_ce_stats", "dice_ce_bwd")
+    every = {"conv3x3_bf16": k45.conv3x3_bf16_fwd,
+             "conv3x3_bf16_wgrad": k45.conv3x3_bf16_wgrad,
+             "bn_pair_sums": k6.pair_sums,
+             "dice_ce_stats": k89.dice_ce_stats,
+             "dice_ce_bwd": k89.dice_ce_bwd}
+
+    def reset():
+        for w in every.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in every.items()}
+
+    def batch(n, seed):
+        return train_batch(dev, n, seed)
+
+    def unet():
+        return seeded_unet(dev)
+
+    nb, P = TRAIN_BATCH, TRAIN_BATCH * HW * HW
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    logits = (torch.randn((nb, HW, HW, NC), generator=g, device=dev)
+              * 3).to(torch.bfloat16)
+    labels = torch.randint(0, NC, (nb, HW, HW), generator=g, device=dev)
+    weights = {"uniform": torch.ones(NC, device=dev),
+               "class weights": torch.linspace(0.5, 2.0, NC, device=dev)}
+
+    # ------------------------------------------------------------------ 9
+    phase(f"9 fused-loss kernels vs plain versions ({nb}, {HW}, {HW}, {NC}) "
+          "bf16 logits, int64 labels")
+    max_err = {k: 0.0 for k in names}
+    bad = 0
+    for label, cw in weights.items():
+        stats = k89.dice_ce_stats(logits, labels, cw)
+        want = k89.dice_ce_stats_reference(logits, labels, cw)
+        exact = k89.dice_ce_stats_reference(logits.double(), labels, cw)
+        coef = k89.loss_coefficients(want, torch.ones((), device=dev), NC,
+                                     1.0, label == "uniform", cw)
+        dx = k89.dice_ce_bwd(logits, labels, coef)
+        dx_exact = k89.dice_ce_bwd_reference(logits.double(), labels, coef)
+        torch.cuda.synchronize()
+        rel = float(((stats.double() - exact.double()).abs()
+                     / exact.double().abs().clamp_min(1e-30)).max())
+        beyond, ulps = k9_within_ulp(dx, dx_exact)
+        max_err["dice_ce_stats"] = max(max_err["dice_ce_stats"],
+                                       float((stats - want).abs().max()))
+        max_err["dice_ce_bwd"] = max(
+            max_err["dice_ce_bwd"],
+            float((dx.float() - k89.dice_ce_bwd_reference(
+                logits, labels, coef).float()).abs().max()))
+        print(f"{label}: K8 largest relative error vs float64 {rel:.3e} "
+              f"(limit 1e-5); K9 elements beyond one bf16 ulp + floor "
+              f"{beyond} of {dx.numel()}, largest error {ulps:.3f} ulp",
+              flush=True)
+        bad += (rel > 1e-5) + beyond
+    if bad:
+        raise RuntimeError("fused-loss kernel checks failed")
+
+    # ------------------------------------------------------------------ 10
+    phase(f"10 train: cli train --packed with OCTSEG_PACKED_FUSED_LOSS=1 "
+          f"(f={F}, {NC} classes, {HW}x{HW}, batch {nb}), five steps")
+    os.environ["OCTSEG_PACKED_FUSED_LOSS"] = "1"
+    try:
+        trainer, train_ds, val_ds = cli.build_training(train_cli_args())
+        reset()
+        trained = trainer.fit(train_ds, val_ds).model.state_dict()
+        torch.cuda.synchronize()
+        launches = counts()
+    finally:
+        del os.environ["OCTSEG_PACKED_FUSED_LOSS"]
+    losses = [r["train_loss"] for r in trainer.history]
+    print(f"train losses {[f'{v:.6f}' for v in losses]}; launches "
+          f"{launches}, expected 5 x K8/K9 1/1 and "
+          f"{LAUNCHES_PER_STEP['torch']}", flush=True)
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"train losses {losses}")
+    if not losses[4] < losses[0]:
+        raise RuntimeError(f"loss did not go down: {losses}")
+    want = {**{k: 5 * v for k, v in LAUNCHES_PER_STEP["torch"].items()},
+            "dice_ce_stats": 5, "dice_ce_bwd": 5}
+    if launches != want:
+        raise RuntimeError(f"launch counts, expected {want}")
+    del trainer, train_ds, val_ds
+    torch.cuda.empty_cache()
+
+    x8, y8 = batch(nb, SEED + 20)
+
+    def step_grads(fused, x=x8):
+        model = unet()
+        model.load_state_dict(trained)
+        out, _ = packed_unet.packed_unet_apply(model, x)
+        loss = (k89.dice_ce_loss_fused if fused else dice_ce_loss)(out, y8)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: p.grad.detach().double()
+                                      for n, p in model.named_parameters()}
+
+    x_ulp = one_ulp_change(x8, dev)
+    fused, unfused = step_grads(True), step_grads(False)
+    agree = agreement(fused, unfused)
+    floor = agreement(fused, step_grads(True, x_ulp))
+    print(f"one step from the trained state, fused vs unfused loss: "
+          f"{reading(agree)}; fused on a 1-ulp input change: "
+          f"{reading(floor)}", flush=True)
+    stats_fn, bwd_fn = k89.dice_ce_stats, k89.dice_ce_bwd
+
+    def k9_drops_pixels(x, lab, coef):
+        """K9 with every 64th pixel's dlogits left out."""
+        dx = bwd_fn(x, lab, coef)
+        dx.view(-1, dx.shape[-1])[::64] = 0
+        return dx
+
+    def k8_counts_high(x, lab, cw):
+        """K8 with its per-class label counts 0.5% high (scaling every sum
+        alike would leave the loss's ratios, and so the loss, as they
+        are)."""
+        stats = stats_fn(x, lab, cw)
+        stats[2 * NC:3 * NC] *= 1.005
+        return stats
+
+    k9_drops_pixels.launches = k8_counts_high.launches = 0
+    faults = {}
+    for label, fault in (
+        ("K9 leaves out every 64th pixel",
+         swapped(k89, dice_ce_bwd=k9_drops_pixels)),
+        ("K8 counts 0.5% high",
+         swapped(k89, dice_ce_stats=k8_counts_high)),
+    ):
+        with fault:
+            faults[label] = agreement(step_grads(True), unfused)
+        print(f"planted fault, {label}: {reading(faults[label])}", flush=True)
+    print(f"gate: relative loss < {FUSED_GATE['loss']}, cosine > "
+          f"{FUSED_GATE['cosine']}, norm change < {FUSED_GATE['norm']}")
+    if not gate_passes(agree, FUSED_GATE):
+        raise RuntimeError("fused-loss step and unfused step disagree")
+    seen = [k for k, a in faults.items() if not gate_passes(a, FUSED_GATE)]
+    if len(seen) != len(faults):
+        raise RuntimeError(f"the gate sees only the faults {seen}")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 11
+    phase(f"11 fused-loss times on {card}")
+    cw = weights["uniform"]
+    stats = k89.dice_ce_stats(logits, labels, cw)
+    coef = k89.loss_coefficients(stats, torch.ones((), device=dev), NC, 1.0,
+                                 True, cw)
+    lab_bytes = labels.element_size() * P
+    work = {"dice_ce_stats": (8 * P * NC, 2 * P * NC + lab_bytes + 4 * NC
+                              + 4 * (3 * NC + 2)),
+            "dice_ce_bwd": (16 * P * NC, 4 * P * NC + lab_bytes
+                            + 4 * 3 * NC)}
+    rows = {}
+    for k, fn, plain in (
+        ("dice_ce_stats", lambda: k89.dice_ce_stats(logits, labels, cw),
+         lambda: k89.dice_ce_stats_reference(logits, labels, cw)),
+        ("dice_ce_bwd", lambda: k89.dice_ce_bwd(logits, labels, coef),
+         lambda: k89.dice_ce_bwd_reference(logits, labels, coef)),
+    ):
+        ms, pms = time_ms(fn), time_ms(plain, 3)
+        b_ms, b_by = bound(*work[k], PEAK["fp32"])
+        rows[k] = (ms, pms, b_ms, b_by)
+        print(f"time b{nb} {k}: kernel {ms:.4f} ms "
+              f"({work[k][1] / ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    def fwd_bwd(fn):
+        def run():
+            x = logits.detach().requires_grad_()
+            torch.autograd.grad(fn(x, labels), x)
+        return run
+
+    for label, fn in (("unfused dice_ce_loss", dice_ce_loss),
+                      ("fused dice_ce_loss_fused", k89.dice_ce_loss_fused)):
+        print(f"time b{nb} {label} forward + backward: "
+              f"{time_ms(fwd_bwd(fn)):.4f} ms", flush=True)
+
+    xs, ys = batch(nb, SEED + 30 + nb)
+
+    def warm_step(fused):
+        state = create_train_state(unet(), OptimConfig())
+        step = packed_unet.make_packed_train_step(dice_ce_loss,
+                                                  fused_loss=fused)
+        for _ in range(2):
+            step(state, xs, ys)
+        return lambda: step(state, xs, ys)
+
+    for fused in (False, True, True, False):
+        step = warm_step(fused)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"train step (packed, {'fused' if fused else 'unfused'} loss) "
+              f"batch {nb}: {ms:.3f} ms, {nb / ms * 1e3:.1f} B-scans/s",
+              flush=True)
+    profile_breakdown(warm_step(True), 3, f"fused-loss steps at batch {nb}",
+                      {"K8 dice_ce_stats": "dice_ce_stats",
+                       "K9 dice_ce_bwd": "dice_ce_bwd",
+                       "K4 conv3x3_bf16": "conv3x3_bf16_fwd",
+                       "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
+                       "K6 bn_pair_sums": "pair_sums"})
+    del step, xs, ys
+    torch.cuda.empty_cache()
+
+    return [{
+        "name": k, "route": "cuda", "source": SOURCES[k],
+        "replaces": "; ".join(REPLACES[k]), "launches": launches[k],
+        "max_abs_err": max_err[k], "ms": rows[k][0], "plain_ms": rows[k][1],
+        "bound_ms": rows[k][2], "bound_by": rows[k][3],
+        # no single PyTorch call computes Dice + CE (the unfused loss's
+        # time is printed above)
+        "library_ms": None,
+    } for k in names]
+
+
+def relaynet_phases(dev, card, time_ms, http_post):
+    """Phases 12-15: ReLayNet's int8 serving path (K7, and K3 for the
+    head). -> the K7 entry of the kernels line."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference import (
+        relaynet_int8 as tr,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.http_server import (
+        start_in_background,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.relaynet_psrp import (
+        relaynet_psrp_forward,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.server import (
+        ServingLoop,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv7x3_int8 as k7,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        head_argmax as k3,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
+        preprocess,
+    )
+
+    rf = RELAYNET_F
+    gen = np.random.default_rng(SEED + 60)
+
+    def stage_args(h, cins, n):
+        """Seeded signed int8 inputs (PReLU outputs are signed) and an
+        epilogue that spreads the outputs over the int8 range."""
+        xs = tuple(torch.tensor(gen.integers(-127, 128, (n, h, h, c)),
+                                dtype=torch.int8, device=dev) for c in cins)
+        w = torch.tensor(gen.integers(-127, 128, (rf, sum(cins), 7, 3)),
+                         dtype=torch.int8, device=dev)
+        std = (21 * sum(cins)) ** 0.5 * 73 * 73
+        scale = torch.tensor(gen.uniform(30, 60, rf) / std,
+                             dtype=torch.float32, device=dev)
+        bias = torch.tensor(gen.uniform(-5, 5, rf), dtype=torch.float32,
+                            device=dev)
+        return xs, k7.pack_conv7x3_weights(w), scale, bias, \
+            float(gen.uniform(0.05, 1.0))
+
+    # ------------------------------------------------------------------ 12
+    phase(f"12 ReLayNet K7 vs its plain version (batch 2, every stage)")
+    max_err, bad = 0, 0
+    for name, h, cins, pool in relaynet_stages(rf, HW):
+        args = stage_args(h, cins, 2)
+        got = k7.conv7x3_int8(*args, pool=pool)
+        want = k7.conv7x3_int8_reference(*args, pool=pool)
+        torch.cuda.synchronize()
+        got, want = (got, want) if pool else ((got,), (want,))
+        mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+        max_err = max([max_err] + [int((a.int() - b.int()).abs().max())
+                                   for a, b in zip(got, want)])
+        print(f"{name:8s} {h:4d}^2 {str(cins):9s} -> {rf} pool={pool!s:5s} "
+              f"outputs {[tuple(a.shape) for a in got]} mismatches {mism}",
+              flush=True)
+        bad += mism
+    if bad:
+        raise RuntimeError(f"{bad} K7 outputs differ from plain")
+
+    # ------------------------------------------------------------------ 13
+    phase(f"13 ReLayNet graph: f={rf}, {NC} classes, {HW}x{HW}, batch 8")
+    model = cli.build_model("relaynet", num_classes=NC, seed=SEED,
+                            device=dev)
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        # random BN terms and PReLU slopes in [0.5, 1], 7x3 weights x0.75:
+        # the labels then spread over all 10 classes; larger weights or
+        # slopes nearer 0 leave the float graph's argmax so near ties that
+        # int8 noise moves more than 5% of it (PERF.md section 4)
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                for t, lo_hi, normal in ((m.weight, (0.5, 1.5), False),
+                                         (m.bias, (0, 0.1), True),
+                                         (m.running_mean, (0, 0.1), True),
+                                         (m.running_var, (0.5, 1.5), False)):
+                    e = torch.empty(t.shape)
+                    t.copy_(e.normal_(*lo_hi, generator=g) if normal
+                            else e.uniform_(*lo_hi, generator=g))
+            elif isinstance(m, torch.nn.PReLU):
+                m.weight.copy_(torch.empty(1).uniform_(0.5, 1.0, generator=g))
+            elif isinstance(m, torch.nn.Conv2d) and m.kernel_size == (7, 3):
+                m.weight.mul_(RELAYNET_GAIN)
+    t0 = time.time()
+    forward, calib = cli.build_relaynet_psrp_forward(model, image_size=HW,
+                                                     device=dev, seed=SEED)
+    print(f"fold + calibrate (TF32 off) + quantize: {time.time() - t0:.1f} s")
+    imgs = torch.tensor(
+        np.random.default_rng(SEED + 2).standard_normal((8, HW, HW, 1)),
+        dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        x = preprocess(imgs)
+        lab = relaynet_psrp_forward(calib["qparams"], x, NC)
+        lab_plain = relaynet_psrp_forward(calib["qparams"], x, NC,
+                                          reference=True)
+        q8 = tr.quantize_relaynet(calib["layers"], calib["taps"])
+        ref8 = tr.relaynet_int8_forward(q8, x).argmax(-1)
+        ref32 = tr.relaynet_folded_forward(calib["layers"], x).argmax(-1)
+    torch.cuda.synchronize()
+    graph_mism = int((lab != lab_plain).sum())
+    a8 = float((lab.long() == ref8).float().mean())
+    a32 = float((lab.long() == ref32).float().mean())
+    hist = torch.bincount(lab.flatten().long(), minlength=NC).tolist()
+    print(f"labels {tuple(lab.shape)} {lab.dtype}, class histogram {hist}")
+    print(f"kernel graph vs plain graph: {graph_mism} label mismatches")
+    print(f"agreement vs all-int8 oracle {a8:.6f} (> 0.995), "
+          f"vs float graph {a32:.6f} (> 0.95)", flush=True)
+    if graph_mism or not (a8 > 0.995 and a32 > 0.95):
+        raise RuntimeError("ReLayNet graph check failed")
+    del lab_plain, ref8, ref32, x
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 14
+    phase("14 serve ReLayNet: ServingLoop (batch 8) + HTTP, 6 requests, "
+          "2 clients")
+    reqs = np.random.default_rng(SEED + 4).uniform(
+        0, 255, (8, HW, HW, 1)).astype(np.float32)
+    with torch.inference_mode():
+        direct = forward(torch.from_numpy(reqs).to(dev)).cpu().numpy()
+    posts = [reqs[i] for i in range(5)] + [reqs[5:8]]
+    post_want = [direct[i] for i in range(5)] + [direct[5:8]]
+    wrappers = {"conv7x3_int8": k7.conv7x3_int8,
+                "head_argmax": k3.head_argmax}
+    for w in wrappers.values():
+        w.launches = 0
+    loop = ServingLoop(forward, (HW, HW, 1), device=dev, batch_size=8,
+                       max_wait_ms=5.0)
+    loop.warmup()
+    httpd, _ = start_in_background(loop, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results, errors = {}, []
+
+    def client(idx):
+        try:
+            for i in idx:
+                results[i] = http_post(url, posts[i])
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(range(c, 6, 2),))
+               for c in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        loop.close()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if errors:
+        raise RuntimeError(f"client errors: {errors!r}")
+    ok = [np.array_equal(results[i], post_want[i]) for i in range(6)]
+    n_fwd = loop.batches_run + 1  # + the warm-up batch
+    print(f"{sum(ok)}/6 responses equal the direct forward; "
+          f"{loop.batches_run} batches + 1 warm-up; launches {launches}, "
+          f"expected {n_fwd} x {RELAYNET_LAUNCHES}", flush=True)
+    if not all(ok):
+        raise RuntimeError("served labels differ from the direct forward")
+    if any(launches[k] != n_fwd * v for k, v in RELAYNET_LAUNCHES.items()):
+        raise RuntimeError("launch counts do not match the ReLayNet graph")
+
+    # ------------------------------------------------------------------ 15
+    phase(f"15 ReLayNet times on {card} (batch 32)")
+    n = 32
+    total = [0.0, 0.0]
+    bounds = {"operations": 0.0, "bytes": 0.0}
+    by_row = {}
+    for name, h, cins, pool in relaynet_stages(rf, HW):
+        args = stage_args(h, cins, n)
+        with torch.inference_mode():
+            ms = time_ms(lambda: k7.conv7x3_int8(*args, pool=pool))
+            pms = time_ms(lambda: k7.conv7x3_int8_reference(*args, pool=pool),
+                          3)
+        ops, nbytes = relaynet_work(h, cins, pool, n, rf)
+        b_ms, b_by = bound(ops, nbytes, PEAK["int8"])
+        total[0] += ms
+        total[1] += pms
+        bounds[b_by] += b_ms
+        row = by_row.setdefault("B14" if name.startswith("b0") else "B13",
+                                [0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((1, ms, pms, b_ms)):
+            row[i] += v
+        print(f"time b{n} {name:8s} K7 kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOPS), plain {pms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    print(f"time b{n} K7 summed over the 7 stages: kernel {total[0]:.4f} ms, "
+          f"plain {total[1]:.4f} ms, bound {sum(bounds.values()):.4f} ms "
+          f"{bounds}")
+    for row, (n_st, ms, pms, b_ms) in sorted(by_row.items()):
+        print(f"time b{n} TPU kernel {row} ({n_st} launches per forward): "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms")
+    xb = torch.tensor(np.random.default_rng(n).uniform(0, 255, (n, HW, HW, 1)),
+                      dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        ms = time_ms(lambda: forward(xb))
+    print(f"served ReLayNet forward (z-score + graph) batch {n}: {ms:.3f} ms, "
+          f"{n / ms * 1e3:.1f} B-scans/s", flush=True)
+    profile_breakdown(lambda: forward(xb), 3, f"the served forward, batch {n}",
+                      {"K7 conv7x3_int8": "conv_kh3_int8",
+                       "K3 head_argmax": "head_argmax"})
+    del xb, forward, calib, model
+    torch.cuda.empty_cache()
+    return {
+        "name": "conv7x3_int8", "route": "cuda",
+        "source": SOURCES["conv7x3_int8"],
+        "replaces": "; ".join(REPLACES["conv7x3_int8"]),
+        "launches": launches["conv7x3_int8"], "max_abs_err": max_err,
+        "ms": total[0], "plain_ms": total[1],
+        "bound_ms": sum(bounds.values()),
+        "bound_by": max(bounds, key=bounds.get),
+        # no single PyTorch call computes an int8 conv with a PReLU requant
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -819,12 +1421,7 @@ def main() -> int:
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
 
     def post(arr):
-        buf = io.BytesIO()
-        np.save(buf, arr)
-        req = urllib.request.Request(f"{url}/predict", data=buf.getvalue(),
-                                     method="POST")
-        with urllib.request.urlopen(req, timeout=300) as r:
-            return np.load(io.BytesIO(r.read()), allow_pickle=False)
+        return http_post(url, arr)
 
     results: dict[int, np.ndarray] = {}
     errors: list[BaseException] = []
@@ -943,6 +1540,8 @@ def main() -> int:
         "library_ms": None,
     } for k in wrappers]
     kernels += train_phases(dev, card, time_ms)
+    k89 = fused_loss_phases(dev, card, time_ms)
+    kernels += [relaynet_phases(dev, card, time_ms, http_post)] + k89
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """PyTorch + CUDA port of the retinal OCT segmentation framework.
 
 The JAX package ``retinal_oct_image_segmentation_via_deep_learning_tpu``
-beside this one is the reference; this package holds the int8 U-Net serving
-path and the U-Net training path for an NVIDIA Hopper card. Its kernels are hand-written CUDA
+beside this one is the reference; this package holds the int8 U-Net and ReLayNet
+serving paths and the U-Net training path for an NVIDIA Hopper card. Its kernels are hand-written CUDA
 (``csrc/``), built with ``nvcc`` on first use (``ops/_build.py``); each has
 a plain PyTorch version that CPU tensors take.
 

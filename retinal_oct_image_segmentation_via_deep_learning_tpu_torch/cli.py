@@ -1,15 +1,17 @@
-"""Command line: ``serve`` the int8 U-Net over HTTP, ``train`` a model.
+"""Command line: ``serve`` an int8 model over HTTP, ``train`` a model.
 
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        serve --model unet --quantize psrp --image-size 512 --device cuda \\
-        [--checkpoint state_dict.pt] [--seed 0]
+        serve --model unet|relaynet --quantize psrp --image-size 512 \\
+        --device cuda [--init-features F] [--checkpoint state_dict.pt] \\
+        [--seed 0]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         train --packed --image-size 512 --device cuda [--epochs 10] ...
 
-The served forward is built by ``build_psrp_forward``: model -> BN fold ->
-calibration on a seeded standard-normal batch (after the same
-preprocessing the requests get) -> int8 quantization -> the served graph,
-behind the per-image z-score. ``train`` builds its trainer and synthetic
+The served forward is built by ``build_psrp_forward`` (the U-Net) or
+``build_relaynet_psrp_forward`` (ReLayNet): model -> BN fold -> calibration
+on a seeded standard-normal batch (after the same preprocessing the
+requests get) -> int8 quantization -> the served graph, behind the
+per-image z-score. ``train`` builds its trainer and synthetic
 datasets with ``build_training``. ``chip_smoke.py`` builds both the same way.
 """
 
@@ -25,6 +27,11 @@ from .config import DataConfig, ModelConfig, OptimConfig, TrainConfig
 from .inference.http_server import serve_forever
 from .inference.psrp import quantize_unet_psrp, unet_psrp_forward
 from .inference.quantized import calibrate_unet, fold_unet_bn
+from .inference.relaynet_int8 import calibrate_relaynet, fold_relaynet_bn
+from .inference.relaynet_psrp import (
+    quantize_relaynet_psrp,
+    relaynet_psrp_forward,
+)
 from .inference.server import ServingLoop
 from .ops.preprocess import preprocess
 from .registry import get_model
@@ -33,18 +40,38 @@ from .training.trainer import Trainer
 from .utils.logging import MetricLogger
 
 
+# the constructor argument that sets each served model's width
+WIDTH_ARGS = {"unet": "init_features", "relaynet": "num_filters"}
+
+
 def build_model(name: str = "unet", *, num_classes: int,
-                init_features: int = 32, seed: int = 0,
+                init_features: int | None = None, seed: int = 0,
                 checkpoint: str | None = None, device) -> torch.nn.Module:
     """The model to serve: random init from ``seed``, or a saved state
-    dict (``torch.save(model.state_dict(), path)``)."""
+    dict (``torch.save(model.state_dict(), path)``). ``init_features`` sets
+    the width (ReLayNet's ``num_filters``); ``None`` takes the model's
+    default (32 for the U-Net, 64 for ReLayNet)."""
+    if name not in WIDTH_ARGS:
+        raise ValueError(f"model {name!r}: the served models are "
+                         f"{', '.join(WIDTH_ARGS)}")
+    width = {} if init_features is None else {WIDTH_ARGS[name]: init_features}
     model = get_model(name, in_channels=1, num_classes=num_classes,
-                      init_features=init_features, seed=seed)
+                      seed=seed, **width)
     if checkpoint:
         model.load_state_dict(
             torch.load(checkpoint, map_location="cpu", weights_only=True)
         )
     return model.to(device).eval()
+
+
+def _calibration_batch(image_size: int, device, seed: int) -> torch.Tensor:
+    """Two seeded standard-normal images after the preprocessing the
+    requests get (zeros would z-score to zeros and collapse every
+    activation scale)."""
+    calib = np.random.default_rng(seed).standard_normal(
+        (2, image_size, image_size, 1)
+    ).astype(np.float32)
+    return preprocess(torch.from_numpy(calib).to(device))
 
 
 def build_psrp_forward(model: torch.nn.Module, *, image_size: int, device,
@@ -55,13 +82,9 @@ def build_psrp_forward(model: torch.nn.Module, *, image_size: int, device,
     ``qparams``."""
     device = torch.device(device)
     layers = fold_unet_bn(model)
-    calib = np.random.default_rng(seed).standard_normal(
-        (2, image_size, image_size, 1)
-    ).astype(np.float32)
     with torch.inference_mode():
-        taps = calibrate_unet(
-            layers, [preprocess(torch.from_numpy(calib).to(device))]
-        )
+        taps = calibrate_unet(layers,
+                              [_calibration_batch(image_size, device, seed)])
     f = int(layers["blk0_conv0"]["w"].shape[0])
     qparams = quantize_unet_psrp(layers, taps, init_features=f, device=device)
     num_classes = int(qparams["head"]["w_k"].shape[0])
@@ -70,6 +93,30 @@ def build_psrp_forward(model: torch.nn.Module, *, image_size: int, device,
         return unet_psrp_forward(qparams, preprocess(images), num_classes)
 
     return forward, {"layers": layers, "taps": taps, "qparams": qparams}
+
+
+def build_relaynet_psrp_forward(model: torch.nn.Module, *, image_size: int,
+                                device, seed: int = 0):
+    """``build_psrp_forward`` for ReLayNet: -> (forward, calib) with
+    ``forward(images)`` mapping (N, H, W, 1) float images on ``device`` to
+    (N, H, W) int8 labels through ``relaynet_psrp_forward``, calibrated as
+    the U-Net is."""
+    device = torch.device(device)
+    layers = fold_relaynet_bn(model)
+    with torch.inference_mode():
+        taps = calibrate_relaynet(
+            layers, [_calibration_batch(image_size, device, seed)])
+    qparams = quantize_relaynet_psrp(layers, taps, device=device)
+    num_classes = int(qparams["head"]["w_k"].shape[0])
+
+    def forward(images: torch.Tensor) -> torch.Tensor:
+        return relaynet_psrp_forward(qparams, preprocess(images), num_classes)
+
+    return forward, {"layers": layers, "taps": taps, "qparams": qparams}
+
+
+SERVED_FORWARDS = {"unet": build_psrp_forward,
+                   "relaynet": build_relaynet_psrp_forward}
 
 
 def _device(name: str) -> torch.device:
@@ -136,8 +183,8 @@ def cmd_serve(args) -> None:
     model = build_model(args.model, num_classes=args.num_classes,
                         init_features=args.init_features, seed=args.seed,
                         checkpoint=args.checkpoint, device=device)
-    forward, _ = build_psrp_forward(model, image_size=args.image_size,
-                                    device=device, seed=args.seed)
+    forward, _ = SERVED_FORWARDS[args.model](
+        model, image_size=args.image_size, device=device, seed=args.seed)
     loop = ServingLoop(forward, (args.image_size, args.image_size, 1),
                        device=device, batch_size=args.batch_size,
                        max_wait_ms=args.max_wait_ms)
@@ -147,13 +194,16 @@ def cmd_serve(args) -> None:
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="octseg-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    s = sub.add_parser("serve", help="HTTP serving of the int8 U-Net")
-    s.add_argument("--model", default="unet")
+    s = sub.add_parser("serve",
+                       help="HTTP serving of the int8 U-Net or ReLayNet")
+    s.add_argument("--model", default="unet", choices=list(WIDTH_ARGS))
     s.add_argument("--quantize", default="psrp", choices=["psrp"],
                    help="int8 graph on the CUDA kernels (the only mode "
                         "ported so far)")
     s.add_argument("--num-classes", type=int, default=10)
-    s.add_argument("--init-features", type=int, default=32)
+    s.add_argument("--init-features", type=int, default=None,
+                   help="model width (ReLayNet: num_filters); default the "
+                        "model's own, 32 for unet, 64 for relaynet")
     s.add_argument("--image-size", type=int, default=512)
     s.add_argument("--device", default="cuda")
     s.add_argument("--checkpoint", default=None,

@@ -1,5 +1,5 @@
-"""The layers the U-Net is built from, with torch-default initialisation
-drawn from an explicit ``torch.Generator``.
+"""The layers the U-Net and ReLayNet are built from, with torch-default
+initialisation drawn from an explicit ``torch.Generator``.
 
 Modules are created uninitialised (``skip_init``, so the global RNG is never
 touched) and then initialised as ``torch.nn`` would: weights
@@ -42,6 +42,14 @@ def conv3x3(cin: int, cout: int, generator: torch.Generator) -> nn.Conv2d:
 def conv1x1(cin: int, cout: int, generator: torch.Generator) -> nn.Conv2d:
     """1x1 conv with bias (the classifier head)."""
     return _init_(skip_init(nn.Conv2d, cin, cout, 1), generator)
+
+
+def conv_same(cin: int, cout: int, kernel: tuple[int, int],
+              generator: torch.Generator) -> nn.Conv2d:
+    """Stride-1 'same' conv with bias and an odd kernel (kh, kw)."""
+    kh, kw = kernel
+    return _init_(skip_init(nn.Conv2d, cin, cout, kernel,
+                            padding=((kh - 1) // 2, (kw - 1) // 2)), generator)
 
 
 def conv_transpose2x2(cin: int, cout: int,

@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types (see the extern "C" functions in csrc/).
 SIGNATURES = {
     "octseg_conv3x3_int8": [_P, _I, _P, _I, _P, _P, _P, _P, _P,
@@ -42,6 +43,11 @@ SIGNATURES = {
     "octseg_conv3x3_bf16_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _P],
     "octseg_bn_pair_sums": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P],
+    "octseg_dice_ce_stats": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I,
+                             _P],
+    "octseg_dice_ce_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "octseg_conv7x3_int8": [_P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,19 @@
 """Model registry: name -> PyTorch module constructor.
 
-Only the U-Net is ported so far; every other name of the JAX package's zoo
-raises ``NotImplementedError`` until its slice lands (ROADMAP.md, Queue A).
+The U-Net and ReLayNet are ported so far; every other name of the JAX
+package's zoo raises ``NotImplementedError`` until its slice lands
+(ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
+from .models.relaynet import build_relaynet
 from .models.unet import build_unet
 
-_MODELS: dict[str, Callable[..., Any]] = {"unet": build_unet}
+_MODELS: dict[str, Callable[..., Any]] = {"relaynet": build_relaynet,
+                                          "unet": build_unet}
 
 
 def list_models() -> list[str]:

@@ -18,6 +18,7 @@ cast to bf16 at use.
     transposed convs        ``F.conv_transpose2d`` + bf16 bias (the dilated
                             form of the JAX ``_ct``)
     head 1x1                bf16 matmul + bf16 bias
+    loss (``fused_loss``)   K8/K9 (``ops/dice_ce``) on the NHWC logits
 
 Every BatchNorm is ``ops/fused_bn.bn_train`` (K6 statistics). The defaults
 of ``mid`` and ``deep`` are JAX's ("xla"); its TPU tile size ``tg`` has no
@@ -30,6 +31,8 @@ returns its BN statistics, and the running-stat updates (flax semantics,
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,7 +40,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES
 from ..ops.conv_bf16 import conv3x3_bf16
+from ..ops.dice_ce import dice_ce_loss_fused
 from ..ops.fused_bn import bn_train
+from .losses import dice_ce_loss
 
 IMPLS = ("torch", "kernel")
 _BF16 = torch.bfloat16
@@ -155,16 +160,27 @@ def apply_batch_stats(model: nn.Module, new_stats) -> None:
 
 def make_packed_train_step(loss_fn, class_weights=None, *, remat: bool = False,
                            deep: str = "torch", mid: str = "torch",
-                           fused_loss: bool = False):
+                           fused_loss: bool | None = None):
     """The trainer's step on ``packed_unet_apply``: ``train_step(state,
     images, labels) -> loss`` updates ``state`` (a ``TrainState`` whose
     model is a ``UNet``) in place: gradients, optimizer step, running
-    stats. ``fused_loss`` (the fused Dice+CE kernel) is not ported yet."""
+    stats.
+
+    ``fused_loss=True`` computes the loss on K8/K9
+    (``ops/dice_ce.dice_ce_loss_fused``, the same value and gradients to
+    float tolerance); it needs ``loss_fn`` to be ``dice_ce_loss``. ``None``
+    reads ``OCTSEG_PACKED_FUSED_LOSS`` (``1`` turns it on), as the JAX
+    package does."""
+    if fused_loss is None:
+        fused_loss = bool(int(os.environ.get("OCTSEG_PACKED_FUSED_LOSS",
+                                             "0")))
     if fused_loss:
-        raise NotImplementedError(
-            "fused_loss: the fused Dice+CE kernel (B12a/B12b) is not ported "
-            "yet; see ROADMAP.md, Queue B item B12"
-        )
+        if loss_fn is not dice_ce_loss:
+            raise ValueError(
+                "fused_loss computes dice_ce; the step's loss is "
+                f"{getattr(loss_fn, '__name__', loss_fn)!r}"
+            )
+        loss_fn = dice_ce_loss_fused
     _check_impls(deep, mid)
 
     def train_step(state, images, labels):

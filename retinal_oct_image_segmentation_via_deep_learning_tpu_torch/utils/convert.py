@@ -1,5 +1,5 @@
-"""JAX U-Net weights <-> this package's U-Net state dict (and JAX qparams
--> this package's qparams).
+"""JAX U-Net and ReLayNet weights <-> this package's state dicts (and JAX
+int8 qparams -> this package's qparams).
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing of JAX
 is imported. The reverse direction, ``unet_variables_from_state_dict``,
@@ -22,6 +22,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..models.relaynet import BLOCK_NAMES as RELAYNET_BLOCKS
 from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES
 
 
@@ -127,4 +128,75 @@ def unet_qparams_from_jax(qparams) -> dict:
             "s_w": _t(lw["s_w"]),
             "b": _t(lw["b"]),
         }
+    return out
+
+
+def relaynet_state_dict_from_jax(variables) -> OrderedDict:
+    """JAX ``ReLayNet`` variables {"params", "batch_stats"} -> ordered state
+    dict for ``models/relaynet.ReLayNet``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = OrderedDict()
+    for i, name in enumerate(RELAYNET_BLOCKS):
+        p, st = params[f"ReLayNetBlock_{i}"], stats[f"ReLayNetBlock_{i}"]
+        conv = p["Conv_0"]["Conv_0"]
+        sd[f"{name}.conv.weight"] = _t(conv["kernel"], (3, 2, 0, 1))
+        sd[f"{name}.conv.bias"] = _t(conv["bias"])
+        bn_p, bn_s = p["BatchNorm_0"]["BatchNorm_0"], st["BatchNorm_0"][
+            "BatchNorm_0"]
+        sd[f"{name}.norm.weight"] = _t(bn_p["scale"])
+        sd[f"{name}.norm.bias"] = _t(bn_p["bias"])
+        sd[f"{name}.norm.running_mean"] = _t(bn_s["mean"])
+        sd[f"{name}.norm.running_var"] = _t(bn_s["var"])
+        sd[f"{name}.norm.num_batches_tracked"] = torch.tensor(0)
+        sd[f"{name}.prelu.weight"] = _t(p["PReLU_0"]["alpha"])
+    head = params["Conv_0"]["Conv_0"]
+    sd["classifier.weight"] = _t(head["kernel"], (3, 2, 0, 1))
+    sd["classifier.bias"] = _t(head["bias"])
+    return sd
+
+
+def relaynet_variables_from_state_dict(state_dict) -> dict:
+    """Port ReLayNet state dict -> JAX ``ReLayNet`` variables {"params",
+    "batch_stats"} as float32 numpy arrays (the inverse of
+    ``relaynet_state_dict_from_jax``)."""
+    def a(name, perm=None):
+        v = state_dict[name].detach().cpu().float().numpy()
+        return v.transpose(perm) if perm is not None else v
+
+    params, stats = {}, {}
+    for i, name in enumerate(RELAYNET_BLOCKS):
+        params[f"ReLayNetBlock_{i}"] = {
+            "Conv_0": {"Conv_0": {
+                "kernel": a(f"{name}.conv.weight", (2, 3, 1, 0)),
+                "bias": a(f"{name}.conv.bias")}},
+            "BatchNorm_0": {"BatchNorm_0": {
+                "scale": a(f"{name}.norm.weight"),
+                "bias": a(f"{name}.norm.bias")}},
+            "PReLU_0": {"alpha": a(f"{name}.prelu.weight")},
+        }
+        stats[f"ReLayNetBlock_{i}"] = {"BatchNorm_0": {"BatchNorm_0": {
+            "mean": a(f"{name}.norm.running_mean"),
+            "var": a(f"{name}.norm.running_var")}}}
+    params["Conv_0"] = {"Conv_0": {
+        "kernel": a("classifier.weight", (2, 3, 1, 0)),
+        "bias": a("classifier.bias")}}
+    return {"params": params, "batch_stats": stats}
+
+
+def relaynet_qparams_from_jax(qparams) -> dict:
+    """JAX ReLayNet int8 qparams (``quantize_relaynet`` /
+    ``quantize_relaynet_psrp``: w_q, s_w, b, alpha and ``_act_scales``) ->
+    this package's layout, on the CPU. Packed TPU weights are dropped;
+    ``inference/relaynet_psrp.attach_kernel_params`` packs for K7 and K3."""
+    out = {"_act_scales": {
+        k: torch.tensor(np.float32(v)) for k, v in qparams["_act_scales"].items()
+    }}
+    for name, lw in qparams.items():
+        if name.startswith("_"):
+            continue
+        w_q = np.asarray(lw["w_q"]).transpose(3, 2, 0, 1)
+        out[name] = {"w_q": torch.tensor(w_q.astype(np.int8)),
+                     "s_w": _t(lw["s_w"]), "b": _t(lw["b"])}
+        if "alpha" in lw:
+            out[name]["alpha"] = _t(lw["alpha"]).reshape(())
     return out

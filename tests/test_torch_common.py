@@ -75,6 +75,37 @@ def jax_unet(f, nc=10, hw=64, seed=0, randomize=True):
     return model, jax.tree.map(np.asarray, v)
 
 
+def jax_relaynet(f, nc=4, hw=64, seed=0, randomize=True):
+    """(JAX ReLayNet module, variables as numpy dicts): initialised from
+    ``seed``; unless ``randomize`` is false, with random BN affines and
+    statistics, conv biases and PReLU slopes, so that a wrong fold or a
+    slope taken from the wrong block shows."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu.models.relaynet import (
+        ReLayNet,
+    )
+
+    model = ReLayNet(num_classes=nc, num_filters=f)
+    v = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, hw, hw, 1)),
+                   train=False)
+    rng = np.random.default_rng(seed)
+    draw = {"mean": lambda s: rng.normal(0, 0.1, s),
+            "var": lambda s: rng.uniform(0.5, 1.5, s),
+            "scale": lambda s: rng.uniform(0.5, 1.5, s),
+            "bias": lambda s: rng.normal(0, 0.1, s),
+            "alpha": lambda s: rng.uniform(0.05, 0.5, s)}
+
+    def walk(tree):
+        # keeps the dicts' call order, which the JAX package's
+        # import_torch_state zips against (jax.tree.map would sort keys)
+        return {k: walk(t) if isinstance(t, dict) else np.asarray(
+                    draw[k](t.shape) if randomize and k in draw else t,
+                    np.float32)
+                for k, t in tree.items()}
+
+    return model, {"params": walk(v["params"]),
+                   "batch_stats": walk(v["batch_stats"])}
+
+
 def rand_int8(rng, shape, lo=-100, hi=100):
     return rng.integers(lo, hi, shape).astype(np.int8)
 
@@ -166,11 +197,14 @@ def port_psrp_labels_full_pipeline(case):
 
 
 def test_registry():
-    assert list_models() == ["unet"]
+    assert list_models() == ["relaynet", "unet"]
     m = get_model("unet", num_classes=4, init_features=4)
     assert m.conv.out_channels == 4
+    m = get_model("relaynet", num_classes=4, num_filters=8)
+    assert m.classifier.out_channels == 4
+    assert m.encode1.conv.kernel_size == (7, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("relaynet")
+        get_model("sdnet")
 
 
 def test_config_defaults_match_jax():

@@ -82,7 +82,8 @@ def test_checkpoint_block_spelling():
 
 def test_port_imports_without_jax():
     """A fresh interpreter with ``jax`` and the JAX package blocked imports
-    every module of the port; neither is loaded afterwards."""
+    every module of the port, the fused-loss and ReLayNet modules among
+    them; neither is loaded afterwards."""
     code = (
         "import importlib, pkgutil, sys\n"
         "JAX_PKG = 'retinal_oct_image_segmentation_via_deep_learning_tpu'\n"
@@ -97,9 +98,15 @@ def test_port_imports_without_jax():
         "bad = [k for k, v in sys.modules.items() if v is not None and "
         "k.split('.')[0] in ('jax', 'jaxlib', 'flax', JAX_PKG)]\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 32
+    mods = set(out.stdout.split())
+    assert len(mods) >= 38
+    pkg = "retinal_oct_image_segmentation_via_deep_learning_tpu_torch."
+    for name in ("ops.dice_ce", "ops.conv7x3_int8", "ops.pooling",
+                 "models.relaynet", "inference.relaynet_int8",
+                 "inference.relaynet_psrp"):
+        assert pkg + name in mods, name

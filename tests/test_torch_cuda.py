@@ -14,15 +14,25 @@ import torch
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli import (
     build_model,
     build_psrp_forward,
+    build_relaynet_psrp_forward,
 )
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.psrp import (
     unet_psrp_forward,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.relaynet_psrp import (
+    relaynet_psrp_forward,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+    conv7x3_int8 as k7,
 )
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
     conv_bf16 as k45,
 )
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
     conv_int8 as k12,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+    dice_ce as k89,
 )
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
     fused_bn as k6,
@@ -234,3 +244,124 @@ def test_bn_train_cuda_matches_cpu(dev, dtype):
     atol = 1e-5 if dtype == torch.float32 else 0.05
     for got, want in zip(outs[1], outs[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("n,h,w,cins,cout,kh,pool", [
+    (2, 16, 16, (1,), 64, 7, True),         # the stem, Cin=1
+    (1, 6, 10, (5,), 3, 7, False),          # odd channels, partial tile
+    (2, 34, 18, (64,), 64, 7, True),        # several tiles, pool
+    (1, 20, 36, (64, 64), 64, 7, False),    # the decoders' two inputs
+    (1, 12, 8, (8, 4), 40, 5, True),        # kh 5, cout % 32 != 0
+    (1, 7, 9, (32,), 32, 3, False),         # kh 3, odd H, W
+])
+def test_k7_matches_plain(dev, n, h, w, cins, cout, kh, pool):
+    rng = np.random.default_rng(9)
+    xs = tuple(_i8(rng, (n, h, w, c), dev) for c in cins)
+    wk = k7.pack_conv7x3_weights(_i8(rng, (cout, sum(cins), kh, 3), dev,
+                                     -40, 40))
+    std = (kh * 3 * sum(cins)) ** 0.5 * 73 * 23
+    sc, b = _vec(rng, cout, 30 / std, 60 / std, dev), _vec(rng, cout, -5, 5,
+                                                          dev)
+    before = k7.conv7x3_int8.launches
+    got = k7.conv7x3_int8(xs, wk, sc, b, 0.21, pool=pool)
+    want = k7.conv7x3_int8_reference(xs, wk, sc, b, 0.21, pool=pool)
+    torch.cuda.synchronize()
+    assert k7.conv7x3_int8.launches == before + 1
+    got, want = (got, want) if pool else ((got,), (want,))
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    assert bool((got[0] < -10).any() and (got[0] > 10).any())
+
+
+def test_relaynet_graph_kernels_match_plain(dev):
+    model = build_model("relaynet", num_classes=5, init_features=8, seed=0,
+                        device=dev)
+    forward, calib = build_relaynet_psrp_forward(model, image_size=64,
+                                                 device=dev)
+    x = preprocess(torch.tensor(
+        np.random.default_rng(3).uniform(0, 255, (3, 64, 64, 1)),
+        dtype=torch.float32, device=dev,
+    ))
+    before = k7.conv7x3_int8.launches, k3.head_argmax.launches
+    with torch.inference_mode():
+        got = relaynet_psrp_forward(calib["qparams"], x, 5)
+        want = relaynet_psrp_forward(calib["qparams"], x, 5, reference=True)
+    assert (k7.conv7x3_int8.launches, k3.head_argmax.launches) == \
+        (before[0] + 7, before[1] + 1)
+    assert got.shape == (3, 64, 64) and got.dtype == torch.int8
+    assert torch.equal(got, want)
+
+
+def _dice_ce_case(rng, shape, nc, dtype, label_dtype, dev):
+    x = torch.tensor(rng.standard_normal(shape + (nc,)) * 3, dtype=dtype,
+                     device=dev)
+    lab = rng.integers(0, nc, shape)
+    lab.flat[::97] = nc  # labels outside the classes count for nothing
+    return x, torch.tensor(lab, dtype=label_dtype, device=dev)
+
+
+DICE_CE_SHAPES = [
+    ((2, 7, 9), 5, torch.float32, torch.int64),
+    ((1, 33, 17), 10, torch.bfloat16, torch.int32),
+    ((3, 64, 40), 32, torch.bfloat16, torch.int64),
+    ((1, 1, 1), 1, torch.float32, torch.int32),
+]
+
+
+@pytest.mark.parametrize("shape,nc,dtype,label_dtype", DICE_CE_SHAPES)
+def test_k8_k9_match_float64(dev, shape, nc, dtype, label_dtype):
+    """K8 within rtol 1e-5 of the float64 sums (no sum cancels); K9 within
+    one ulp of the logits' dtype of the float64 dlogits, plus an fp32 floor
+    of 2^-20 of the largest (the fp32 sum of dlogit's terms, each up to the
+    largest, can cancel; where p_label is within ~1e-5 of 1, p - 1 does)."""
+    rng = np.random.default_rng(10)
+    x, lab = _dice_ce_case(rng, shape, nc, dtype, label_dtype, dev)
+    cw = torch.tensor(rng.uniform(0.5, 2.0, nc), dtype=torch.float32,
+                      device=dev)
+    coef = torch.tensor(rng.normal(0, 1e-3, 3 * nc), dtype=torch.float32,
+                        device=dev)
+    before = k89.dice_ce_stats.launches, k89.dice_ce_bwd.launches
+    stats = k89.dice_ce_stats(x, lab, cw)
+    dx = k89.dice_ce_bwd(x, lab, coef)
+    torch.cuda.synchronize()
+    assert (k89.dice_ce_stats.launches, k89.dice_ce_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(stats, k89.dice_ce_stats_reference(x, lab, cw),
+                               rtol=1e-5, atol=1e-6)
+    want = k89.dice_ce_bwd_reference(x, lab, coef)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    exact = k89.dice_ce_bwd_reference(x.double(), lab, coef)
+    err = (dx.double() - exact).abs()
+    ulp = (_bf16_ulp(want) if dtype == torch.bfloat16
+           else want.float().abs().clamp_min(2.0 ** -126) * 2.0 ** -23)
+    floor = 2.0 ** -20 * float(exact.abs().max())
+    assert bool((err <= ulp.double() + floor).all())
+
+
+def test_fused_loss_autograd_on_the_card(dev):
+    """``dice_ce_loss_fused`` on CUDA tensors launches K8 once forward and
+    K9 once backward, and matches the unfused loss on the card."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.losses import (
+        dice_ce_loss,
+    )
+
+    rng = np.random.default_rng(11)
+    x, lab = _dice_ce_case(rng, (2, 32, 48), 10, torch.float32,
+                           torch.int64, dev)
+    lab = lab.clamp_max(9)
+    before = k89.dice_ce_stats.launches, k89.dice_ce_bwd.launches
+    out = []
+    for fn in (k89.dice_ce_loss_fused, dice_ce_loss):
+        xs = x.clone().requires_grad_()
+        loss = fn(xs, lab, [1.0] * 5 + [2.0] * 5, 0.5)
+        (g,) = torch.autograd.grad(loss, xs)
+        out.append((float(loss), g))
+    torch.cuda.synchronize()
+    assert (k89.dice_ce_stats.launches, k89.dice_ce_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out[0][0] == pytest.approx(out[1][0], rel=1e-5)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-4, atol=1e-8)
+    with pytest.raises(ValueError, match="33 classes"):
+        k89.dice_ce_loss_fused(torch.zeros((1, 2, 2, 33), device=dev),
+                               torch.zeros((1, 2, 2), dtype=torch.int64,
+                                           device=dev))

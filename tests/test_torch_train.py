@@ -397,9 +397,57 @@ def test_remat_matches_no_remat_and_applies_stats_once(packed_case):
                                    rtol=1e-5, atol=1e-6, err_msg=name)
 
 
+def _step_grads(x, y, **kw):
+    """One packed step (lr 0) from the seeded U-Net: loss and gradients."""
+    model = _unet()
+    state = create_train_state(model, OptimConfig(learning_rate=0.0))
+    loss = tpacked.make_packed_train_step(tlosses.dice_ce_loss, **kw)(
+        state, x, y)
+    return float(loss), {n: p.grad.double() for n, p in
+                         model.named_parameters()}
+
+
+def test_packed_fused_loss_step_matches_unfused(packed_case):
+    """``fused_loss=True`` (K8/K9's plain versions here) against the
+    unfused dice_ce step from the same state: loss within 1e-6 relative,
+    and every gradient tensor above a norm of 1e-3 at cosine > 0.9999.
+    (Not against the JAX fused step: at W < 128 JAX takes its XLA loss.)"""
+    x, y = packed_case["x"], packed_case["y"]
+    loss_u, grads_u = _step_grads(x, y, fused_loss=False)
+    loss_f, grads_f = _step_grads(x, y, fused_loss=True)
+    assert abs(loss_f - loss_u) <= 1e-6 * abs(loss_u), (loss_f, loss_u)
+    checked = 0
+    for name, gu in grads_u.items():
+        gf = grads_f[name]
+        if max(float(gu.norm()), float(gf.norm())) > 1e-3:
+            cos = float(gu.flatten() @ gf.flatten()) / float(gu.norm()
+                                                             * gf.norm())
+            assert cos > 0.9999, (name, cos)
+            checked += 1
+    assert checked > 30
+
+
+def test_fused_loss_switch_reads_the_environment(packed_case, monkeypatch):
+    """``fused_loss=None`` reads ``OCTSEG_PACKED_FUSED_LOSS`` as the JAX
+    package does; the trainer reaches it that way."""
+    calls = []
+
+    def spy(*args):
+        calls.append(1)
+        return tlosses.dice_ce_loss(*args)
+
+    monkeypatch.setattr(tpacked, "dice_ce_loss_fused", spy)
+    x, y = packed_case["x"][:1, :16, :16], packed_case["y"][:1, :16, :16]
+    for env, want in (("0", 0), ("1", 1)):
+        monkeypatch.setenv("OCTSEG_PACKED_FUSED_LOSS", env)
+        _step_grads(x, y)
+        assert len(calls) == want
+
+
 def test_packed_step_raises_where_unported_or_unsupported():
-    with pytest.raises(NotImplementedError, match="B12"):
-        tpacked.make_packed_train_step(tlosses.dice_ce_loss, fused_loss=True)
+    with pytest.raises(ValueError, match="fused_loss computes dice_ce"):
+        tpacked.make_packed_train_step(tlosses.softmax_cross_entropy,
+                                       fused_loss=True)
     with pytest.raises(ValueError, match="deep"):
         tpacked.make_packed_train_step(tlosses.dice_ce_loss, deep="psrp")
     with pytest.raises(ValueError, match="divisible by 16"):
