@@ -58,7 +58,28 @@ Phases (any failure raises; the exit code is then non-zero):
     requests, each equal to the direct forward; K7 7 and K3 1 launches
     per forward;
 15. ReLayNet times at batch 32: K7 per stage and summed, against its plain
-    version and its bound, and the served forward.
+    version and its bound, and the served forward;
+16. K10 (the fused stem) and K11 (the int8 pool) bit for bit against their
+    plain versions: K10 at (2, 512, 512) with f=32 and f=16 and at the
+    non-square (2, 80, 48), K11 at the packed graph's deep pool shapes
+    (batch 2) and a C=24 shape;
+17. the PSRP graph of phase 3 with the fused stem: labels identical to the
+    unfused graph's at batch 8, launches per forward K10 1, K1 16, K2 4,
+    K3 1;
+18. the row-packed graph (``infer --quantize packed``) of the same model at
+    batch 8: labels identical to its plain graph's, agreement with the
+    all-int8 oracle > 0.995 and the float graph > 0.95, launches per
+    forward K1 18, K11 2, K2 4, K3 1;
+19. ``cli infer`` at 512x512 on 4 B-scans: ``--quantize packed`` and
+    ``psrp``, ``--save-quantized`` then ``--load-quantized`` writing the
+    same masks, ReLayNet ``psrp``;
+20. ``cli eval --quantize psrp`` at 512x512, ``--num-val 8``: the confusion
+    counts sum to the pixel count, and the metrics equal the same masks
+    scored on the CPU within 1e-4;
+21. times at batch 32: K10 against K1 (stem) + K1 (blk0_conv1, pool), K11
+    against its bound and one PyTorch call (``amax``), the packed forward
+    and the PSRP forward with the fused stem off and on at batch 32 and 128,
+    and ``Trainer.evaluate`` per batch of 8.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -91,11 +112,14 @@ _JAX = "retinal_oct_image_segmentation_via_deep_learning_tpu/ops/"
 REPLACES = {
     "conv3x3_int8": [_JAX + "pallas_conv_psrp.py:442 conv3x3_psrp",
                      _JAX + "pallas_conv_psrp.py:777 stem_psrp",
-                     _JAX + "pallas_conv_int8.py:204 conv3x3_int8"],
+                     _JAX + "pallas_conv_int8.py:204 conv3x3_int8",
+                     _JAX + "pallas_conv_packed.py:213 conv3x3_int8_packed",
+                     _JAX + "pallas_conv_packed.py:338 stem_conv3x3_int8_packed"],
     "ct2x2_int8": [_JAX + "pallas_conv_int8.py:323 ct2x2_int8",
                    _JAX + "pallas_conv_psrp.py:603 ct_up_psrp",
                    _JAX + "pallas_conv_psrp.py:676 ct_psrp"],
-    "head_argmax": [_JAX + "pallas_conv_psrp.py:1074 head_argmax_psrp"],
+    "head_argmax": [_JAX + "pallas_conv_psrp.py:1074 head_argmax_psrp",
+                    _JAX + "pallas_conv_packed.py:420 head_argmax_packed"],
     "conv3x3_bf16": [_JAX + "pallas_conv_bf16.py:121 _conv_fwd_pallas"],
     "conv3x3_bf16_wgrad": [_JAX + "pallas_conv_bf16.py:220 _conv_wgrad_pallas"],
     "bn_pair_sums": [_JAX + "fused_bn.py:66 _pallas_pair_sums"],
@@ -103,6 +127,8 @@ REPLACES = {
                      _JAX + "pallas_conv_psrp7.py:360 stem7_psrp"],
     "dice_ce_stats": [_JAX + "pallas_loss.py:141 _run_fwd"],
     "dice_ce_bwd": [_JAX + "pallas_loss.py:187 _bwd"],
+    "stem_conv_int8": [_JAX + "pallas_conv_psrp.py:964 stem_conv_psrp"],
+    "pool2x2_int8": [_JAX + "pallas_conv_int8.py:377 pool2x2_int8"],
 }
 _PKG = "retinal_oct_image_segmentation_via_deep_learning_tpu_torch/"
 SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
@@ -113,7 +139,9 @@ SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
            "bn_pair_sums": _PKG + "csrc/bn_pair_sums.cu",
            "conv7x3_int8": _PKG + "csrc/conv7x3_int8.cu",
            "dice_ce_stats": _PKG + "csrc/dice_ce.cu",
-           "dice_ce_bwd": _PKG + "csrc/dice_ce.cu"}
+           "dice_ce_bwd": _PKG + "csrc/dice_ce.cu",
+           "stem_conv_int8": _PKG + "csrc/stem_conv_int8.cu",
+           "pool2x2_int8": _PKG + "csrc/pool2x2_int8.cu"}
 # kernel step vs plain-version step from the trained state: relative loss,
 # lowest gradient cosine and largest change of a gradient's norm, each
 # between the kernels' own floor (a one-ulp input change) and two planted
@@ -128,6 +156,9 @@ RELAYNET_GAIN = 0.75  # the 7x3 weights' scale in phase 13 (see there)
 RELAYNET_LAUNCHES = {"conv7x3_int8": 7, "head_argmax": 1}
 LAUNCHES_PER_FORWARD = {"conv3x3_int8": 18, "ct2x2_int8": 4,
                         "head_argmax": 1}
+FUSED_STEM_LAUNCHES = {"stem_conv_int8": 1, "conv3x3_int8": 16,
+                       "ct2x2_int8": 4, "head_argmax": 1}
+INFER_BATCH = 4  # B-scans per cli infer run (phase 19)
 LAUNCHES_PER_STEP = {
     "torch": {"conv3x3_bf16": 6, "conv3x3_bf16_wgrad": 3, "bn_pair_sums": 36},
     "kernel": {"conv3x3_bf16": 34, "conv3x3_bf16_wgrad": 17,
@@ -1233,6 +1264,433 @@ def relaynet_phases(dev, card, time_ms, http_post):
     }
 
 
+def device_ms(fn, runs=20):
+    """Device time per call of ``fn``, summed over the kernels it launches
+    (``torch.profiler``): the event timings of a kernel of tens of
+    microseconds carry its launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(3):  # a trace can come back without device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / runs / 1e3
+    return float("nan")
+
+
+def stem_work(h, c1, cout, n):
+    """(int8 ops, bytes) of one K10 call at batch n, h x h: the image read
+    once, both outputs written once."""
+    return (2 * n * h * h * 9 * (c1 + c1 * cout),
+            n * h * h + 9 * c1 * (1 + cout) + 8 * (c1 + cout)
+            + n * h * h * cout * 1.25)
+
+
+def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
+    """Phases 16-21: the fused stem (K10), the int8 pool (K11), the
+    row-packed graph, ``cli infer`` and ``cli eval``. ``model`` and
+    ``calib``: phase 3's U-Net and its PSRP build; ``by_row``: phase 5's
+    times per TPU kernel. -> the K10 and K11 entries of the kernels line."""
+    import os
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference import (
+        quantized as tq,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.packed import (
+        LAUNCHES_PER_FORWARD as PACKED_LAUNCHES,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.packed import (
+        unet_packed_forward,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.psrp import (
+        unet_psrp_forward,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv7x3_int8 as k7,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv_int8 as k12,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        head_argmax as k3,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
+        preprocess,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.data import (
+        SyntheticOCTConfig,
+        SyntheticOCTDataset,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
+        Trainer,
+    )
+
+    wrappers = {"stem_conv_int8": k10.stem_conv_int8,
+                "conv3x3_int8": k12.conv3x3_int8,
+                "conv7x3_int8": k7.conv7x3_int8,
+                "pool2x2_int8": k12.pool2x2_int8,
+                "ct2x2_int8": k12.ct2x2_int8, "head_argmax": k3.head_argmax}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts(keys):
+        return {k: wrappers[k].launches for k in keys}
+
+    gen = np.random.default_rng(SEED + 70)
+
+    def i8(shape, lo=-127, hi=128):
+        return torch.tensor(gen.integers(lo, hi, shape), dtype=torch.int8,
+                            device=dev)
+
+    def vec(n, lo, hi):
+        return torch.tensor(gen.uniform(lo, hi, n), dtype=torch.float32,
+                            device=dev)
+
+    def stem_args(n, h, w, c1, cout):
+        """A seeded int8 image, weights, and epilogues that spread both
+        requants over the int8 range; the stem biases reach 40, so a halo
+        holding the stem of a zero-padded image would show."""
+        x = i8((n, h, w, 1))
+        w0 = k12.pack_conv3x3_weights(i8((c1, 1, 3, 3)))
+        w1 = k12.pack_conv3x3_weights(i8((cout, c1, 3, 3)))
+        std0, std1 = 3 * 73 * 73, (9 * c1) ** 0.5 * 64 * 73
+        return (x, w0, vec(c1, 30, 60) / std0, vec(c1, -5, 40), w1,
+                vec(cout, 30, 60) / std1, vec(cout, -5, 5))
+
+    pool_shapes = [(HW // 4, 4 * F), (HW // 8, 8 * F)]  # the deep pools
+
+    # ------------------------------------------------------------------ 16
+    phase("16 K10 (fused stem) and K11 (int8 pool) vs plain versions")
+    max_err = {"stem_conv_int8": 0, "pool2x2_int8": 0}
+    bad = 0
+    for n, h, w, c1 in ((2, HW, HW, F), (2, HW, HW, F // 2), (2, 80, 48, F)):
+        args = stem_args(n, h, w, c1, c1)
+        got = k10.stem_conv_int8(*args)
+        want = k10.stem_conv_int8_reference(*args)
+        torch.cuda.synchronize()
+        mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+        max_err["stem_conv_int8"] = max(
+            [max_err["stem_conv_int8"]] + [int((a.int() - b.int()).abs().max())
+                                           for a, b in zip(got, want)])
+        zero = float((got[0] == 0).float().mean())
+        print(f"K10 ({n}, {h}, {w}) c1 {c1} -> {c1}: outputs "
+              f"{[tuple(a.shape) for a in got]} mismatches {mism} "
+              f"(zeros {zero:.3f})", flush=True)
+        bad += mism
+        del args, got, want
+    for n, h, c in [(2, h, c) for h, c in pool_shapes] + [(2, 32, 24)]:
+        x = i8((n, h, h, c), -128, 128)
+        got, want = k12.pool2x2_int8(x), k12.pool2x2_int8_reference(x)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        max_err["pool2x2_int8"] = max(max_err["pool2x2_int8"], int(
+            (got.int() - want.int()).abs().max()))
+        print(f"K11 ({n}, {h}, {h}, {c}): mismatches {mism}", flush=True)
+        bad += mism
+    if bad:
+        raise RuntimeError(f"{bad} K10/K11 outputs differ from plain")
+
+    # ------------------------------------------------------------------ 17
+    phase(f"17 PSRP graph with the fused stem (f={F}, {HW}x{HW}, batch 8)")
+    imgs = torch.tensor(
+        np.random.default_rng(SEED + 2).standard_normal((8, HW, HW, 1)),
+        dtype=torch.float32, device=dev)
+    qp = calib["qparams"]
+    with torch.inference_mode():
+        x = preprocess(imgs)
+        unfused = unet_psrp_forward(qp, x, NC, stem_fuse=False)
+        reset()
+        fused = unet_psrp_forward(qp, x, NC, stem_fuse=True)
+        torch.cuda.synchronize()
+        stem_launches = counts(FUSED_STEM_LAUNCHES)
+        fused_plain = unet_psrp_forward(qp, x, NC, stem_fuse=True,
+                                        reference=True)
+    torch.cuda.synchronize()
+    mism = int((fused != unfused).sum())
+    mism_plain = int((fused != fused_plain).sum())
+    print(f"fused-stem labels vs unfused: {mism} mismatches; vs its plain "
+          f"graph: {mism_plain}; launches {stem_launches}, expected "
+          f"{FUSED_STEM_LAUNCHES}", flush=True)
+    if mism or mism_plain or stem_launches != FUSED_STEM_LAUNCHES:
+        raise RuntimeError("fused-stem graph check failed")
+    del fused_plain
+
+    # ------------------------------------------------------------------ 18
+    phase(f"18 packed graph (infer --quantize packed; f={F}, {HW}x{HW}, "
+          "batch 8)")
+    t0 = time.time()
+    packed_fwd, pcal = cli.build_quantized_forward(
+        model, "unet", "packed", image_size=HW, device=dev, seed=SEED)
+    print(f"fold + calibrate + quantize: {time.time() - t0:.1f} s")
+    pq = pcal["qparams"]
+    with torch.inference_mode():
+        reset()
+        lab = unet_packed_forward(pq, x, NC)
+        torch.cuda.synchronize()
+        packed_launches = counts(PACKED_LAUNCHES)
+        lab_plain = unet_packed_forward(pq, x, NC, reference=True)
+        ref8 = tq.unet_int8_forward(
+            tq.quantize_unet(pcal["layers"], pcal["taps"]), x).argmax(-1)
+        ref32 = tq.folded_forward(pcal["layers"], x).argmax(-1)
+    torch.cuda.synchronize()
+    graph_mism = int((lab != lab_plain).sum())
+    a8 = float((lab.long() == ref8).float().mean())
+    a32 = float((lab.long() == ref32).float().mean())
+    hist = torch.bincount(lab.flatten().long(), minlength=NC).tolist()
+    print(f"labels {tuple(lab.shape)} {lab.dtype}, class histogram {hist}")
+    print(f"kernel graph vs plain graph: {graph_mism} label mismatches; "
+          f"agreement vs all-int8 oracle {a8:.6f} (> 0.995), vs float graph "
+          f"{a32:.6f} (> 0.95); vs the PSRP graph "
+          f"{float((lab == unfused).float().mean()):.6f}")
+    print(f"launches {packed_launches}, expected {PACKED_LAUNCHES}",
+          flush=True)
+    if graph_mism or not (a8 > 0.995 and a32 > 0.95) \
+            or packed_launches != PACKED_LAUNCHES:
+        raise RuntimeError("packed graph check failed")
+    del lab_plain, ref8, ref32, unfused, fused, lab
+    torch.cuda.empty_cache()
+
+    common = ["--image-size", str(HW), "--num-classes", str(NC),
+              "--batch-size", str(INFER_BATCH), "--device", "cuda",
+              "--seed", str(SEED)]
+    with tempfile.TemporaryDirectory() as tmp:
+        # -------------------------------------------------------------- 19
+        phase(f"19 cli infer ({HW}x{HW}, {INFER_BATCH} B-scans)")
+        art = os.path.join(tmp, "packed.npz")
+        masks = {}
+        for label, argv in (
+            ("unet packed --save-quantized", ["--quantize", "packed",
+                                              "--save-quantized", art]),
+            ("unet packed --load-quantized", ["--quantize", "packed",
+                                              "--load-quantized", art]),
+            ("unet psrp", ["--quantize", "psrp"]),
+            ("relaynet psrp", ["--model", "relaynet", "--quantize", "psrp"]),
+        ):
+            out = os.path.join(tmp, label.replace(" ", "_"))
+            reset()
+            t0 = time.perf_counter()
+            cli.main(["infer", *common, "--out-dir", out, *argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            m = np.load(os.path.join(out, "masks.npy"), allow_pickle=False)
+            launched = {k: v for k, v in counts(wrappers).items() if v}
+            print(f"{label}: masks {m.shape} {m.dtype}, classes "
+                  f"{np.bincount(m.ravel(), minlength=NC).tolist()}, "
+                  f"{wall:.2f} s (model, calibration, data and forward), "
+                  f"launches {launched}", flush=True)
+            if m.shape != (INFER_BATCH, HW, HW) or m.min() < 0 \
+                    or m.max() >= NC:
+                raise RuntimeError(f"cli infer {label}: bad masks")
+            masks[label] = m
+        same = np.array_equal(masks["unet packed --save-quantized"],
+                              masks["unet packed --load-quantized"])
+        print(f"--save-quantized then --load-quantized: identical masks "
+              f"{same}")
+        if not same:
+            raise RuntimeError("the quantized artifact changed the masks")
+
+        # -------------------------------------------------------------- 20
+        phase(f"20 cli eval --quantize psrp ({HW}x{HW}, --num-val 8)")
+        # the labels and masks cli eval scores, kept to score them again on
+        # the CPU
+        seen = []
+        evaluate = Trainer.evaluate
+
+        def keeping(self, state, dataset, *a, predict_fn=None, **kw):
+            def epoch(e):
+                for images, labels in dataset.epoch(e):
+                    seen.append([labels.cpu()])
+                    yield images, labels
+
+            def predict(st, images):
+                p = predict_fn(st, images)
+                seen[-1].append(p.cpu())
+                return p
+
+            return evaluate(self, state, SimpleNamespace(epoch=epoch), *a,
+                            predict_fn=predict, **kw)
+
+        argv = ["eval", *common[:4], "--batch-size", "8", *common[6:],
+                "--quantize", "psrp", "--num-val", "8"]
+        with swapped(Trainer, evaluate=keeping):
+            m = cli.main(argv)
+        cpu_trainer, _ = cli.build_eval_trainer(cli.parser().parse_args(
+            ["eval", "--num-classes", str(NC), "--device", "cpu"]))
+        t0 = time.perf_counter()
+        cpu = cpu_trainer.evaluate(
+            None, SimpleNamespace(epoch=lambda e: iter(
+                [(p, lab_) for lab_, p in seen])),
+            predict_fn=lambda s, p: p)
+        cpu_s = time.perf_counter() - t0
+        total = int(m["confusion"].sum())
+        worst = max(float(np.nanmax(np.abs(np.asarray(m[k], np.float64)
+                                           - np.asarray(cpu[k], np.float64))))
+                    for k in m if k != "confusion")
+        nan_same = all(np.array_equal(np.isnan(np.asarray(m[k], float)),
+                                      np.isnan(np.asarray(cpu[k], float)))
+                       for k in m)
+        print(f"{len(seen)} batch(es) scored; confusion sum {total} (pixels "
+              f"{8 * HW * HW}), equal to the CPU's "
+              f"{np.array_equal(m['confusion'], cpu['confusion'])}; largest "
+              f"metric difference from the CPU {worst:.3e} (limit 1e-4), "
+              f"NaNs in the same places {nan_same}; CPU scoring "
+              f"{cpu_s:.2f} s", flush=True)
+        if total != 8 * HW * HW or not worst <= 1e-4 or not nan_same \
+                or not np.array_equal(m["confusion"], cpu["confusion"]):
+            raise RuntimeError("cli eval check failed")
+        del cpu_trainer, seen
+
+    # ------------------------------------------------------------------ 21
+    phase(f"21 fused stem, int8 pool and the packed graph: times on {card}")
+    n = 32
+    l0, l1 = qp["blk0_conv0"], qp["blk0_conv1"]
+    xq = i8((n, HW, HW, 1))
+    k10_args = (xq, l0["w_k"], l0["scale"], l0["bias"], l1["w_k"],
+                l1["scale"], l1["bias"])
+
+    def two_launches():
+        mid = k12.conv3x3_int8((xq,), l0["w_k"], l0["scale"], l0["bias"])
+        return k12.conv3x3_int8((mid,), l1["w_k"], l1["scale"], l1["bias"],
+                                pool=True)
+
+    with torch.inference_mode():
+        rows = {}
+        for turn in ("K1 + K1", "K10", "K10", "K1 + K1"):
+            fn = two_launches if turn == "K1 + K1" else \
+                (lambda: k10.stem_conv_int8(*k10_args))
+            rows.setdefault(turn, []).append(time_ms(fn))
+        k10_ms = statistics.median(rows["K10"])
+        k10_plain = time_ms(lambda: k10.stem_conv_int8_reference(*k10_args),
+                            3)
+        dev_k10 = device_ms(lambda: k10.stem_conv_int8(*k10_args))
+        dev_two = device_ms(two_launches)
+    k10_bound, k10_by = bound(*stem_work(HW, F, F, n), PEAK["int8"])
+    print(f"time b{n} K10 stem+blk0_conv1+pool: kernel {rows['K10']} ms "
+          f"(median {k10_ms:.4f}), K1 stem + K1 blk0_conv1 "
+          f"{rows['K1 + K1']} ms, plain {k10_plain:.4f} ms, bound "
+          f"{k10_bound:.4f} ms ({k10_by}); device time (profiler) K10 "
+          f"{dev_k10:.4f} ms, K1 + K1 {dev_two:.4f} ms", flush=True)
+    del xq, k10_args
+    k11 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "operations": 0.0, "bytes": 0.0}
+    for h, c in pool_shapes:
+        xp = i8((n, h, h, c), -128, 128)
+        with torch.inference_mode():
+            ms = time_ms(lambda: k12.pool2x2_int8(xp))
+            pms = time_ms(lambda: k12.pool2x2_int8_reference(xp), 3)
+            lms = time_ms(lambda: xp.unflatten(1, (h // 2, 2)).unflatten(
+                3, (h // 2, 2)).amax((2, 4)))
+            dev_ms = device_ms(lambda: k12.pool2x2_int8(xp))
+            dev_lib = device_ms(lambda: xp.unflatten(1, (h // 2, 2)).unflatten(
+                3, (h // 2, 2)).amax((2, 4)))
+        nbytes = n * h * h * c * 1.25
+        b_ms, b_by = bound(3 * n * h * h * c / 4, nbytes, PEAK["int8"])
+        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                       (b_by, b_ms)):
+            k11[key] += v
+        print(f"time b{n} K11 ({h}^2 x {c}): kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, library "
+              f"amax {lms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); device time "
+              f"(profiler) kernel {dev_ms:.4f} ms "
+              f"({nbytes / dev_ms / 1e6:.0f} GB/s), amax {dev_lib:.4f} ms",
+              flush=True)
+        del xp
+    for row, src in (("B15a", "B1"), ("B15b", "B2"), ("B15c", "B7")):
+        n_st, ms, pms, b_ms = by_row[src]
+        print(f"time b32 TPU kernel {row} (packed graph, {n_st} launches "
+              f"per forward, the shapes of {src}): kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {b_ms:.4f} ms")
+    torch.cuda.empty_cache()
+
+    def psrp_fwd(images, stem_fuse=False):
+        return unet_psrp_forward(qp, preprocess(images), NC,
+                                 stem_fuse=stem_fuse)
+
+    graphs = (("packed", packed_fwd),
+              ("psrp, fused stem off", psrp_fwd),
+              ("psrp, fused stem on",
+               lambda b: psrp_fwd(b, stem_fuse=True)))
+    for nb in (32, 128):
+        xb = torch.tensor(
+            np.random.default_rng(nb).uniform(0, 255, (nb, HW, HW, 1)),
+            dtype=torch.float32, device=dev)
+        # in turns: packed, off, on, on, off, packed
+        for label, fn in graphs + graphs[::-1]:
+            with torch.inference_mode():
+                ms = time_ms(lambda: fn(xb))
+            print(f"forward ({label}, z-score + graph) batch {nb}: "
+                  f"{ms:.3f} ms, {nb / ms * 1e3:.1f} B-scans/s", flush=True)
+        del xb
+        torch.cuda.empty_cache()
+    args = cli.parser().parse_args(
+        ["eval", "--image-size", str(HW), "--num-classes", str(NC),
+         "--device", "cuda", "--quantize", "psrp"])
+    trainer, state = cli.build_eval_trainer(args)
+    ds = SyntheticOCTDataset(SyntheticOCTConfig(height=HW, width=HW,
+                                                num_layers=NC - 2, seed=99),
+                             8, 8, dev)
+
+    def predict(_state, images):
+        return psrp_fwd(images)
+
+    for contour in (True, False, True):
+        trainer.evaluate(state, ds, contour_metrics=contour,
+                         predict_fn=predict)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            trainer.evaluate(state, ds, contour_metrics=contour,
+                             predict_fn=predict)
+        torch.cuda.synchronize()
+        print(f"Trainer.evaluate, one batch of 8 (synthetic data, the psrp "
+              f"graph, contour metrics {contour}): "
+              f"{(time.perf_counter() - t0) / 3 * 1e3:.3f} ms", flush=True)
+    del trainer, state, ds, packed_fwd, pcal
+    torch.cuda.empty_cache()
+    return [{
+        "name": "stem_conv_int8", "route": "cuda",
+        "source": SOURCES["stem_conv_int8"],
+        "replaces": "; ".join(REPLACES["stem_conv_int8"]),
+        "launches": stem_launches["stem_conv_int8"],
+        "max_abs_err": max_err["stem_conv_int8"], "ms": k10_ms,
+        "plain_ms": k10_plain, "bound_ms": k10_bound, "bound_by": k10_by,
+        # no single PyTorch call computes two int8 convs with requants
+        "library_ms": None,
+    }, {
+        "name": "pool2x2_int8", "route": "cuda",
+        "source": SOURCES["pool2x2_int8"],
+        "replaces": "; ".join(REPLACES["pool2x2_int8"]),
+        "launches": packed_launches["pool2x2_int8"],
+        "max_abs_err": max_err["pool2x2_int8"], "ms": k11["ms"],
+        "plain_ms": k11["plain_ms"],
+        "bound_ms": k11["operations"] + k11["bytes"],
+        "bound_by": ("operations" if k11["operations"] >= k11["bytes"]
+                     else "bytes"),
+        "library_ms": k11["library_ms"],
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -1542,6 +2000,7 @@ def main() -> int:
     kernels += train_phases(dev, card, time_ms)
     k89 = fused_loss_phases(dev, card, time_ms)
     kernels += [relaynet_phases(dev, card, time_ms, http_post)] + k89
+    kernels += infer_eval_phases(dev, card, time_ms, model, calib, by_row)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
-"""Command line: ``serve`` an int8 model over HTTP, ``train`` a model.
+"""Command line: ``serve`` an int8 model over HTTP, ``train`` a model,
+``infer`` masks for a batch of B-scans, ``eval`` a model on the metric
+suite.
 
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         serve --model unet|relaynet --quantize psrp --image-size 512 \\
@@ -6,28 +8,59 @@
         [--seed 0]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         train --packed --image-size 512 --device cuda [--epochs 10] ...
+    python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
+        infer --model unet --quantize off|int8|packed|psrp --out-dir DIR \\
+        [--export-probs] [--save-quantized q.npz | --load-quantized q.npz]
+    python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
+        eval --model unet|relaynet --quantize off|int8|psrp [--num-val 16]
 
-The served forward is built by ``build_psrp_forward`` (the U-Net) or
-``build_relaynet_psrp_forward`` (ReLayNet): model -> BN fold -> calibration
-on a seeded standard-normal batch (after the same preprocessing the
-requests get) -> int8 quantization -> the served graph, behind the
-per-image z-score. ``train`` builds its trainer and synthetic
-datasets with ``build_training``. ``chip_smoke.py`` builds both the same way.
+The int8 graphs are built by ``build_quantized_forward``: model -> BN fold
+-> calibration on a seeded standard-normal batch (after the same
+preprocessing the images get) -> int8 quantization -> the graph, behind the
+per-image z-score. ``psrp`` and ``packed`` run on the CUDA kernels; ``int8``
+is the all-int8 oracle graph in plain PyTorch (the JAX package runs it in
+XLA). ``serve`` serves ``psrp`` (``build_psrp_forward`` for the U-Net,
+``build_relaynet_psrp_forward`` for ReLayNet). ``train`` builds its trainer
+and synthetic datasets with ``build_training``. ``infer`` and ``eval`` run
+on synthetic B-scans made on the device from ``--seed`` (eval's from seed
+99, as ``train``'s validation data). ``chip_smoke.py`` builds all of them
+the same way.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
 
 from .config import DataConfig, ModelConfig, OptimConfig, TrainConfig
+from .inference.artifacts import load_qparams, save_qparams
 from .inference.http_server import serve_forever
-from .inference.psrp import quantize_unet_psrp, unet_psrp_forward
-from .inference.quantized import calibrate_unet, fold_unet_bn
-from .inference.relaynet_int8 import calibrate_relaynet, fold_relaynet_bn
+from .inference.packed import (
+    attach_packed_params,
+    quantize_unet_packed,
+    unet_packed_forward,
+)
+from .inference.psrp import (
+    attach_kernel_params,
+    quantize_unet_psrp,
+    unet_psrp_forward,
+)
+from .inference.quantized import (
+    calibrate_unet,
+    fold_unet_bn,
+    quantize_unet,
+    unet_int8_forward,
+)
+from .inference.relaynet_int8 import (
+    calibrate_relaynet,
+    fold_relaynet_bn,
+    quantize_relaynet,
+    relaynet_int8_forward,
+)
 from .inference.relaynet_psrp import (
     quantize_relaynet_psrp,
     relaynet_psrp_forward,
@@ -35,9 +68,9 @@ from .inference.relaynet_psrp import (
 from .inference.server import ServingLoop
 from .ops.preprocess import preprocess
 from .registry import get_model
-from .training.data import SyntheticOCTConfig, SyntheticOCTDataset
+from .training.data import SyntheticOCTConfig, SyntheticOCTDataset, synth_batch
 from .training.trainer import Trainer
-from .utils.logging import MetricLogger
+from .utils.logging import MetricLogger, export_prob_maps
 
 
 # the constructor argument that sets each served model's width
@@ -74,49 +107,88 @@ def _calibration_batch(image_size: int, device, seed: int) -> torch.Tensor:
     return preprocess(torch.from_numpy(calib).to(device))
 
 
-def build_psrp_forward(model: torch.nn.Module, *, image_size: int, device,
-                       seed: int = 0):
+def _to(q: dict, device) -> dict:
+    """Raw int8 qparams on ``device``."""
+    return {name: {k: v.to(device) for k, v in lw.items()}
+            for name, lw in q.items()}
+
+
+# (model, --quantize) -> (quantize(layers, taps, device), attach raw
+# qparams to ``device``, graph(qparams, x, num_classes) -> labels)
+GRAPHS = {
+    ("unet", "psrp"): (
+        lambda layers, taps, dev: quantize_unet_psrp(
+            layers, taps, int(layers["blk0_conv0"]["w"].shape[0]),
+            device=dev),
+        attach_kernel_params, unet_psrp_forward),
+    ("unet", "packed"): (
+        lambda layers, taps, dev: quantize_unet_packed(
+            layers, taps, int(layers["blk0_conv0"]["w"].shape[0]),
+            device=dev),
+        attach_packed_params, unet_packed_forward),
+    ("unet", "int8"): (
+        lambda layers, taps, dev: quantize_unet(layers, taps), _to,
+        lambda q, x, nc: unet_int8_forward(q, x).argmax(-1)),
+    ("relaynet", "psrp"): (
+        lambda layers, taps, dev: quantize_relaynet_psrp(layers, taps,
+                                                         device=dev),
+        None, relaynet_psrp_forward),
+    ("relaynet", "int8"): (
+        lambda layers, taps, dev: quantize_relaynet(layers, taps), None,
+        lambda q, x, nc: relaynet_int8_forward(q, x).argmax(-1)),
+}
+FOLDS = {"unet": (fold_unet_bn, calibrate_unet),
+         "relaynet": (fold_relaynet_bn, calibrate_relaynet)}
+
+
+def build_quantized_forward(model: torch.nn.Module, name: str = "unet",
+                            quantize: str = "psrp", *, image_size: int,
+                            device, seed: int = 0, qparams: dict | None = None):
     """-> (forward, calib): ``forward(images)`` maps (N, H, W, 1) float
-    images on ``device`` to (N, H, W) int8 labels through the int8 graph;
-    ``calib`` holds the folded ``layers``, the ``taps`` and the served
-    ``qparams``."""
+    images on ``device`` to (N, H, W) labels through the ``quantize`` graph
+    of model ``name``; ``calib`` holds the folded ``layers``, the ``taps``
+    and the graph's ``qparams``. Given raw ``qparams`` (a loaded artifact,
+    U-Net only), the model is neither folded nor calibrated."""
+    if (name, quantize) not in GRAPHS:
+        modes = "|".join(q for m, q in GRAPHS if m == name)
+        raise SystemExit(f"--model {name} supports --quantize {modes}")
     device = torch.device(device)
-    layers = fold_unet_bn(model)
-    with torch.inference_mode():
-        taps = calibrate_unet(layers,
-                              [_calibration_batch(image_size, device, seed)])
-    f = int(layers["blk0_conv0"]["w"].shape[0])
-    qparams = quantize_unet_psrp(layers, taps, init_features=f, device=device)
-    num_classes = int(qparams["head"]["w_k"].shape[0])
+    quant, attach, graph = GRAPHS[name, quantize]
+    calib = {}
+    if qparams is None:
+        fold, calibrate = FOLDS[name]
+        calib["layers"] = fold(model)
+        with torch.inference_mode():
+            calib["taps"] = calibrate(
+                calib["layers"], [_calibration_batch(image_size, device, seed)])
+        qparams = quant(calib["layers"], calib["taps"], device)
+    else:
+        qparams = attach(qparams, device)
+    calib["qparams"] = qparams
+    num_classes = int(qparams["head"]["w_q"].shape[0])
 
     def forward(images: torch.Tensor) -> torch.Tensor:
-        return unet_psrp_forward(qparams, preprocess(images), num_classes)
+        return graph(qparams, preprocess(images), num_classes)
 
-    return forward, {"layers": layers, "taps": taps, "qparams": qparams}
+    return forward, calib
+
+
+def build_psrp_forward(model: torch.nn.Module, *, image_size: int, device,
+                       seed: int = 0):
+    """``build_quantized_forward`` of the U-Net's served int8 graph
+    (``inference/psrp.py``, on the CUDA kernels)."""
+    return build_quantized_forward(model, "unet", "psrp",
+                                   image_size=image_size, device=device,
+                                   seed=seed)
 
 
 def build_relaynet_psrp_forward(model: torch.nn.Module, *, image_size: int,
                                 device, seed: int = 0):
-    """``build_psrp_forward`` for ReLayNet: -> (forward, calib) with
-    ``forward(images)`` mapping (N, H, W, 1) float images on ``device`` to
-    (N, H, W) int8 labels through ``relaynet_psrp_forward``, calibrated as
-    the U-Net is."""
-    device = torch.device(device)
-    layers = fold_relaynet_bn(model)
-    with torch.inference_mode():
-        taps = calibrate_relaynet(
-            layers, [_calibration_batch(image_size, device, seed)])
-    qparams = quantize_relaynet_psrp(layers, taps, device=device)
-    num_classes = int(qparams["head"]["w_k"].shape[0])
-
-    def forward(images: torch.Tensor) -> torch.Tensor:
-        return relaynet_psrp_forward(qparams, preprocess(images), num_classes)
-
-    return forward, {"layers": layers, "taps": taps, "qparams": qparams}
-
-
-SERVED_FORWARDS = {"unet": build_psrp_forward,
-                   "relaynet": build_relaynet_psrp_forward}
+    """``build_quantized_forward`` of ReLayNet's served int8 graph
+    (``inference/relaynet_psrp.py``)."""
+    return build_quantized_forward(model, "relaynet", "psrp",
+                                   image_size=image_size, device=device,
+                                   seed=seed)
 
 
 def _device(name: str) -> torch.device:
@@ -183,12 +255,150 @@ def cmd_serve(args) -> None:
     model = build_model(args.model, num_classes=args.num_classes,
                         init_features=args.init_features, seed=args.seed,
                         checkpoint=args.checkpoint, device=device)
-    forward, _ = SERVED_FORWARDS[args.model](
-        model, image_size=args.image_size, device=device, seed=args.seed)
+    forward, _ = build_quantized_forward(
+        model, args.model, args.quantize, image_size=args.image_size,
+        device=device, seed=args.seed)
     loop = ServingLoop(forward, (args.image_size, args.image_size, 1),
                        device=device, batch_size=args.batch_size,
                        max_wait_ms=args.max_wait_ms)
     serve_forever(loop, host=args.host, port=args.port)
+
+
+def _refuse_unported(args) -> None:
+    """The JAX flags whose paths are not ported yet raise, naming the
+    ROADMAP.md item (Queue A) they wait for."""
+    if getattr(args, "quantize", "off") == "int4":
+        raise NotImplementedError(
+            "--quantize int4: the w4a4 mode is not ported yet (ROADMAP.md, "
+            "Queue A item 6)")
+    if getattr(args, "spatial", 1) > 1:
+        raise NotImplementedError(
+            "--spatial: spatially sharded inference is not ported yet "
+            "(ROADMAP.md, Queue A item 12)")
+    for flag in ("data", "image_dir"):
+        if getattr(args, flag, None):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')}: the real-data loaders are not "
+                "ported yet (ROADMAP.md, Queue A item 11); omit it for "
+                "synthetic B-scans")
+
+
+def build_eval_trainer(args):
+    """-> (trainer, state): the model of ``infer``/``eval``'s arguments as
+    the JAX CLI builds it (``--model-kwargs``, random init from ``--seed``
+    or ``--checkpoint``, a torch state dict), in eval mode on
+    ``--device``."""
+    device = _device(args.device)
+    cfg = TrainConfig(
+        model=ModelConfig(
+            name=args.model, in_channels=args.in_channels,
+            num_classes=args.num_classes,
+            kwargs=json.loads(args.model_kwargs) if args.model_kwargs else {},
+        ),
+        data=DataConfig(image_size=(args.image_size, args.image_size),
+                        batch_size=args.batch_size),
+        compute_dtype=args.dtype, seed=args.seed,
+    )
+    trainer = Trainer(cfg, device)
+    if args.checkpoint:
+        trainer.model.load_state_dict(
+            torch.load(args.checkpoint, map_location=device,
+                       weights_only=True))
+    else:
+        print("note: no --checkpoint given; using random init from --seed")
+    trainer.model.eval()
+    return trainer, trainer.init_state()
+
+
+def _synthetic_config(args, seed: int) -> SyntheticOCTConfig:
+    return SyntheticOCTConfig(height=args.image_size, width=args.image_size,
+                              num_layers=max(args.num_classes - 2, 1),
+                              seed=seed)
+
+
+def cmd_infer(args):
+    """Masks for a batch of synthetic B-scans -> ``--out-dir/masks.npy``
+    (int32 labels), with ``--export-probs`` also the float model's class-1
+    probability maps (``prob_0000.txt``, ...)."""
+    _refuse_unported(args)
+    if args.model != "unet" and (args.save_quantized or args.load_quantized):
+        raise SystemExit("--save-quantized/--load-quantized: U-Net only")
+    if args.load_quantized and args.quantize == "off":
+        raise SystemExit("--load-quantized needs --quantize int8|packed|psrp")
+    trainer, state = build_eval_trainer(args)
+    g = torch.Generator(device=trainer.device).manual_seed(args.seed)
+    images, _ = synth_batch(g, args.batch_size,
+                            _synthetic_config(args, args.seed))
+    with torch.inference_mode():
+        if args.quantize == "off":
+            preds = trainer.predict(state, images)
+        else:
+            loaded = (load_qparams(args.load_quantized, args.quantize)
+                      if args.load_quantized else None)
+            forward, calib = build_quantized_forward(
+                trainer.model, args.model, args.quantize,
+                image_size=args.image_size, device=trainer.device,
+                seed=args.seed, qparams=loaded)
+            preds = forward(images)
+            if args.save_quantized:
+                save_qparams(args.save_quantized, calib["qparams"],
+                             args.quantize)
+                print(f"wrote quantized artifact to {args.save_quantized}")
+        os.makedirs(args.out_dir, exist_ok=True)
+        np.save(os.path.join(args.out_dir, "masks.npy"),
+                preds.cpu().numpy().astype(np.int32))
+        if args.export_probs:
+            logits = trainer.model(
+                trainer._preprocess(images.float()).permute(0, 3, 1, 2))
+            probs = torch.softmax(logits.float(), dim=1)[:, 1]
+            export_prob_maps(probs, args.out_dir)
+    print(f"wrote {preds.shape[0]} masks to {args.out_dir}")
+    return preds
+
+
+def cmd_eval(args) -> dict:
+    """The metric suite (``Trainer.evaluate``) over ``--num-val`` synthetic
+    B-scans, through the float model or the ``--quantize`` graph; prints
+    the JAX CLI's lines."""
+    _refuse_unported(args)
+    trainer, state = build_eval_trainer(args)
+    ds = SyntheticOCTDataset(_synthetic_config(args, 99), args.num_val,
+                             args.batch_size, trainer.device)
+    predict_fn = None
+    if args.quantize != "off":
+        forward, _ = build_quantized_forward(
+            trainer.model, args.model, args.quantize,
+            image_size=args.image_size, device=trainer.device, seed=args.seed)
+
+        def predict_fn(_state, images):
+            return forward(images)
+
+    m = trainer.evaluate(state, ds, predict_fn=predict_fn)
+    print(f"pixel_accuracy: {m['pixel_accuracy']:.4f}")
+    for name in ("dice", "iou", "sensitivity", "specificity", "precision",
+                 "hd95", "assd", "thickness_diff", "vi_diff"):
+        if name in m:
+            vals = " ".join(f"{v:.4f}" for v in m[name])
+            print(f"{name:14s} per-class: {vals}")
+    return m
+
+
+def _eval_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's common flags, and ``--device``, ``--seed`` and
+    ``--checkpoint`` (a torch state dict)."""
+    p.add_argument("--model", default="unet", choices=list(WIDTH_ARGS))
+    p.add_argument("--num-classes", type=int, default=10)
+    p.add_argument("--in-channels", type=int, default=1)
+    p.add_argument("--model-kwargs", default="",
+                   help='JSON constructor overrides, e.g. \'{"init_features": 16}\'')
+    p.add_argument("--image-size", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--dtype", default="bfloat16",
+                   help="compute dtype of the float model (--quantize off)")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint", default=None,
+                   help="torch state dict of the model (.pt)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -244,12 +454,45 @@ def parser() -> argparse.ArgumentParser:
              "checkpoints each block",
     )
     t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("eval", help="the metric suite on synthetic B-scans")
+    _eval_args(e)
+    e.add_argument("--num-val", type=int, default=16)
+    e.add_argument("--quantize", default="off",
+                   choices=("off", "int8", "psrp", "int4"),
+                   help="evaluate an int8 graph instead of the float model "
+                        "(int4 is not ported yet: raises)")
+    e.add_argument("--data", default=None,
+                   help="real dataset spec (not ported yet: raises)")
+    e.set_defaults(fn=cmd_eval)
+
+    i = sub.add_parser("infer", help="masks for a batch of B-scans")
+    _eval_args(i)
+    i.add_argument("--image-dir", default=None,
+                   help="a folder of B-scans (not ported yet: raises)")
+    i.add_argument("--out-dir", default="./inference_out")
+    i.add_argument("--export-probs", action="store_true")
+    i.add_argument("--spatial", type=int, default=1,
+                   help="spatial sharding (not ported yet: > 1 raises)")
+    i.add_argument("--save-quantized", default=None,
+                   help="write the quantized artifact (.npz) after "
+                        "calibration (unet)")
+    i.add_argument("--load-quantized", default=None,
+                   help="serve from a quantized artifact of the same "
+                        "--quantize mode, written here or by the JAX "
+                        "package (unet)")
+    i.add_argument("--quantize", default="off",
+                   choices=("off", "int8", "packed", "psrp", "int4"),
+                   help="int8 graphs: packed and psrp (unet) on the CUDA "
+                        "kernels, int8 the all-int8 oracle; relaynet takes "
+                        "int8|psrp (int4 is not ported yet: raises)")
+    i.set_defaults(fn=cmd_infer)
     return p
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     args = parser().parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

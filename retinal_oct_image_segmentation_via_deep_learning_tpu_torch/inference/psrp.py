@@ -16,13 +16,18 @@ seven TPU kernels of that graph map onto three:
     ct3                          ct_psrp               K2
     head + argmax                head_argmax_psrp      K3 head_argmax
 
-One forward launches K1 18 times, K2 4 times and K3 once. Skip concats are
+One forward launches K1 18 times, K2 4 times and K3 once. With the fused
+stem (``stem_fuse``, the JAX switch ``OCTSEG_PSRP_STEM_FUSE``) K10
+``stem_conv_int8`` takes the place of K1's stem and blk0_conv1 calls
+(TPU: ``stem_conv_psrp``): K10 once, K1 16 times. Skip concats are
 folded into the consuming conv (K1 reads both inputs), and each skip's
 requant (s_skip -> s_cat) is folded into the skip half of that conv's
 weights before quantization, as the JAX graph does.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -39,6 +44,7 @@ from ..ops.head_argmax import (
     head_argmax_reference,
     pack_head_weights,
 )
+from ..ops.stem_conv_int8 import stem_conv_int8, stem_conv_int8_reference
 from .quantized import quant_weights, quantize_unet
 
 # cat conv -> activation key of its skip input (the skip's stored scale)
@@ -112,14 +118,23 @@ def quantize_unet_psrp(layers: dict, taps: dict, init_features: int = 32,
     return attach_kernel_params(q, device)
 
 
+def stem_fuse_default() -> bool:
+    """The JAX package's switch: any non-empty ``OCTSEG_PSRP_STEM_FUSE``
+    turns the fused stem on."""
+    return bool(os.environ.get("OCTSEG_PSRP_STEM_FUSE"))
+
+
 def unet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int, *,
-                      reference: bool = False) -> torch.Tensor:
+                      reference: bool = False,
+                      stem_fuse: bool | None = None) -> torch.Tensor:
     """(N, H, W, 1) float NHWC -> (N, H, W) int8 labels; H and W must be
     divisible by 16.
 
     ``reference=True`` runs the kernels' plain PyTorch versions instead, on
     any device: the check that the kernels compute the same graph. Serving
-    never sets it."""
+    never sets it. ``stem_fuse`` (default: ``stem_fuse_default()``) runs
+    the stem, blk0_conv1 and its pool in one K10 launch; the labels are the
+    same bit for bit."""
     N, H, W, C = x.shape
     if C != 1 or H % 16 or W % 16:
         raise ValueError(
@@ -131,6 +146,8 @@ def unet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int, *,
             f"qparams have {qparams['head']['w_k'].shape[0]} classes, not "
             f"{num_classes}"
         )
+    if stem_fuse is None:
+        stem_fuse = stem_fuse_default()
     s = qparams["_act_scales"]
     k1, k2, k3 = ((conv3x3_int8_reference, ct2x2_int8_reference,
                    head_argmax_reference) if reference
@@ -147,7 +164,13 @@ def unet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int, *,
         torch.int8
     )
     skips = []
-    for i in range(4):
+    if stem_fuse:
+        k10 = stem_conv_int8_reference if reference else stem_conv_int8
+        l0, l1 = qparams["blk0_conv0"], qparams["blk0_conv1"]
+        skip, h = k10(h, l0["w_k"], l0["scale"], l0["bias"], l1["w_k"],
+                      l1["scale"], l1["bias"])
+        skips.append(skip)
+    for i in range(len(skips), 4):
         h = conv(h, f"blk{i}_conv0")
         skip, h = conv(h, f"blk{i}_conv1", pool=True)
         skips.append(skip)

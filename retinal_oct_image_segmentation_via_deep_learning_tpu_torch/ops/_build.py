@@ -48,6 +48,8 @@ SIGNATURES = {
     "octseg_dice_ce_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     "octseg_conv7x3_int8": [_P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _P],
+    "octseg_stem_conv_int8": [_P] * 9 + [_I] * 8 + [_P],
+    "octseg_pool2x2_int8": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,13 @@
-"""Int8 convolutions of the serving path: K1 (3x3) and K2 (2x2/2 transposed).
+"""Int8 convolutions of the serving path: K1 (3x3) and K2 (2x2/2
+transposed), and K11, the standalone 2x2/2 max-pool of the row-packed graph.
 
-Both take NHWC int8 activations, contiguous, and end in the same fused
+K1 and K2 take NHWC int8 activations, contiguous, and end in the same fused
 requant: ``v = fmaf(float(acc), scale[co], bias[co])``, then (K1 only) relu,
 then round-half-even, clip to [-127, 127], int8. ``scale = (s_in*s_w)/s_out``
 and ``bias = b/s_out`` are per output channel, float32.
+
+K11 (``pool2x2_int8``) takes the max of each 2x2 window of an NHWC int8
+tensor.
 
 Each wrapper runs its CUDA kernel (``csrc/``) for a CUDA tensor, and its
 plain PyTorch version (``*_reference``) only for a CPU tensor. The plain
@@ -229,3 +233,41 @@ def ct2x2_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 ct2x2_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: 2x2/2 max-pool (replaces pool2x2_int8 on the TPU)
+# ---------------------------------------------------------------------------
+
+
+def pool2x2_int8_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K11 (any device): a reshape-max."""
+    n, h, w, c = x.shape
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def pool2x2_int8(x: torch.Tensor) -> torch.Tensor:
+    """K11: (N, H, W, C) int8 -> (N, H/2, W/2, C) int8, the max of each
+    2x2 window; H and W must be even (the TPU kernel asserts it too)."""
+    _check(x.dim() == 4 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0,
+           f"pool2x2_int8: expected (N, H, W, C) with even H, W, got "
+           f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return pool2x2_int8_reference(x)
+    dev = x.device
+    _check(dev.type == "cuda", f"pool2x2_int8: unsupported device {dev}")
+    _check_cuda_int8(x, 4, "pool2x2_int8 input", dev)
+    N, H, W, C = x.shape
+    y = torch.empty((N, H // 2, W // 2, C), dtype=torch.int8, device=dev)
+    # the widest vector that divides C and both pointers' alignment
+    vec = next(v for v in (16, 8, 4, 1) if C % v == 0
+               and x.data_ptr() % v == 0 and y.data_ptr() % v == 0)
+    with torch.cuda.device(dev):
+        err = _build.lib().octseg_pool2x2_int8(
+            x.data_ptr(), y.data_ptr(), N, H, W, C, vec, _stream(x))
+    _build.check(err, "pool2x2_int8")
+    pool2x2_int8.launches += 1
+    return y
+
+
+pool2x2_int8.launches = 0

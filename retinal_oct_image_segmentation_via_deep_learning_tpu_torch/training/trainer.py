@@ -8,9 +8,12 @@ validation loss and per-class Dice -> checkpoint -> early stopping. With
 registry model runs in train mode under autocast to ``cfg.compute_dtype``
 (parameters stay float32), its BatchNorms through ``ops/fused_bn``.
 
+``evaluate`` runs the device metric suite (``metrics/volume.py``) over a
+dataset, through the model or any ``predict_fn`` (a quantized graph).
+
 The trainer runs on ``device``, a CUDA device unless the caller asks for the
-CPU. Not ported yet: ``evaluate`` (the metrics slice), the device mesh (the
-parallel slice) and ``OCTSEG_TRAIN_REMAT`` (ROADMAP.md, Queue A item 8).
+CPU. Not ported yet: the device mesh (the parallel slice) and
+``OCTSEG_TRAIN_REMAT`` (ROADMAP.md, Queue A item 8).
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ import torch
 
 from ..config import TrainConfig
 from ..metrics.region import per_class_dice
+from ..metrics.volume import (
+    metrics_from_confusion,
+    volume_boundary_metrics,
+    volume_confusion,
+)
 from ..ops.preprocess import preprocess
 from ..registry import get_model
 from ..utils.dtype import resolve_dtype
@@ -199,6 +207,58 @@ class Trainer:
         if best is not None:
             state.load_state_dict(best)
         return state
+
+    @torch.no_grad()
+    def evaluate(self, state: TrainState, dataset, epoch: int = 0,
+                 contour_metrics: bool = True, max_points: int = 1024,
+                 predict_fn=None) -> dict:
+        """The metric suite over ``dataset.epoch(epoch)``, as the JAX
+        trainer's ``evaluate``: per-class Dice, IoU, sensitivity,
+        specificity and precision, the pixel accuracy and the confusion
+        matrix from one aggregated confusion count; with
+        ``contour_metrics``, per-class HD95 and ASSD (averaged over the
+        slices where the class is in both masks) and the thickness and
+        vascularity-index differences (averaged over all slices).
+
+        ``predict_fn(state, images) -> (B, H, W) labels`` replaces the
+        model's forward, e.g. with a quantized graph. Returns numpy arrays
+        (the confusion counts int64) and a float ``pixel_accuracy``."""
+        predict_fn = predict_fn or self.predict
+        nc = self.cfg.model.num_classes
+        cm = None
+        sums: dict[str, torch.Tensor] = {}
+        n_slices = 0
+        for images, labels in dataset.epoch(epoch):
+            preds = predict_fn(state, images)
+            labels = torch.as_tensor(labels).to(preds.device)
+            counts = volume_confusion(labels, preds, nc)
+            cm = counts if cm is None else cm + counts
+            if not contour_metrics:
+                continue
+            b = volume_boundary_metrics(labels, preds, nc, max_points)
+            n_slices += labels.shape[0]
+            add = {"valid": b["valid"].double(),
+                   "thickness_diff": b["thickness_diff"].double(),
+                   "vi_diff": b["vi_diff"].double()}
+            for k in ("hd95", "assd"):
+                add[k] = torch.where(b["valid"], b[k], 0.0).double()
+            for k, v in add.items():
+                sums[k] = sums.get(k, 0.0) + v.sum(dim=0)
+        if cm is None:
+            cm = torch.zeros((nc, nc), dtype=torch.int64)
+        m = metrics_from_confusion(cm)
+        out = {"confusion": cm.cpu().numpy()}
+        for k in ("dice", "iou", "sensitivity", "specificity", "precision"):
+            out[k] = m[k].cpu().numpy()
+        out["pixel_accuracy"] = float(m["pixel_accuracy"])
+        if n_slices:
+            denom = sums["valid"].clamp_min(1.0)
+            out["hd95"] = (sums["hd95"] / denom).cpu().numpy()
+            out["assd"] = (sums["assd"] / denom).cpu().numpy()
+            for k in ("thickness_diff", "vi_diff"):
+                out[k] = (sums[k] / n_slices).cpu().numpy()
+            out["contour_valid_slices"] = sums["valid"].cpu().numpy()
+        return out
 
     # -- inference --------------------------------------------------------
     @torch.no_grad()

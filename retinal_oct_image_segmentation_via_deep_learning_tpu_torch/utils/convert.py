@@ -111,8 +111,9 @@ def unet_variables_from_state_dict(state_dict, *,
 
 
 def unet_qparams_from_jax(qparams) -> dict:
-    """JAX int8 qparams (``quantize_unet`` / ``quantize_unet_psrp``: w_q,
-    s_w, b and ``_act_scales``) -> this package's layout, on the CPU.
+    """JAX int8 qparams (``quantize_unet`` / ``quantize_unet_psrp`` /
+    ``quantize_unet_packed``: w_q, s_w, b and ``_act_scales``) -> this
+    package's layout, on the CPU.
     Packed TPU weights are dropped; ``inference/psrp.attach_kernel_params``
     packs for the CUDA kernels."""
     out = {"_act_scales": {
@@ -129,6 +130,14 @@ def unet_qparams_from_jax(qparams) -> dict:
             "b": _t(lw["b"]),
         }
     return out
+
+
+# JAX row-packed qparams (``quantize_unet_packed``) carry their own
+# quantization in w_q, s_w, b and ``_act_scales``; their TPU packs
+# (``w_packed_by``, ``w_stem``, ``w_head``, ``w_packed``) are dropped as the
+# PSRP packs are, and ``inference/packed.attach_packed_params`` packs for the
+# CUDA kernels.
+unet_packed_qparams_from_jax = unet_qparams_from_jax
 
 
 def relaynet_state_dict_from_jax(variables) -> OrderedDict:

@@ -1,11 +1,13 @@
-"""Host-side metric logging to JSONL (the JAX package's
-``utils/logging.MetricLogger``)."""
+"""Host-side metric logging to JSONL and the probability-map export (the
+JAX package's ``utils/logging.py``)."""
 
 from __future__ import annotations
 
 import json
 import os
 from typing import Any, Mapping
+
+import numpy as np
 
 
 class MetricLogger:
@@ -39,3 +41,15 @@ def _to_py(v):
 
 def _fmt(v):
     return f"{v:.5g}" if isinstance(v, float) else v
+
+
+def export_prob_maps(probs, directory: str, names=None,
+                     fmt: str = "%.8g") -> None:
+    """Write each (H, W) probability map of ``probs`` (B, H, W) as a text
+    file in ``directory``: ``names[i]``, or ``prob_0000.txt`` and on (the
+    reference's inference output)."""
+    os.makedirs(directory, exist_ok=True)
+    probs = np.asarray(probs.cpu() if hasattr(probs, "cpu") else probs)
+    for i in range(probs.shape[0]):
+        name = names[i] if names else f"prob_{i:04d}.txt"
+        np.savetxt(os.path.join(directory, name), probs[i], fmt=fmt)

@@ -82,8 +82,9 @@ def test_checkpoint_block_spelling():
 
 def test_port_imports_without_jax():
     """A fresh interpreter with ``jax`` and the JAX package blocked imports
-    every module of the port, the fused-loss and ReLayNet modules among
-    them; neither is loaded afterwards."""
+    every module of the port, the fused-loss, ReLayNet, fused-stem, packed
+    graph, artifact, metric and CLI modules among them; neither is loaded
+    afterwards."""
     code = (
         "import importlib, pkgutil, sys\n"
         "JAX_PKG = 'retinal_oct_image_segmentation_via_deep_learning_tpu'\n"
@@ -104,9 +105,12 @@ def test_port_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 38
+    assert len(mods) >= 43
     pkg = "retinal_oct_image_segmentation_via_deep_learning_tpu_torch."
     for name in ("ops.dice_ce", "ops.conv7x3_int8", "ops.pooling",
                  "models.relaynet", "inference.relaynet_int8",
-                 "inference.relaynet_psrp"):
+                 "inference.relaynet_psrp", "ops.stem_conv_int8",
+                 "inference.packed", "inference.artifacts",
+                 "metrics.contour", "metrics.volume", "metrics.region",
+                 "cli"):
         assert pkg + name in mods, name

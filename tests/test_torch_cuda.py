@@ -365,3 +365,128 @@ def test_fused_loss_autograd_on_the_card(dev):
         k89.dice_ce_loss_fused(torch.zeros((1, 2, 2, 33), device=dev),
                                torch.zeros((1, 2, 2), dtype=torch.int64,
                                            device=dev))
+
+
+@pytest.mark.parametrize("n,h,w,c1,cout", [
+    (2, 64, 64, 32, 32),   # the f=32 stem's widths
+    (2, 80, 48, 16, 16),   # f=16, non-square, an odd number of tiles
+    (1, 20, 14, 3, 40),    # c1 <= 4 (one word), partial tiles, cout % 32
+])
+def test_k10_matches_plain(dev, n, h, w, c1, cout):
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+
+    rng = np.random.default_rng(12)
+    x = _i8(rng, (n, h, w, 1), dev)
+    w0 = k12.pack_conv3x3_weights(_i8(rng, (c1, 1, 3, 3), dev, -40, 40))
+    w1 = k12.pack_conv3x3_weights(_i8(rng, (cout, c1, 3, 3), dev, -40, 40))
+    # a stem bias high enough that relu(round(bias0)) != 0: a halo that
+    # held the stem of a zero-padded image would show at the border
+    s0, b0 = _vec(rng, c1, 0.05, 0.1, dev), _vec(rng, c1, 10, 40, dev)
+    s1, b1 = _vec(rng, cout, 1e-3, 3e-3, dev), _vec(rng, cout, -5, 5, dev)
+    before = k10.stem_conv_int8.launches
+    got = k10.stem_conv_int8(x, w0, s0, b0, w1, s1, b1)
+    want = k10.stem_conv_int8_reference(x, w0, s0, b0, w1, s1, b1)
+    torch.cuda.synchronize()
+    assert k10.stem_conv_int8.launches == before + 1
+    assert got[0].shape == (n, h, w, cout)
+    assert got[1].shape == (n, h // 2, w // 2, cout)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    assert int(got[0].max()) > 0 and int(got[0].min()) == 0
+
+
+def test_k10_rejects_bad_input(dev):
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+
+    z = torch.zeros
+    x = z((1, 8, 8, 1), dtype=torch.int8, device=dev)
+    w0 = k12.pack_conv3x3_weights(z((64, 1, 3, 3), dtype=torch.int8,
+                                    device=dev))
+    w1 = k12.pack_conv3x3_weights(z((8, 64, 3, 3), dtype=torch.int8,
+                                    device=dev))
+    one = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="c1 64"):
+        k10.stem_conv_int8(x, w0, one, one, w1, one[:8], one[:8])
+    with pytest.raises(ValueError, match="even"):
+        k10.stem_conv_int8(x[:, :7], w0, one, one, w1, one[:8], one[:8])
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 16, 12, 32),     # the CPU test's shape, 16-byte vectors
+    (2, 32, 32, 128),    # a deep pool's widths
+    (3, 10, 14, 24),     # C = 24: 8-byte vectors
+    (1, 6, 4, 12),       # 4-byte words
+    (2, 8, 6, 3),        # single bytes
+])
+def test_k11_matches_plain(dev, shape):
+    rng = np.random.default_rng(13)
+    x = _i8(rng, shape, dev, -128, 128)
+    before = k12.pool2x2_int8.launches
+    got = k12.pool2x2_int8(x)
+    torch.cuda.synchronize()
+    assert k12.pool2x2_int8.launches == before + 1
+    assert torch.equal(got, k12.pool2x2_int8_reference(x))
+
+
+def test_k11_rejects_bad_input(dev):
+    x = torch.zeros((1, 6, 5, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="even"):
+        k12.pool2x2_int8(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        k12.pool2x2_int8(x[:, :, :4].transpose(1, 2))
+
+
+def test_psrp_graph_stem_fuse_on_the_card(dev):
+    """The fused stem (K10) gives the same labels as K1's stem and
+    blk0_conv1, and the forward launches K10 once and K1 16 times."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+
+    model = build_model(num_classes=5, init_features=16, seed=0, device=dev)
+    _, calib = build_psrp_forward(model, image_size=64, device=dev)
+    x = preprocess(torch.tensor(
+        np.random.default_rng(14).uniform(0, 255, (2, 64, 64, 1)),
+        dtype=torch.float32, device=dev))
+    with torch.inference_mode():
+        want = unet_psrp_forward(calib["qparams"], x, 5, stem_fuse=False)
+        before = k10.stem_conv_int8.launches, k12.conv3x3_int8.launches
+        got = unet_psrp_forward(calib["qparams"], x, 5, stem_fuse=True)
+        plain = unet_psrp_forward(calib["qparams"], x, 5, stem_fuse=True,
+                                  reference=True)
+    torch.cuda.synchronize()
+    assert (k10.stem_conv_int8.launches - before[0],
+            k12.conv3x3_int8.launches - before[1]) == (1, 16)
+    assert torch.equal(got, want) and torch.equal(got, plain)
+
+
+def test_packed_graph_kernels_match_plain(dev):
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli import (
+        build_quantized_forward,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.packed import (
+        LAUNCHES_PER_FORWARD,
+        unet_packed_forward,
+    )
+
+    model = build_model(num_classes=5, init_features=32, seed=0, device=dev)
+    _, calib = build_quantized_forward(model, "unet", "packed",
+                                       image_size=64, device=dev)
+    x = preprocess(torch.tensor(
+        np.random.default_rng(15).uniform(0, 255, (2, 64, 64, 1)),
+        dtype=torch.float32, device=dev))
+    wrappers = {"conv3x3_int8": k12.conv3x3_int8,
+                "pool2x2_int8": k12.pool2x2_int8,
+                "ct2x2_int8": k12.ct2x2_int8, "head_argmax": k3.head_argmax}
+    before = {k: w.launches for k, w in wrappers.items()}
+    with torch.inference_mode():
+        got = unet_packed_forward(calib["qparams"], x, 5)
+        torch.cuda.synchronize()
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        want = unet_packed_forward(calib["qparams"], x, 5, reference=True)
+    assert launched == LAUNCHES_PER_FORWARD
+    assert got.shape == (2, 64, 64) and torch.equal(got, want)
