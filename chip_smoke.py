@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 serving paths (U-Net and ReLayNet) and
-its U-Net training path (with and without the fused Dice+CE loss) once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's int8 serving paths (U-Net and ReLayNet), its
+U-Net training path (with and without the fused Dice+CE loss) and SDNet's
+forward and composite train step once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -79,7 +79,29 @@ Phases (any failure raises; the exit code is then non-zero):
 21. times at batch 32: K10 against K1 (stem) + K1 (blk0_conv1, pool), K11
     against its bound and one PyTorch call (``amax``), the packed forward
     and the PSRP forward with the fused stem off and on at batch 32 and 128,
-    and ``Trainer.evaluate`` per batch of 8.
+    and ``Trainer.evaluate`` per batch of 8;
+22. K12 (SDNet's column softmax, position and std) against its plain
+    version at (8, 3, 512, 512), (8, 11, 512, 512) and (2, 5, 100, 200): sm
+    within 1e-6, pos and std within 1e-5 * H, its backward within 1e-5 of
+    autograd through the plain version, a one-hot column (std = 0) without
+    a std cotangent giving a finite gradient; K6 at SDNet's BatchNorm
+    shapes (C = 1, the dense features' 4 rows, 16 channels);
+23. ``cli smoke --model all``, then SDNet at full width (channels 32-512, 4
+    classes, 512x512, batch 8, eval) built as the registry builds it: K12
+    once per forward, the forward against the same forward on the plain
+    versions (masks 1e-5, positions 1e-5 * H, hard-anatomy values that
+    round the other way counted), and the card against the CPU on two
+    128x128 crops with TF32 off;
+24. ``SDNetTrainer`` (Adam at its default 1e-4) five steps on one batch of
+    4 synthetic B-scans and one noise draw, cuDNN deterministic: loss
+    finite and lower at step 5, K12 once and K6 96 times per step; from the
+    trained state, on the segmentation half of the loss,
+    the step with K12 against the step with its plain version and the step
+    with every kernel against every plain version (``SDNET_GATE``, which a
+    planted K6 fault must fail), the whole loss shown ungated;
+25. times: K12 against its plain version and bound at both batch-8
+    shapes, the SDNet forward at batch 8, the train step at batch 4 and its
+    peak memory, a ``torch.profiler`` breakdown of the step.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -129,6 +151,7 @@ REPLACES = {
     "dice_ce_bwd": [_JAX + "pallas_loss.py:187 _bwd"],
     "stem_conv_int8": [_JAX + "pallas_conv_psrp.py:964 stem_conv_psrp"],
     "pool2x2_int8": [_JAX + "pallas_conv_int8.py:377 pool2x2_int8"],
+    "column_softargmax": [_JAX + "pallas_kernels.py:54 fused_column_softargmax"],
 }
 _PKG = "retinal_oct_image_segmentation_via_deep_learning_tpu_torch/"
 SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
@@ -141,7 +164,8 @@ SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
            "dice_ce_stats": _PKG + "csrc/dice_ce.cu",
            "dice_ce_bwd": _PKG + "csrc/dice_ce.cu",
            "stem_conv_int8": _PKG + "csrc/stem_conv_int8.cu",
-           "pool2x2_int8": _PKG + "csrc/pool2x2_int8.cu"}
+           "pool2x2_int8": _PKG + "csrc/pool2x2_int8.cu",
+           "column_softargmax": _PKG + "csrc/column_softargmax.cu"}
 # kernel step vs plain-version step from the trained state: relative loss,
 # lowest gradient cosine and largest change of a gradient's norm, each
 # between the kernels' own floor (a one-ulp input change) and two planted
@@ -151,6 +175,11 @@ GATE = {"loss": 1e-5, "cosine": 0.9999, "norm": 3e-3}
 # three readings, each near the geometric middle of the one-ulp floor and
 # the nearest of two planted K8/K9 faults (PERF.md section 6)
 FUSED_GATE = {"loss": 1e-5, "cosine": 0.9997, "norm": 2e-3}
+# the SDNet step from the trained state on the segmentation half of the
+# loss (phase 24): K12, and every kernel, against the plain versions;
+# relative loss and whole-gradient cosine, between the floor (the plain
+# versions' float32 rounding) and a planted K6 fault (PERF.md section 6)
+SDNET_GATE = {"loss": 1e-5, "cosine": 0.9999}
 RELAYNET_F = 64
 RELAYNET_GAIN = 0.75  # the 7x3 weights' scale in phase 13 (see there)
 RELAYNET_LAUNCHES = {"conv7x3_int8": 7, "head_argmax": 1}
@@ -159,6 +188,13 @@ LAUNCHES_PER_FORWARD = {"conv3x3_int8": 18, "ct2x2_int8": 4,
 FUSED_STEM_LAUNCHES = {"stem_conv_int8": 1, "conv3x3_int8": 16,
                        "ct2x2_int8": 4, "head_argmax": 1}
 INFER_BATCH = 4  # B-scans per cli infer run (phase 19)
+SDNET_NC = 4  # the JAX SDNet's n_classes (its full-width defaults)
+SDNET_BATCH = 8  # the SDNet forward (phases 23, 25)
+SDNET_TRAIN_BATCH = 4  # the SDNet train step (phases 24, 25)
+# K6 launches per SDNet train step: 43 BatchNorms, the modality encoder's 5
+# of them run twice (on the image and on the reconstruction), each once in
+# the forward and once in the backward
+SDNET_K6_PER_STEP = 2 * (43 + 5)
 LAUNCHES_PER_STEP = {
     "torch": {"conv3x3_bf16": 6, "conv3x3_bf16_wgrad": 3, "bn_pair_sums": 36},
     "kernel": {"conv3x3_bf16": 34, "conv3x3_bf16_wgrad": 17,
@@ -272,8 +308,9 @@ def relaynet_work(h, cins, pool, n, f=64):
 T_START = time.perf_counter()
 
 
-def train_batch(dev, n, seed):
-    """Seeded synthetic Duke-DME-shaped B-scans (z-scored) and labels."""
+def train_batch(dev, n, seed, nc=NC):
+    """Seeded synthetic Duke-DME-shaped B-scans (z-scored) and labels of
+    ``nc`` classes."""
     import torch
 
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
@@ -286,7 +323,7 @@ def train_batch(dev, n, seed):
 
     gb = torch.Generator(device=dev).manual_seed(seed)
     images, labels = synth_batch(gb, n, SyntheticOCTConfig(
-        height=HW, width=HW, num_layers=NC - 2))
+        height=HW, width=HW, num_layers=nc - 2))
     return preprocess(images), labels
 
 
@@ -1691,6 +1728,426 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
     }]
 
 
+def column_softargmax_f32(x):
+    """The JAX reference's arithmetic in float32 (``torch.softmax``, then the
+    two weighted sums): as correct as the float64 plain version of K12, its
+    softmax differs from it in the last bits. With K6's plain version in
+    float32 sums it gives the floor of the phase-24 comparison."""
+    import torch
+
+    sm = torch.softmax(x.float(), dim=2)
+    rows = torch.arange(x.shape[2], dtype=torch.float32,
+                        device=x.device).view(1, 1, -1, 1)
+    pos = torch.sum(sm * rows, dim=2)
+    std = torch.sqrt(torch.sum(sm * (rows - pos.unsqueeze(2)) ** 2, dim=2))
+    return sm, pos, std
+
+
+def column_work(shape):
+    """(fp32 operations, bytes) of one K12 call: x read once, sm written
+    once, pos and std written once; per element the exp, the division and
+    about eight adds and multiplies."""
+    B, L, H, W = shape
+    n = B * L * H * W
+    return 10 * n, 8 * n + 8 * B * L * W
+
+
+def sdnet_phases(dev, card, time_ms):
+    """Phases 22-25: SDNet's forward and its composite train step on K12
+    (and K6 in every train-mode BatchNorm). -> the K12 entry of the kernels
+    line."""
+    import copy
+
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        column_softargmax as k12,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
+        get_model,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.sdnet_pipeline import (
+        SDNetTrainer,
+    )
+
+    wrappers = {"column_softargmax": k12.column_softargmax_forward,
+                "bn_pair_sums": k6.pair_sums}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def plain(k6_fn=k6.pair_sums_reference):
+        """K12 swapped for its plain version, K6 for ``k6_fn``."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(swapped(
+            k12, column_softargmax=k12.column_softargmax_reference))
+        stack.enter_context(swapped(k6, pair_sums=k6_fn))
+        return stack
+
+    print(f"float32 settings (PyTorch's defaults, both sides of every "
+          f"comparison): cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    shapes = [(8, 3, HW, HW), (8, 11, HW, HW), (2, 5, 100, 200)]
+
+    # ------------------------------------------------------------------ 22
+    phase("22 K12 (column softmax, position, std) vs its plain version")
+    max_err = 0.0
+    bad = 0
+    for shape in shapes:
+        x = torch.randn(shape, generator=gen, device=dev) * 3
+        got = k12.column_softargmax_forward(x)
+        want = k12.column_softargmax_reference(x)
+        torch.cuda.synchronize()
+        H = shape[2]
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        lims = (1e-6, 1e-5 * H, 1e-5 * H)
+        max_err = max([max_err] + errs)
+        ok = all(e <= t for e, t in zip(errs, lims))
+        print(f"K12 {shape}: max abs error sm {errs[0]:.3e} (limit 1e-6), "
+              f"pos {errs[1]:.3e}, std {errs[2]:.3e} (limit {lims[1]:.3e})",
+              flush=True)
+        bad += not ok
+        # the backward on random cotangents against autograd through the
+        # plain version
+        cot = [torch.randn(t.shape, generator=gen, device=dev) for t in got]
+        grads = []
+        for fn in (k12.column_softargmax, k12.column_softargmax_reference):
+            xs = x.clone().requires_grad_(True)
+            sum(torch.sum(o * c) for o, c in zip(fn(xs), cot)).backward()
+            grads.append(xs.grad)
+        rel = float((grads[0] - grads[1]).abs().max()
+                    / grads[1].abs().max())
+        print(f"K12 {shape} backward: max abs error / max |dx| {rel:.3e} "
+              f"(limit 1e-5)", flush=True)
+        bad += not rel <= 1e-5
+        del x, got, want, cot, grads, xs
+    x = torch.randn((2, 3, 64, 40), generator=gen, device=dev)
+    x[1, 2, 17, 5] = 1e4  # a one-hot column: std = 0
+    xs = x.requires_grad_(True)
+    sm, pos, std = k12.column_softargmax(xs)
+    (torch.sum(sm * torch.linspace(-1, 1, 64, device=dev).view(1, 1, -1, 1))
+     + torch.sum(pos)).backward()
+    finite = bool(torch.isfinite(xs.grad).all())
+    print(f"one-hot column: std {float(std[1, 2, 5].detach())}, no std "
+          f"cotangent, gradient finite {finite}")
+    bad += not finite or float(std[1, 2, 5].detach()) != 0.0
+    # K6 at the BatchNorm shapes SDNet adds: the gates' psi (C = 1), the
+    # encoder's dense features (M = batch), its 16-wide convs
+    for shape in ((SDNET_TRAIN_BATCH, HW, HW, 1), (SDNET_TRAIN_BATCH, 32),
+                  (SDNET_TRAIN_BATCH, HW // 2, HW // 2, 16)):
+        for two in (False, True):
+            a = torch.randn(shape, generator=gen, device=dev) + 1.0
+            b = torch.randn(shape, generator=gen, device=dev) + 1.0 \
+                if two else None
+            got, want = k6.pair_sums(a, b), k6.pair_sums_reference(a, b)
+            torch.cuda.synchronize()
+            rel = float(((got - want).abs() / want.abs()).max())
+            print(f"K6 {shape} two={two}: relative error {rel:.3e} (limit "
+                  f"1e-6)", flush=True)
+            bad += not rel <= 1e-6
+    if bad:
+        raise RuntimeError(f"{bad} K12/K6 checks failed")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 23
+    phase(f"23 SDNet forward (full width, {SDNET_NC} classes, {HW}x{HW}, "
+          f"batch {SDNET_BATCH}, eval)")
+    reset()
+    smoke = io.StringIO()
+    with contextlib.redirect_stdout(smoke):
+        cli.main(["smoke", "--model", "all", "--device", "cuda"])
+    torch.cuda.synchronize()
+    print(smoke.getvalue().rstrip())
+    print(f"cli smoke --model all: launches {counts()}")
+    if counts()["column_softargmax"] != 1:
+        raise RuntimeError("cli smoke's SDNet did not launch K12 once")
+    model = get_model("sdnet", num_classes=SDNET_NC, img_size=HW,
+                      seed=SEED).to(dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    xb, _ = train_batch(dev, SDNET_BATCH, SEED + 81, SDNET_NC)
+    xb = xb.permute(0, 3, 1, 2).contiguous()
+    eps = torch.randn((SDNET_BATCH, 15), generator=gen, device=dev)
+    with torch.no_grad():
+        reset()
+        out = model(xb, eps=eps)
+        torch.cuda.synchronize()
+        fwd_launches = counts()
+        with plain():
+            ref = model(xb, eps=eps)
+    torch.cuda.synchronize()
+    diffs = {k: float((out[k] - ref[k]).abs().max())
+             for k in ("prob_map", "clean_masks", "layer_positions")}
+    flips = int((out["hard_anatomy"] != ref["hard_anatomy"]).sum())
+    finite = all(bool(torch.isfinite(t).all()) for k, t in out.items()
+                 if k != "extra_losses")
+    print(f"SDNet: {n_params:,} parameters; outputs "
+          f"{ {k: tuple(t.shape) for k, t in out.items() if k != 'extra_losses'} }"
+          f", all finite {finite}")
+    print(f"launches per forward {fwd_launches} (expected K12 1, K6 0)")
+    print(f"kernel forward vs plain-version forward: prob_map "
+          f"{diffs['prob_map']:.3e}, clean_masks {diffs['clean_masks']:.3e} "
+          f"(limits 1e-5), layer positions {diffs['layer_positions']:.3e} "
+          f"(limit {1e-5 * HW:.3e}); hard-anatomy values that differ "
+          f"{flips} of {out['hard_anatomy'].numel()} (a mask within float32 "
+          f"rounding of a .5 tie)", flush=True)
+    if fwd_launches != {"column_softargmax": 1, "bn_pair_sums": 0} \
+            or not finite or diffs["prob_map"] > 1e-5 \
+            or diffs["clean_masks"] > 1e-5 \
+            or diffs["layer_positions"] > 1e-5 * HW:
+        raise RuntimeError("SDNet forward check failed")
+    # the card against the CPU (the port's CPU path is held against JAX) on
+    # two 128x128 crops, float32 without TF32 on the card
+    side = min(128, HW)
+    small = get_model("sdnet", num_classes=SDNET_NC, img_size=side, seed=SEED)
+    xs_ = xb[:2, :, :side, :side].contiguous()
+    with torch.no_grad():
+        want = small.eval()(xs_.cpu(), eps=eps[:2].cpu())
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            got = small.to(dev)(xs_, eps=eps[:2])
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    cpu_diffs = {k: float((got[k].cpu() - want[k]).abs().max())
+                 for k in ("clean_masks", "layer_positions",
+                           "reconstruction", "z_mean")}
+    cpu_flips = float((got["hard_anatomy"].cpu()
+                       != want["hard_anatomy"]).float().mean())
+    print(f"card vs CPU, 2 crops of {side}x{side}, TF32 off: max abs "
+          f"differences {cpu_diffs} (limits 1e-4, positions 1e-3 * {side}); "
+          f"hard-anatomy share that differs {cpu_flips:.2e} (limit 1e-3)",
+          flush=True)
+    if any(v > (1e-3 * side if k == "layer_positions" else 1e-4)
+           for k, v in cpu_diffs.items()) or cpu_flips > 1e-3:
+        raise RuntimeError("SDNet on the card differs from the CPU")
+    del out, ref, small, got, want
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 24
+    trainer = SDNetTrainer(img_size=HW, seed=SEED, device=dev)
+    phase(f"24 SDNetTrainer: five steps (full width, {HW}x{HW}, batch "
+          f"{SDNET_TRAIN_BATCH}, Adam {trainer.learning_rate}, one synthetic "
+          f"batch, one noise draw, cuDNN deterministic)")
+    # cuDNN's default convolution backward sums in an order that changes
+    # from run to run; round() in the hard anatomy carries such a last bit
+    # into the loss within a few steps, so the trained state, and every
+    # reading below, would differ between runs (PERF.md section 6). The
+    # noise is drawn once, so the five losses differ only by the steps.
+    torch.backends.cudnn.deterministic = True
+    initial = copy.deepcopy(trainer.model.state_dict())
+    state = trainer.init()
+    step = trainer.make_train_step()
+    xt, yt = train_batch(dev, SDNET_TRAIN_BATCH, SEED + 82, SDNET_NC)
+    noise = torch.Generator(device=dev).manual_seed(SEED + 83)
+    eps_t = torch.randn((SDNET_TRAIN_BATCH, 15), generator=noise, device=dev)
+    losses = []
+    reset()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loss, metrics = step(state, xt, yt, eps=eps_t)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    train_launches = counts()
+    print(f"five steps in {time.perf_counter() - t0:.2f} s: losses "
+          f"{[round(v, 6) for v in losses]}; last terms "
+          f"{ {k: round(float(v), 6) for k, v in metrics.items()} }")
+    want_launches = {"column_softargmax": 5,
+                     "bn_pair_sums": 5 * SDNET_K6_PER_STEP}
+    print(f"launches {train_launches}, expected {want_launches}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[4] < losses[0]:
+        raise RuntimeError(f"SDNet train losses {losses}")
+    if train_launches != want_launches:
+        raise RuntimeError("launch counts do not match the SDNet train step")
+    trained = copy.deepcopy(trainer.model.state_dict())
+    # the same five steps again from the same state and a new Adam: K6 and
+    # K12 add in a fixed order, so the losses repeat bit for bit
+    trainer.model.load_state_dict(initial)
+    state = trainer.init()
+    again = [float(step(state, xt, yt, eps=eps_t)[0]) for _ in range(5)]
+    print(f"the five steps again from the initial state: losses repeat bit "
+          f"for bit {again == losses}", flush=True)
+    if again != losses:
+        raise RuntimeError(f"SDNet train losses do not repeat: {again}")
+    del initial
+
+    def loss_and_grads(labels, half=True):
+        """(loss, {term: value}, {parameter: gradient}) of one step from the
+        trained state; ``half``: of the segmentation half of the loss."""
+        trainer.model.load_state_dict(trained)
+        trainer.model.zero_grad(set_to_none=True)
+        loss, terms = trainer.loss_fn(xt, labels, eps=eps_t)
+        if half:
+            loss = (terms["ce"] + trainer.w_topo * terms["topology"]
+                    + trainer.w_cont * terms["continuity"]
+                    + trainer.w_curv * terms["curvature"])
+        loss.backward()
+        torch.cuda.synchronize()
+        return (float(loss.detach()),
+                {k: float(v.detach()) for k, v in terms.items()},
+                {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 .detach().double()
+                 for n, p in trainer.model.named_parameters()})
+
+    def compare(a, b):
+        """-> (relative loss, {term: |difference| / loss}, whole-gradient
+        cosine, (lowest per-tensor cosine over the tensors above a norm of
+        1e-3, its tensor))."""
+        u = torch.cat([g.flatten() for g in a[2].values()])
+        v = torch.cat([g.flatten() for g in b[2].values()])
+        low = (1.0, "")
+        for n in a[2]:
+            p, q = a[2][n].flatten(), b[2][n].flatten()
+            if min(float(p.norm()), float(q.norm())) > 1e-3:
+                low = min(low, (float(p @ q / (p.norm() * q.norm())), n))
+        return (abs(a[0] - b[0]) / abs(b[0]),
+                {k: abs(a[1][k] - b[1][k]) / abs(b[0]) for k in a[1]},
+                float(u @ v / (u.norm() * v.norm())), low)
+
+    def show(label, c):
+        print(f"{label}: relative loss {c[0]:.3e}; terms (difference / loss) "
+              f"{ {k: f'{v:.1e}' for k, v in c[1].items()} }; whole-gradient "
+              f"cosine {c[2]:.9f}; lowest per-tensor cosine {c[3][0]:.6f} "
+              f"({c[3][1]})", flush=True)
+
+    def passes(c):
+        return c[0] < SDNET_GATE["loss"] and c[2] > SDNET_GATE["cosine"]
+
+    # What bounds this comparison:
+    # - the CE reads log(clip(mask, 1e-7)); below the retina the synthetic
+    #   labels are class 0, whose mask there is c0 - c1 of two cumulative
+    #   sums within a few ulps of 1, rounding residue. The step is read at
+    #   labels = the argmax of the trained model's own masks, as the CPU
+    #   test against JAX does, where every labelled mask is >= 1/4;
+    # - the hard anatomy is round(masks): a last-bit change of K12 or of
+    #   any BatchNorm's sums rounds some values near .5 the other way, and
+    #   the modality encoder (a BatchNorm over 4 rows of dense features)
+    #   and the decoder carry each such flip into the loss and every
+    #   gradient. So the gates read the segmentation half of the loss (CE,
+    #   topology, continuity, curvature: the U-Net, the heads, the
+    #   LayerEngine, 38 BatchNorms, no rounding); the whole loss is shown.
+    with torch.no_grad(), plain():
+        trainer.model.load_state_dict(trained)
+        trainer.model.train()
+        argmax = trainer.model(xt.permute(0, 3, 1, 2), eps=eps_t)[
+            "clean_masks"].argmax(1)
+
+    sums = k6.pair_sums
+
+    def f32_sums(a, b=None):
+        """K6's plain version with float32 sums."""
+        a2 = a.reshape(-1, a.shape[-1]).float()
+        b2 = a2 if b is None else b.reshape(-1, b.shape[-1]).float()
+        return torch.stack([a2.sum(0), (a2 * b2).sum(0)])
+
+    def k6_sums_high(a, b=None):
+        """K6 with its sums 0.5% high."""
+        return sums(a, b) * 1.005
+
+    # K6's wrapper counts its launches under its module name, which points
+    # at the fault while it runs
+    k6_sums_high.launches = 0
+    kern = loss_and_grads(argmax)
+    with swapped(k12, column_softargmax=k12.column_softargmax_reference):
+        k12_only = compare(kern, loss_and_grads(argmax))
+    with plain():
+        ref = loss_and_grads(argmax)
+    every = compare(kern, ref)
+    with swapped(k12, column_softargmax=column_softargmax_f32), \
+            swapped(k6, pair_sums=f32_sums):
+        floor = compare(loss_and_grads(argmax), ref)
+    with swapped(k6, pair_sums=k6_sums_high):
+        fault = compare(loss_and_grads(argmax), ref)
+    show("one step from the trained state, segmentation half, K12 vs its "
+         "plain version (K6 on both sides)", k12_only)
+    show("segmentation half, every kernel vs every plain version", every)
+    show("  floor: the plain versions in float32 (K12's softmax, K6's sums) "
+         "vs in float64", floor)
+    show("  planted fault: K6 sums 0.5% high vs the plain versions", fault)
+    whole = loss_and_grads(argmax, half=False)
+    with plain():
+        whole = compare(whole, loss_and_grads(argmax, half=False))
+    show("whole loss, every kernel vs every plain version (not gated: "
+         "hard-anatomy values that round the other way)", whole)
+    del kern, ref
+    print(f"gates (segmentation half, argmax labels): relative loss < "
+          f"{SDNET_GATE['loss']} and whole-gradient cosine > "
+          f"{SDNET_GATE['cosine']}, for K12 and for every kernel; the "
+          f"planted K6 fault must fail them")
+    if not (passes(k12_only) and passes(every)):
+        raise RuntimeError("SDNet step: the kernels and their plain versions "
+                           "disagree")
+    if passes(fault):
+        raise RuntimeError("SDNet step: the gate does not see a planted K6 "
+                           "fault")
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 25
+    phase(f"25 SDNet times on {card}")
+    k12_row = {"ms": 0.0, "plain_ms": 0.0, "operations": 0.0, "bytes": 0.0}
+    for shape in shapes[:2]:
+        x = torch.randn(shape, generator=gen, device=dev)
+        with torch.no_grad():
+            ms = time_ms(lambda: k12.column_softargmax_forward(x))
+            pms = time_ms(lambda: k12.column_softargmax_reference(x))
+            dev_ms = device_ms(lambda: k12.column_softargmax_forward(x))
+        ops, nbytes = column_work(shape)
+        b_ms, b_by = bound(ops, nbytes, PEAK["fp32"])
+        for key, v in (("ms", ms), ("plain_ms", pms), (b_by, b_ms)):
+            k12_row[key] += v
+        print(f"time K12 {shape}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
+              f"{nbytes / dev_ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
+        del x
+    with torch.no_grad():
+        ms = time_ms(lambda: model(xb, eps=eps), 5)
+    print(f"SDNet forward batch {SDNET_BATCH}: {ms:.3f} ms, "
+          f"{SDNET_BATCH / ms * 1e3:.1f} B-scans/s", flush=True)
+    del model, xb
+    torch.cuda.empty_cache()
+    trainer.model.load_state_dict(trained)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, xt, yt, generator=noise)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(state, xt, yt, generator=noise)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"SDNet train step batch {SDNET_TRAIN_BATCH}: {ms:.3f} ms, "
+          f"{SDNET_TRAIN_BATCH / ms * 1e3:.1f} B-scans/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    profile_breakdown(lambda: step(state, xt, yt, generator=noise), 3,
+                      f"SDNet train steps at batch {SDNET_TRAIN_BATCH}",
+                      {"K12 column_softargmax": "column_softargmax",
+                       "K6 bn_pair_sums": "pair_sums"})
+    del trainer, state, step
+    torch.cuda.empty_cache()
+    return {
+        "name": "column_softargmax", "route": "cuda",
+        "source": SOURCES["column_softargmax"],
+        "replaces": "; ".join(REPLACES["column_softargmax"]),
+        "launches": train_launches["column_softargmax"],
+        "max_abs_err": max_err, "ms": k12_row["ms"],
+        "plain_ms": k12_row["plain_ms"],
+        "bound_ms": k12_row["operations"] + k12_row["bytes"],
+        "bound_by": ("operations" if k12_row["operations"]
+                     >= k12_row["bytes"] else "bytes"),
+        # no single PyTorch call computes the softmax, position and std
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2001,6 +2458,7 @@ def main() -> int:
     k89 = fused_loss_phases(dev, card, time_ms)
     kernels += [relaynet_phases(dev, card, time_ms, http_post)] + k89
     kernels += infer_eval_phases(dev, card, time_ms, model, calib, by_row)
+    kernels.append(sdnet_phases(dev, card, time_ms))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Command line: ``serve`` an int8 model over HTTP, ``train`` a model,
 ``infer`` masks for a batch of B-scans, ``eval`` a model on the metric
-suite.
+suite, ``smoke`` every ported model with one forward.
 
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         serve --model unet|relaynet --quantize psrp --image-size 512 \\
@@ -13,6 +13,8 @@ suite.
         [--export-probs] [--save-quantized q.npz | --load-quantized q.npz]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         eval --model unet|relaynet --quantize off|int8|psrp [--num-val 16]
+    python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
+        smoke --model all|unet|relaynet|sdnet [--num-classes 10] --device cuda
 
 The int8 graphs are built by ``build_quantized_forward``: model -> BN fold
 -> calibration on a seeded standard-normal batch (after the same
@@ -32,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -67,7 +70,7 @@ from .inference.relaynet_psrp import (
 )
 from .inference.server import ServingLoop
 from .ops.preprocess import preprocess
-from .registry import get_model
+from .registry import get_model, list_models
 from .training.data import SyntheticOCTConfig, SyntheticOCTDataset, synth_batch
 from .training.trainer import Trainer
 from .utils.logging import MetricLogger, export_prob_maps
@@ -383,6 +386,33 @@ def cmd_eval(args) -> dict:
     return m
 
 
+def cmd_smoke(args) -> None:
+    """One forward of each ported model (``--model all``: the registry) on
+    a seeded standard-normal 64x64 B-scan, eval mode, random init; prints
+    the JAX CLI's line. A name not ported raises."""
+    device = _device(args.device)
+    names = list_models() if args.model == "all" else [args.model]
+    for name in names:
+        t0 = time.time()
+        size, kwargs, kw = 64, {}, {}
+        if name == "sdnet":  # the JAX CLI's size and channels
+            kwargs = {"img_size": size, "channels": (8, 16, 32, 64, 128)}
+            kw = {"generator": torch.Generator(device=device).manual_seed(2)}
+        model = get_model(name, num_classes=args.num_classes,
+                          **kwargs).to(device)
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (1, 1, size, size)).astype(np.float32)).to(device)
+        with torch.no_grad():
+            out = model(x, **kw)
+        shape = (tuple(out.shape) if isinstance(out, torch.Tensor) else
+                 {k: (tuple(v.shape) if isinstance(v, torch.Tensor) else
+                      {kk: tuple(vv.shape) for kk, vv in v.items()})
+                  for k, v in out.items()})
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"{name:16s} ok  params={n_params:>12,}  "
+              f"out={str(shape)[:80]}  ({time.time() - t0:.1f}s)")
+
+
 def _eval_args(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's common flags, and ``--device``, ``--seed`` and
     ``--checkpoint`` (a torch state dict)."""
@@ -487,6 +517,13 @@ def parser() -> argparse.ArgumentParser:
                         "kernels, int8 the all-int8 oracle; relaynet takes "
                         "int8|psrp (int4 is not ported yet: raises)")
     i.set_defaults(fn=cmd_infer)
+
+    m = sub.add_parser("smoke", help="one forward of each ported model")
+    m.add_argument("--model", default="all",
+                   help="a registry name, or all (the ported models)")
+    m.add_argument("--num-classes", type=int, default=10)
+    m.add_argument("--device", default="cuda")
+    m.set_defaults(fn=cmd_smoke)
     return p
 
 

@@ -1,11 +1,12 @@
-"""The layers the U-Net and ReLayNet are built from, with torch-default
-initialisation drawn from an explicit ``torch.Generator``.
+"""The layers the U-Net, ReLayNet and SDNet are built from, with
+torch-default initialisation drawn from an explicit ``torch.Generator``.
 
 Modules are created uninitialised (``skip_init``, so the global RNG is never
 touched) and then initialised as ``torch.nn`` would: weights
 kaiming-uniform with ``a = sqrt(5)``, biases uniform in +-1/sqrt(fan_in).
 BatchNorm is the JAX package's ``models/blocks.BatchNorm``: eps 1e-5, train
-mode through ``ops/fused_bn.bn_train`` with flax's running-stat update.
+mode through ``ops/fused_bn.bn_train`` with flax's running-stat update, over
+NCHW maps or (N, C) features.
 """
 
 from __future__ import annotations
@@ -52,6 +53,18 @@ def conv_same(cin: int, cout: int, kernel: tuple[int, int],
                             padding=((kh - 1) // 2, (kw - 1) // 2)), generator)
 
 
+def conv3x3_stride2(cin: int, cout: int,
+                    generator: torch.Generator) -> nn.Conv2d:
+    """3x3 stride-2 conv with bias and padding 1."""
+    return _init_(skip_init(nn.Conv2d, cin, cout, 3, stride=2, padding=1),
+                  generator)
+
+
+def linear(cin: int, cout: int, generator: torch.Generator) -> nn.Linear:
+    """Dense layer with bias."""
+    return _init_(skip_init(nn.Linear, cin, cout), generator)
+
+
 def conv_transpose2x2(cin: int, cout: int,
                       generator: torch.Generator) -> nn.ConvTranspose2d:
     """2x2 stride-2 transposed conv with bias."""
@@ -70,9 +83,10 @@ def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """``BatchNorm2d`` (NCHW, eps 1e-5, same state-dict names) computed as
-    the JAX package's: train mode runs ``bn_train`` on the channels-last
-    view (K6 statistics) and updates the running stats once per call with
+    """``BatchNorm2d`` (eps 1e-5, same state-dict names) over the channel
+    axis 1 of an NCHW map or of (N, C) features, computed as the JAX
+    package's: train mode runs ``bn_train`` on the channels-last view (K6
+    statistics) and updates the running stats once per call with
     ``update_running_stats``; eval mode normalises in float32 and returns
     the input's dtype."""
 
@@ -84,10 +98,9 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x.float(), self.running_mean,
                                 self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps).to(x.dtype)
-        y, mean, var = bn_train(x.permute(0, 2, 3, 1), self.weight,
-                                self.bias)
+        y, mean, var = bn_train(x.movedim(1, -1), self.weight, self.bias)
         update_running_stats(self, mean, var)
-        return y.permute(0, 3, 1, 2)
+        return y.movedim(-1, 1)
 
 
 def batch_norm(c: int) -> BatchNorm:

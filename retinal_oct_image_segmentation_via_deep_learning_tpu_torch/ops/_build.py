@@ -50,6 +50,7 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _P],
     "octseg_stem_conv_int8": [_P] * 9 + [_I] * 8 + [_P],
     "octseg_pool2x2_int8": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "octseg_column_softargmax": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

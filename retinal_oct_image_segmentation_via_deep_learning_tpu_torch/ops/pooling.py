@@ -1,5 +1,6 @@
-"""Index max-pool and max-unpool for NHWC tensors (the JAX package's
-``ops/pooling.py``), in plain PyTorch.
+"""Index max-pool and max-unpool for NHWC tensors, and the plain max-pool of
+the float models on NCHW tensors (the JAX package's ``ops/pooling.py``), in
+plain PyTorch.
 
 ReLayNet pools with indices and decodes by unpooling to them. The indices
 here are window-local: ``idx`` in [0, k*k) is the flat position ``dy*k + dx``
@@ -38,3 +39,13 @@ def max_unpool(x: torch.Tensor, idx: torch.Tensor, k: int = 2) -> torch.Tensor:
                       torch.zeros((), dtype=x.dtype, device=x.device))
     return (win.reshape(N, Ho, Wo, k, k, C).permute(0, 1, 3, 2, 4, 5)
             .reshape(N, Ho * k, Wo * k, C))
+
+
+def max_pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """Non-overlapping k x k max-pool of an (N, C, H, W) tensor with H and W
+    multiples of k: the JAX package's reshape-max, whose gradient splits
+    evenly between tied maxima (``amax``'s, as ``jnp.max``'s)."""
+    N, C, H, W = x.shape
+    if H % k or W % k:
+        raise ValueError(f"max_pool: H, W = {H}, {W} not multiples of {k}")
+    return x.reshape(N, C, H // k, k, W // k, k).amax(dim=(3, 5))

@@ -1,6 +1,6 @@
 """Model registry: name -> PyTorch module constructor.
 
-The U-Net and ReLayNet are ported so far; every other name of the JAX
+The U-Net, ReLayNet and SDNet are ported so far; every other name of the JAX
 package's zoo raises ``NotImplementedError`` until its slice lands
 (ROADMAP.md, Queue A).
 """
@@ -10,9 +10,11 @@ from __future__ import annotations
 from typing import Any, Callable
 
 from .models.relaynet import build_relaynet
+from .models.sdnet import build_sdnet
 from .models.unet import build_unet
 
 _MODELS: dict[str, Callable[..., Any]] = {"relaynet": build_relaynet,
+                                          "sdnet": build_sdnet,
                                           "unet": build_unet}
 
 

@@ -92,6 +92,12 @@ def mse_loss(pred, target, class_weights=None):
     return torch.mean((pred.float() - target.float()) ** 2)
 
 
+def kl_divergence(mean, logvar):
+    """VAE KL(q || N(0, I)), the batch mean (SDNet's modality encoder)."""
+    return -0.5 * torch.mean(
+        torch.sum(1 + logvar - mean ** 2 - torch.exp(logvar), dim=-1))
+
+
 LOSSES = {
     "dice_ce": dice_ce_loss,
     "dice": dice_loss,

@@ -1,5 +1,5 @@
-"""JAX U-Net and ReLayNet weights <-> this package's state dicts (and JAX
-int8 qparams -> this package's qparams).
+"""JAX U-Net, ReLayNet and SDNet weights <-> this package's state dicts (and
+JAX int8 qparams -> this package's qparams).
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing of JAX
 is imported. The reverse direction, ``unet_variables_from_state_dict``,
@@ -209,3 +209,143 @@ def relaynet_qparams_from_jax(qparams) -> dict:
         if "alpha" in lw:
             out[name]["alpha"] = _t(lw["alpha"]).reshape(())
     return out
+
+
+def _res_block_map(tp: str, fp: tuple) -> list:
+    return [(f"{tp}.init_conv", fp + ("Conv_0",), "conv"),
+            (f"{tp}.conv1", fp + ("Conv_1",), "conv"),
+            (f"{tp}.conv2", fp + ("Conv_2",), "conv"),
+            (f"{tp}.bn1", fp + ("BatchNorm_0",), "bn"),
+            (f"{tp}.bn2", fp + ("BatchNorm_1",), "bn")]
+
+
+# an AttentionGate's (conv, BN) pairs, in the Flax call order
+_GATE_LAYERS = (("w_g", "bn_g"), ("w_x", "bn_x"), ("psi", "bn_psi"))
+
+
+def backbone_layer_map(levels: int, attention: bool, prefix: str = "",
+                       path: tuple = ()) -> list:
+    """[(port module name, Flax module path, "conv" | "bn" | "dense")] of a
+    ``models/sdnet/unet.UNetBackbone`` with ``levels`` levels, its names
+    under ``prefix`` and its Flax modules under ``path``. A Flax ``Conv``
+    or ``BatchNorm`` wrapper holds its layer as ``Conv_0`` /
+    ``BatchNorm_0``; a ``Dense`` holds its own kernel."""
+    out = []
+    for i in range(levels):
+        out += _res_block_map(f"{prefix}enc.{i}",
+                              path + (f"ResConvBlock_{i}",))
+    for k in range(levels - 1):
+        up = path + (f"UpConv_{k}",)
+        out += [(f"{prefix}up.{k}.conv", up + ("Conv_0",), "conv"),
+                (f"{prefix}up.{k}.bn", up + ("BatchNorm_0",), "bn")]
+        gate = path + (f"AttentionGate_{k}",)
+        for j, (conv, bn) in enumerate(_GATE_LAYERS if attention else ()):
+            out += [(f"{prefix}att.{k}.{conv}", gate + (f"Conv_{j}",), "conv"),
+                    (f"{prefix}att.{k}.{bn}", gate + (f"BatchNorm_{j}",), "bn")]
+        out += _res_block_map(f"{prefix}dec.{k}",
+                              path + (f"ResConvBlock_{levels + k}",))
+    out.append((f"{prefix}head", path + ("Conv_0",), "conv"))
+    return out
+
+
+def sdnet_layer_map(levels: int, surface: bool) -> list:
+    """``backbone_layer_map`` for the whole SDNet (``levels`` U-Net
+    levels, with or without the surface predictor)."""
+    out = backbone_layer_map(levels, True, "u_net.", ("u_net",))
+    for name in ("layer_predictor",) + (("surface_predictor",) if surface
+                                        else ()):
+        out += _res_block_map(f"{name}.block", (name, "ResConvBlock_0"))
+        out.append((f"{name}.head", (name, "Conv_0"), "conv"))
+    m = ("modality_encoder",)
+    for i in range(4):
+        out += [(f"modality_encoder.convs.{i}", m + (f"Conv_{i}",), "conv"),
+                (f"modality_encoder.bns.{i}", m + (f"BatchNorm_{i}",), "bn")]
+    out += [("modality_encoder.fc", m + ("Dense_0",), "dense"),
+            ("modality_encoder.fc_bn", m + ("BatchNorm_4",), "bn"),
+            ("modality_encoder.z_mean", m + ("Dense_1",), "dense"),
+            ("modality_encoder.z_logvar", m + ("Dense_2",), "dense")]
+    for i in range(4):
+        f = ("decoder", f"FiLMLayer_{i}")
+        out += [(f"decoder.film.{i}.conv1", f + ("Conv_0",), "conv"),
+                (f"decoder.film.{i}.conv2", f + ("Conv_1",), "conv"),
+                (f"decoder.film.{i}.fc1", f + ("Dense_0",), "dense"),
+                (f"decoder.film.{i}.fc2", f + ("Dense_1",), "dense")]
+    out.append(("decoder.out", ("decoder", "Conv_0"), "conv"))
+    return out
+
+
+def _node(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def state_dict_from_jax(variables, layer_map) -> OrderedDict:
+    """JAX variables {"params", "batch_stats"} -> the state dict of the
+    port module that ``layer_map`` describes. Conv kernels (kh, kw, in,
+    out) -> (out, in, kh, kw); Dense kernels (in, out) -> (out, in)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = OrderedDict()
+    for name, path, kind in layer_map:
+        if kind == "bn":
+            p = _node(params, path)["BatchNorm_0"]
+            s = _node(stats, path)["BatchNorm_0"]
+            sd[f"{name}.weight"] = _t(p["scale"])
+            sd[f"{name}.bias"] = _t(p["bias"])
+            sd[f"{name}.running_mean"] = _t(s["mean"])
+            sd[f"{name}.running_var"] = _t(s["var"])
+            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+            continue
+        p = _node(params, path)
+        if kind == "conv":
+            p = p["Conv_0"]
+        sd[f"{name}.weight"] = _t(p["kernel"],
+                                  (3, 2, 0, 1) if kind == "conv" else (1, 0))
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def variables_from_state_dict(state_dict, layer_map) -> dict:
+    """The inverse of ``state_dict_from_jax``: JAX variables {"params",
+    "batch_stats"} as float32 numpy arrays."""
+    def a(name, perm=None):
+        v = state_dict[name].detach().cpu().float().numpy()
+        return v.transpose(perm) if perm is not None else v
+
+    def put(tree, path, leaf):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = leaf
+
+    params, stats = {}, {}
+    for name, path, kind in layer_map:
+        if kind == "bn":
+            put(params, path + ("BatchNorm_0",), {
+                "scale": a(f"{name}.weight"), "bias": a(f"{name}.bias")})
+            put(stats, path + ("BatchNorm_0",), {
+                "mean": a(f"{name}.running_mean"),
+                "var": a(f"{name}.running_var")})
+        else:
+            leaf = {"kernel": a(f"{name}.weight",
+                                (2, 3, 1, 0) if kind == "conv" else (1, 0)),
+                    "bias": a(f"{name}.bias")}
+            put(params, path + (("Conv_0",) if kind == "conv" else ()), leaf)
+    return {"params": params, "batch_stats": stats}
+
+
+def sdnet_state_dict_from_jax(variables) -> OrderedDict:
+    """JAX ``SDNet`` variables {"params", "batch_stats"} -> state dict for
+    ``models/sdnet.SDNet``."""
+    params = variables["params"]
+    blocks = sum(k.startswith("ResConvBlock_") for k in params["u_net"])
+    return state_dict_from_jax(variables, sdnet_layer_map(
+        (blocks + 1) // 2, "surface_predictor" in params))
+
+
+def sdnet_variables_from_state_dict(state_dict) -> dict:
+    """Port SDNet state dict -> JAX ``SDNet`` variables (the inverse of
+    ``sdnet_state_dict_from_jax``)."""
+    levels = sum(k.startswith("u_net.enc.") and k.endswith(".conv1.weight")
+                 for k in state_dict)
+    return variables_from_state_dict(state_dict, sdnet_layer_map(
+        levels, "surface_predictor.head.weight" in state_dict))

@@ -197,14 +197,17 @@ def port_psrp_labels_full_pipeline(case):
 
 
 def test_registry():
-    assert list_models() == ["relaynet", "unet"]
+    assert list_models() == ["relaynet", "sdnet", "unet"]
     m = get_model("unet", num_classes=4, init_features=4)
     assert m.conv.out_channels == 4
     m = get_model("relaynet", num_classes=4, num_filters=8)
     assert m.classifier.out_channels == 4
     assert m.encode1.conv.kernel_size == (7, 3)
+    m = get_model("sdnet", num_classes=5, img_size=32, channels=(4, 8))
+    assert m.layer_predictor.head.out_channels == 4
+    assert m.surface_predictor.head.out_channels == 12 - 5
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("sdnet")
+        get_model("fouriernet")
 
 
 def test_config_defaults_match_jax():

@@ -83,8 +83,8 @@ def test_checkpoint_block_spelling():
 def test_port_imports_without_jax():
     """A fresh interpreter with ``jax`` and the JAX package blocked imports
     every module of the port, the fused-loss, ReLayNet, fused-stem, packed
-    graph, artifact, metric and CLI modules among them; neither is loaded
-    afterwards."""
+    graph, artifact, metric, SDNet and CLI modules among them; neither is
+    loaded afterwards."""
     code = (
         "import importlib, pkgutil, sys\n"
         "JAX_PKG = 'retinal_oct_image_segmentation_via_deep_learning_tpu'\n"
@@ -105,12 +105,15 @@ def test_port_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 43
+    assert len(mods) >= 52
     pkg = "retinal_oct_image_segmentation_via_deep_learning_tpu_torch."
     for name in ("ops.dice_ce", "ops.conv7x3_int8", "ops.pooling",
                  "models.relaynet", "inference.relaynet_int8",
                  "inference.relaynet_psrp", "ops.stem_conv_int8",
                  "inference.packed", "inference.artifacts",
                  "metrics.contour", "metrics.volume", "metrics.region",
-                 "cli"):
+                 "ops.column_softargmax", "ops.resize", "models.sdnet",
+                 "models.sdnet.common", "models.sdnet.unet",
+                 "models.sdnet.modality", "models.sdnet.layer_engine",
+                 "models.sdnet.sdnet", "training.sdnet_pipeline", "cli"):
         assert pkg + name in mods, name

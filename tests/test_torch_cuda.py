@@ -23,6 +23,9 @@ from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.relayn
     relaynet_psrp_forward,
 )
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+    column_softargmax as k12sm,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
     conv7x3_int8 as k7,
 )
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
@@ -210,7 +213,11 @@ def test_conv3x3_bf16_autograd_launches(dev):
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 32), (3, 8, 8, 512), (6, 5),
-                                   (4, 33, 130)])
+                                   (4, 33, 130),
+                                   # SDNet's: the gate's psi (C=1), the
+                                   # encoder's dense BN (M=4), its 16-wide
+                                   # convs
+                                   (2, 16, 16, 1), (4, 32), (2, 32, 32, 16)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("two", [False, True])
 def test_k6_matches_float64(dev, shape, dtype, two):
@@ -490,3 +497,114 @@ def test_packed_graph_kernels_match_plain(dev):
         want = unet_packed_forward(calib["qparams"], x, 5, reference=True)
     assert launched == LAUNCHES_PER_FORWARD
     assert got.shape == (2, 64, 64) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 10, 1), (4, 32), (8, 32)])
+def test_bn_train_cuda_sdnet_shapes(dev, shape):
+    """``bn_train`` at SDNet's BN shapes K6 had not seen: one channel, and
+    a few rows of dense features."""
+    rng = np.random.default_rng(16)
+    c = shape[-1]
+    x = torch.tensor(rng.normal(0.5, 2, shape), dtype=torch.float32)
+    g = torch.tensor(rng.uniform(0.5, 1.5, c), dtype=torch.float32)
+    b = torch.tensor(rng.normal(0, 1, c), dtype=torch.float32)
+    r = torch.tensor(rng.normal(0, 1, shape), dtype=torch.float32)
+    outs = []
+    for d in ("cpu", dev):
+        xs, gs, bs = (t.to(d).requires_grad_() for t in (x, g, b))
+        y, mean, var = k6.bn_train(xs, gs, bs)
+        grads = torch.autograd.grad(y, (xs, gs, bs), r.to(d))
+        outs.append([t.float().cpu() for t in (y, mean, var, *grads)])
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# K12: (B, L, H, W); odd H and W, L = 11 (the curvature table), full size
+K12_SHAPES = [(2, 5, 100, 200), (2, 11, 64, 48), (1, 3, 7, 33),
+              (8, 3, 512, 512)]
+
+
+@pytest.mark.parametrize("shape", K12_SHAPES)
+def test_k12_matches_plain(dev, shape):
+    """sm within 1e-6, pos and std within 1e-5 * H of the plain version."""
+    x = torch.tensor(np.random.default_rng(17).standard_normal(shape) * 3,
+                     dtype=torch.float32, device=dev)
+    before = k12sm.column_softargmax_forward.launches
+    got = k12sm.column_softargmax_forward(x)
+    torch.cuda.synchronize()
+    assert k12sm.column_softargmax_forward.launches == before + 1
+    want = k12sm.column_softargmax_reference(x)
+    H = shape[2]
+    for g, w, tol in zip(got, want, (1e-6, 1e-5 * H, 1e-5 * H)):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("shape", K12_SHAPES[:2])
+def test_k12_backward_matches_plain_autograd(dev, shape):
+    """dx from random cotangents of (sm, pos, std) against autograd through
+    the plain version, within 1e-5 of the largest |dx|."""
+    rng = np.random.default_rng(18)
+    x = torch.tensor(rng.standard_normal(shape) * 2, dtype=torch.float32,
+                     device=dev)
+    B, L, H, W = shape
+    cot = [torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                        device=dev) for s in (shape, (B, L, W), (B, L, W))]
+    grads = []
+    for fn in (k12sm.column_softargmax, k12sm.column_softargmax_reference):
+        xs = x.clone().requires_grad_(True)
+        outs = fn(xs)
+        sum(torch.sum(o * c) for o, c in zip(outs, cot)).backward()
+        grads.append(xs.grad)
+    err = float((grads[0] - grads[1]).abs().max())
+    assert err <= 1e-5 * float(grads[1].abs().max())
+
+
+def test_k12_one_hot_column_without_std_cotangent(dev):
+    x = torch.tensor(np.random.default_rng(19).standard_normal((1, 2, 24, 40)),
+                     dtype=torch.float32, device=dev)
+    x[0, 1, 7, 3] = 1e4
+    xs = x.requires_grad_(True)
+    sm, pos, std = k12sm.column_softargmax(xs)
+    assert float(std[0, 1, 3].detach()) == 0.0
+    (torch.sum(sm * torch.linspace(-1, 1, 24, device=dev).view(1, 1, 24, 1))
+     + torch.sum(pos)).backward()
+    assert bool(torch.isfinite(xs.grad).all())
+
+
+def test_k12_rejects_bad_input(dev):
+    with pytest.raises(ValueError, match="float32"):
+        k12sm.column_softargmax_forward(
+            torch.zeros(1, 1, 4, 4, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="B, L, H, W"):
+        k12sm.column_softargmax_forward(torch.zeros(1, 4, 4, device=dev))
+
+
+def test_sdnet_forward_kernel_matches_plain(dev):
+    """A small SDNet on the card: K12 once per forward, and the forward
+    with the plain version swapped in agrees (masks 1e-5, positions
+    1e-5 * H)."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
+        get_model,
+    )
+
+    model = get_model("sdnet", num_classes=4, img_size=64,
+                      channels=(8, 16, 32, 64, 128)).to(dev)
+    x = torch.tensor(np.random.default_rng(20).standard_normal(
+        (2, 1, 64, 64)), dtype=torch.float32, device=dev)
+    eps = torch.zeros(2, 15, device=dev)
+    with torch.no_grad():
+        before = k12sm.column_softargmax_forward.launches
+        got = model(x, eps=eps)
+        torch.cuda.synchronize()
+        assert k12sm.column_softargmax_forward.launches == before + 1
+        kernel = k12sm.column_softargmax
+        k12sm.column_softargmax = k12sm.column_softargmax_reference
+        try:
+            want = model(x, eps=eps)
+        finally:
+            k12sm.column_softargmax = kernel
+    assert float((got["clean_masks"] - want["clean_masks"]).abs().max()) \
+        <= 1e-5
+    assert float((got["layer_positions"] - want["layer_positions"]).abs()
+                 .max()) <= 1e-5 * 64
