@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 serving paths (U-Net and ReLayNet), its
-U-Net training path (with and without the fused Dice+CE loss) and SDNet's
-forward and composite train step once on one NVIDIA GPU.
+"""Drive the PyTorch port's int8 serving paths (U-Net and ReLayNet), the
+U-Net's w4a4 serving mode and fused head, its U-Net training path (with and
+without the fused Dice+CE loss) and SDNet's forward and composite train step
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -101,7 +102,30 @@ Phases (any failure raises; the exit code is then non-zero):
     planted K6 fault must fail), the whole loss shown ungated;
 25. times: K12 against its plain version and bound at both batch-8
     shapes, the SDNet forward at batch 8, the train step at batch 4 and its
-    peak memory, a ``torch.profiler`` breakdown of the step.
+    peak memory, a ``torch.profiler`` breakdown of the step;
+26. K1 and K2 with the w4a4 knobs bit for bit against their plain versions
+    at every stage of the f=32 512x512 graph (batch 2) in the modes w4a4,
+    w4 and a4, with each mode's quantized weights and epilogues (-7
+    borders, clip 7, the split-scale pool, ct0/ct1's per-column bias), on
+    seeded inputs in the range each stage reads; K1's fused head at
+    blk8_conv1's shape (int8 and w4a4 qparams);
+27. the w4a4, w4 and a4 graphs of phase 3's U-Net at batch 8: labels
+    identical to their plain graphs', launches K1 18, K2 4, K3 1 per
+    forward; agreement with the all-int8 oracle, float and the int8 PSRP
+    graph printed;
+28. the fused head: labels identical to the unfused graph's (int8 and
+    w4a4), launches K1 18, K2 4, K3 0;
+29. ``cli infer --quantize int4`` with ``--save-quantized`` then
+    ``--load-quantized`` (identical masks), ``cli eval --quantize int4``
+    (confusion sum = pixels), and the int4 graph served as ``cli serve
+    --quantize int4`` builds it: 5 HTTP requests, each equal to the direct
+    forward, launches as phase 4's;
+30. times at batch 32: K1 and K2 per w4a4 stage (events and device time)
+    against the plain versions and the bound, summed per TPU kernel; K1
+    with the fused head against K1 then K3; P3's counterpart, K1 at the
+    deep widths (128, 256, 512 channels) on +-7 against int8 values and
+    with clip 7 against 127; the served forward int8, w4a4 and with the
+    fused head at batch 32 and 128, in turns.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -2148,6 +2172,401 @@ def sdnet_phases(dev, card, time_ms):
     }
 
 
+def head_work(h, cin, cout, n, nc=NC):
+    """(int8 ops, bytes) of K1 with the fused head at batch n: the input
+    read once, the labels written once."""
+    return (2 * n * h * h * (9 * cin * cout + cout * nc),
+            n * h * h * cin + 9 * cin * cout + cout * nc + 8 * (cout + nc)
+            + n * h * h)
+
+
+def int4_phases(dev, card, time_ms, model, calib):
+    """Phases 26-30: the w4a4 serving mode (``--quantize int4``) and the
+    fused head on K1 and K2. ``model`` and ``calib``: phase 3's U-Net and
+    its PSRP build. -> the kernels line's entries of the w4a4 functions of
+    K1 and K2 and of K1's fused head."""
+    import os
+    import tempfile
+
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference import (
+        quantized as tq,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.http_server import (
+        start_in_background,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.psrp import (
+        act4,
+        quantize_unet_psrp,
+        unet_psrp_forward,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.server import (
+        ServingLoop,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv_int8 as k12,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        head_argmax as k3,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
+        preprocess,
+    )
+
+    wrappers = {"conv3x3_int8": k12.conv3x3_int8, "ct2x2_int8": k12.ct2x2_int8,
+                "head_argmax": k3.head_argmax}
+    plains = {"conv3x3_int8": k12.conv3x3_int8_reference,
+              "ct2x2_int8": k12.ct2x2_int8_reference}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    gen = np.random.default_rng(SEED + 90)
+
+    def i8(shape, lo=-127, hi=128):
+        return torch.tensor(gen.integers(lo, hi, shape), dtype=torch.int8,
+                            device=dev)
+
+    layers, taps = calib["layers"], calib["taps"]
+    q8 = calib["qparams"]
+    modes = {"w4a4": True, "w4": "w4", "a4": "a4"}
+    qps = {m: quantize_unet_psrp(layers, taps, F, deep_int4=v, device=dev)
+           for m, v in modes.items()}
+
+    def layer_name(name):
+        return name.split()[-1]  # "stem blk0_conv0" -> "blk0_conv0"
+
+    def stage_call(qp, name, kernel, shape, n, head=False):
+        """(wrapper name, args, kwargs) of one stage of ``qp``'s graph at
+        batch n on seeded inputs in the value range the stage reads: +-7
+        where the graph stores 4-bit values, else the int8 range."""
+        lw = qp[layer_name(name)]
+        if kernel == "conv3x3_int8":
+            h, cins, cout, pool = shape
+            four = -7 in (lw["knobs"]["pad_vals"] or ())
+            xs = tuple(i8((n, h, h, c), *((-7, 8) if four else ()))
+                       for c in cins)
+            kw = dict(lw["knobs"], pool=pool)
+            if head:
+                hd = qp["head"]
+                kw["head"] = (hd["w_k"], hd["scale"], hd["bias"])
+            return kernel, (xs, lw["w_k"], lw["scale"], lw["bias"]), kw
+        h, cin, cout = shape
+        four = act4(qp) and name in ("ct0", "ct1")
+        x = i8((n, h, h, cin), *((-7, 8) if four else ()))
+        return kernel, (x, lw["w_k"], lw["scale"], lw["bias"]), lw["knobs"]
+
+    def as_tuple(t):
+        return t if isinstance(t, tuple) else (t,)
+
+    def w4a4_stage(qp, name):
+        """Whether a stage's function differs from the int8 graph's: its
+        epilogue, or 4-bit weights."""
+        lw, l8 = qp[name], q8[name]
+        return (lw.get("knobs") != l8.get("knobs")
+                or not torch.equal(lw["bias"], l8["bias"])
+                or int(lw["w_q"].abs().max()) <= 7)
+
+    blk8 = next(s for s in stages() if s[0] == "blk8_conv1")
+
+    # ------------------------------------------------------------------ 26
+    phase("26 K1 and K2 with the w4a4 knobs, and K1's fused head, vs plain "
+          "versions (batch 2, every stage)")
+    max_err = {"conv3x3_int8": 0, "ct2x2_int8": 0, "head": 0}
+    bad = 0
+    cases = [(m, s) for m in modes for s in stages() if s[1] != "head_argmax"]
+    cases += [("int8", blk8), ("w4a4", blk8)]
+    for i, (mode, (name, kernel, shape)) in enumerate(cases):
+        head = i >= len(cases) - 2
+        qp = q8 if mode == "int8" else qps[mode]
+        kernel, args, kw = stage_call(qp, name, kernel, shape, 2, head)
+        got = as_tuple(wrappers[kernel](*args, **kw))
+        want = as_tuple(plains[kernel](*args, **kw))
+        torch.cuda.synchronize()
+        mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+        key = "head" if head else kernel
+        max_err[key] = max([max_err[key]] + [
+            int((g.int() - w.int()).abs().max()) for g, w in zip(got, want)])
+        lim = max(int(g.abs().max()) for g in got)
+        what = "fused head" if head else \
+            "w4a4 knobs" if w4a4_stage(qp, layer_name(name)) else "int8"
+        print(f"{mode:4s} {name:16s} {kernel:13s} {str(shape):28s} {what:10s}"
+              f" outputs {[tuple(g.shape) for g in got]} max |out| {lim} "
+              f"mismatches {mism}", flush=True)
+        bad += mism
+        del args, got, want
+    if bad:
+        raise RuntimeError(f"{bad} w4a4/head kernel outputs differ from plain")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 27
+    phase(f"27 w4a4 graphs: f={F}, {NC} classes, {HW}x{HW}, batch 8")
+    imgs = torch.tensor(
+        np.random.default_rng(SEED + 2).standard_normal((8, HW, HW, 1)),
+        dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        x = preprocess(imgs)
+        lab8 = unet_psrp_forward(q8, x, NC)
+        ref8 = tq.unet_int8_forward(tq.quantize_unet(layers, taps),
+                                    x).argmax(-1)
+        ref32 = tq.folded_forward(layers, x).argmax(-1)
+        for mode, qp in qps.items():
+            reset()
+            lab = unet_psrp_forward(qp, x, NC)
+            torch.cuda.synchronize()
+            launched = counts()
+            plain = unet_psrp_forward(qp, x, NC, reference=True)
+            torch.cuda.synchronize()
+            mism = int((lab != plain).sum())
+            hist = torch.bincount(lab.flatten().long(), minlength=NC).tolist()
+            print(f"{mode}: kernel graph vs plain graph {mism} label "
+                  f"mismatches; agreement vs the all-int8 oracle "
+                  f"{float((lab.long() == ref8).float().mean()):.6f}, vs "
+                  f"float {float((lab.long() == ref32).float().mean()):.6f},"
+                  f" vs the int8 PSRP graph "
+                  f"{float((lab == lab8).float().mean()):.6f}; classes "
+                  f"{hist}; launches {launched}, expected "
+                  f"{LAUNCHES_PER_FORWARD}", flush=True)
+            if mism or launched != LAUNCHES_PER_FORWARD:
+                raise RuntimeError(f"w4a4 graph check failed ({mode})")
+            del lab, plain
+    del ref8, ref32
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 28
+    phase(f"28 fused head (f={F}, {HW}x{HW}, batch 8): int8 and w4a4")
+    head_launches = dict(LAUNCHES_PER_FORWARD, head_argmax=0)
+    fused_counts = None
+    with torch.inference_mode():
+        for mode, qp in (("int8", q8), ("w4a4", qps["w4a4"])):
+            unfused = unet_psrp_forward(qp, x, NC, head_fuse=False)
+            reset()
+            fused = unet_psrp_forward(qp, x, NC, head_fuse=True)
+            torch.cuda.synchronize()
+            launched = counts()
+            fused_counts = fused_counts or launched
+            mism = int((fused != unfused).sum())
+            print(f"{mode}: fused-head labels vs unfused {mism} mismatches; "
+                  f"launches {launched}, expected {head_launches}",
+                  flush=True)
+            if mism or launched != head_launches:
+                raise RuntimeError(f"fused-head graph check failed ({mode})")
+            del unfused, fused
+    del x, imgs
+
+    # ------------------------------------------------------------------ 29
+    phase(f"29 cli infer / eval / serve --quantize int4 ({HW}x{HW})")
+    common = ["--image-size", str(HW), "--num-classes", str(NC),
+              "--batch-size", str(INFER_BATCH), "--device", "cuda",
+              "--seed", str(SEED)]
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "int4.npz")
+        masks = {}
+        for label, argv in (
+            ("int4 --save-quantized", ["--save-quantized", art]),
+            ("int4 --load-quantized", ["--load-quantized", art]),
+        ):
+            out = os.path.join(tmp, label.split()[-1])
+            reset()
+            t0 = time.perf_counter()
+            cli.main(["infer", *common, "--out-dir", out, "--quantize",
+                      "int4", *argv])
+            torch.cuda.synchronize()
+            m = np.load(os.path.join(out, "masks.npy"), allow_pickle=False)
+            print(f"cli infer {label}: masks {m.shape}, classes "
+                  f"{np.bincount(m.ravel(), minlength=NC).tolist()}, "
+                  f"{time.perf_counter() - t0:.2f} s, launches {counts()}",
+                  flush=True)
+            if m.shape != (INFER_BATCH, HW, HW) or m.min() < 0 \
+                    or m.max() >= NC:
+                raise RuntimeError(f"cli infer {label}: bad masks")
+            masks[label] = m
+        same = np.array_equal(*masks.values())
+        print(f"--save-quantized then --load-quantized: identical masks "
+              f"{same}")
+        if not same:
+            raise RuntimeError("the int4 artifact changed the masks")
+    t0 = time.perf_counter()
+    ev = cli.main(["eval", *common[:4], "--batch-size", "8", *common[6:],
+                   "--quantize", "int4", "--num-val", "8"])
+    total = int(ev["confusion"].sum())
+    print(f"cli eval --quantize int4 --num-val 8: pixel accuracy "
+          f"{ev['pixel_accuracy']:.4f}, confusion sum {total} (pixels "
+          f"{8 * HW * HW}), {time.perf_counter() - t0:.2f} s", flush=True)
+    if total != 8 * HW * HW:
+        raise RuntimeError("cli eval --quantize int4 check failed")
+    # serve: the int4 graph built as ``cli serve --quantize int4`` builds
+    # it, behind the ServingLoop and HTTP; the run that the kernels line's
+    # w4a4 launch counts come from
+    forward, _ = cli.build_quantized_forward(model, "unet", "int4",
+                                             image_size=HW, device=dev,
+                                             seed=SEED)
+    reqs = np.random.default_rng(SEED + 4).uniform(
+        0, 255, (6, HW, HW, 1)).astype(np.float32)
+    with torch.inference_mode():
+        direct = forward(torch.from_numpy(reqs).to(dev)).cpu().numpy()
+    loop = ServingLoop(forward, (HW, HW, 1), device=dev, batch_size=8,
+                       max_wait_ms=5.0)
+    reset()
+    loop.warmup()
+    httpd, _ = start_in_background(loop, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        got = [http_post(url, reqs[i]) for i in range(4)] \
+            + [http_post(url, reqs[4:6])]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        loop.close()
+    serve_launches = counts()
+    want = [direct[i] for i in range(4)] + [direct[4:6]]
+    ok = sum(np.array_equal(g, w) for g, w in zip(got, want))
+    n_fwd = loop.batches_run + 1
+    print(f"serve --quantize int4: {ok}/5 responses equal the direct "
+          f"forward; launches {serve_launches}, expected {n_fwd} x "
+          f"{LAUNCHES_PER_FORWARD}", flush=True)
+    if ok != 5 or any(serve_launches[k] != n_fwd * v
+                      for k, v in LAUNCHES_PER_FORWARD.items()):
+        raise RuntimeError("int4 serving check failed")
+    del forward, loop
+
+    # ------------------------------------------------------------------ 30
+    phase(f"30 w4a4 and fused-head times on {card}")
+    qp4 = qps["w4a4"]
+    del qps
+    torch.cuda.empty_cache()
+    rows = {}  # entry -> {"ms", "plain_ms", "dev_ms", "operations", "bytes"}
+    by_row = {}  # TPU row -> [stages, ms, dev ms, plain ms, bound ms]
+    for name, kernel, shape in stages():
+        if kernel == "head_argmax" or not w4a4_stage(qp4, layer_name(name)):
+            continue
+        kernel, args, kw = stage_call(qp4, name, kernel, shape, 32)
+        with torch.inference_mode():
+            ms = time_ms(lambda: wrappers[kernel](*args, **kw))
+            dms = device_ms(lambda: wrappers[kernel](*args, **kw))
+            pms = time_ms(lambda: plains[kernel](*args, **kw), 3)
+        b_ms, b_by = bound(*serving_work(kernel, shape, 32), PEAK["int8"])
+        row = rows.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0,
+                                       "dev_ms": 0.0, "operations": 0.0,
+                                       "bytes": 0.0})
+        for k, v in (("ms", ms), ("plain_ms", pms), ("dev_ms", dms),
+                     (b_by, b_ms)):
+            row[k] += v
+        tr = by_row.setdefault(tpu_row(name, kernel, shape) + " w4a4",
+                               [0, 0.0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((1, ms, dms, pms, b_ms)):
+            tr[i] += v
+        print(f"time b32 w4a4 {name:16s} {kernel:13s} kernel {ms:.4f} ms "
+              f"(device {dms:.4f}), plain {pms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    name, kernel, shape = blk8
+    h, cins, cout, _ = shape
+    for label, qp in (("int8", q8), ("w4a4", qp4)):
+        kernel, args, kw = stage_call(qp, name, kernel, shape, 32, head=True)
+        hd = kw.pop("head")
+        with torch.inference_mode():
+            ms = time_ms(lambda: k12.conv3x3_int8(*args, head=hd, **kw))
+            dms = device_ms(lambda: k12.conv3x3_int8(*args, head=hd, **kw))
+            pms = time_ms(lambda: k12.conv3x3_int8_reference(
+                *args, head=hd, **kw), 3)
+
+            def unfused():
+                return k3.head_argmax(k12.conv3x3_int8(*args, **kw), *hd)
+
+            ums = time_ms(unfused)
+            udms = device_ms(unfused)
+        b_ms, b_by = bound(*head_work(h, sum(cins), cout, 32), PEAK["int8"])
+        if label == "int8":
+            rows["head"] = {"ms": ms, "plain_ms": pms, "dev_ms": dms,
+                            "operations": 0.0, "bytes": 0.0}
+            rows["head"][b_by] = b_ms
+        print(f"time b32 {label} blk8_conv1 + head: fused K1 {ms:.4f} ms "
+              f"(device {dms:.4f}), K1 then K3 {ums:.4f} ms (device "
+              f"{udms:.4f}), plain {pms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+        del args
+    for key, (n_st, ms, dms, pms, b_ms) in sorted(by_row.items()):
+        print(f"time b32 TPU kernel {key} ({n_st} launches per forward): "
+              f"kernel {ms:.4f} ms (device {dms:.4f}), plain {pms:.4f} ms, "
+              f"bound {b_ms:.4f} ms")
+    # P3's counterpart: the int4 dot rate and the +-7 clip (perf/int4probe)
+    # become K1 at the deep stages' widths on +-7 values against int8
+    # values, and clip 7 against clip 127 on the same +-7 inputs
+    for h, c in ((HW // 4, 4 * F), (HW // 8, 8 * F), (HW // 16, 16 * F)):
+        xs = {"int8": i8((32, h, h, c)), "w4a4": i8((32, h, h, c), -7, 8)}
+        ws = {"int8": k12.pack_conv3x3_weights(i8((c, c, 3, 3))),
+              "w4a4": k12.pack_conv3x3_weights(i8((c, c, 3, 3), -7, 8))}
+        sc = torch.full((c,), 1e-4, device=dev)
+        bi = torch.zeros(c, device=dev)
+        t = {}
+        with torch.inference_mode():  # in turns, three rounds
+            for _ in range(3):
+                for label, v, clip in (("int8", "int8", 127.0),
+                                       ("w4a4 clip 7", "w4a4", 7.0),
+                                       ("w4a4 clip 127", "w4a4", 127.0)):
+                    t.setdefault(label, []).append(device_ms(
+                        lambda: k12.conv3x3_int8((xs[v],), ws[v], sc, bi,
+                                                 out_clip=clip)))
+        ops = 2 * 32 * h * h * 9 * c * c
+        print(f"time b32 P3 K1 {h}^2 x {c} -> {c} (device, profiler, "
+              f"three rounds): " + ", ".join(
+                  f"{k} {' / '.join(f'{x:.4f}' for x in v)} ms (median "
+                  f"{ops / statistics.median(v) / 1e9:.1f} TOPS)"
+                  for k, v in t.items()), flush=True)
+        del xs, ws
+    torch.cuda.empty_cache()
+    graphs = (("int8", lambda b: unet_psrp_forward(q8, preprocess(b), NC)),
+              ("w4a4", lambda b: unet_psrp_forward(qp4, preprocess(b), NC)),
+              ("int8 fused head", lambda b: unet_psrp_forward(
+                  q8, preprocess(b), NC, head_fuse=True)))
+    for nb in (32, 128):
+        xb = torch.tensor(
+            np.random.default_rng(nb).uniform(0, 255, (nb, HW, HW, 1)),
+            dtype=torch.float32, device=dev)
+        # in turns: int8, w4a4, fused, fused, w4a4, int8
+        for label, fn in graphs + graphs[::-1]:
+            with torch.inference_mode():
+                ms = time_ms(lambda: fn(xb))
+            print(f"forward ({label}, z-score + graph) batch {nb}: "
+                  f"{ms:.3f} ms, {nb / ms * 1e3:.1f} B-scans/s", flush=True)
+        del xb
+        torch.cuda.empty_cache()
+
+    def entry(name, kernel, row, launches, err, what):
+        return {
+            "name": name, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": what, "launches": launches, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["operations"] + row["bytes"],
+            "bound_by": ("operations" if row["operations"] >= row["bytes"]
+                         else "bytes"),
+            # no single PyTorch call computes an int8 conv (or transposed
+            # conv) with requant, or one ending in a head and argmax
+            "library_ms": None,
+        }
+
+    return [
+        entry("conv3x3_int8 w4a4", "conv3x3_int8", rows["conv3x3_int8"],
+              serve_launches["conv3x3_int8"], max_err["conv3x3_int8"],
+              REPLACES["conv3x3_int8"][0] + " (w4a4 knobs); "
+              + REPLACES["conv3x3_int8"][2] + " (w4a4 knobs)"),
+        entry("ct2x2_int8 w4a4", "ct2x2_int8", rows["ct2x2_int8"],
+              serve_launches["ct2x2_int8"], max_err["ct2x2_int8"],
+              REPLACES["ct2x2_int8"][0] + " (w4a4 knobs)"),
+        entry("conv3x3_int8 fused head", "conv3x3_int8", rows["head"],
+              fused_counts["conv3x3_int8"], max_err["head"],
+              REPLACES["conv3x3_int8"][0] + " (head=)"),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -2459,6 +2878,7 @@ def main() -> int:
     kernels += [relaynet_phases(dev, card, time_ms, http_post)] + k89
     kernels += infer_eval_phases(dev, card, time_ms, model, calib, by_row)
     kernels.append(sdnet_phases(dev, card, time_ms))
+    kernels += int4_phases(dev, card, time_ms, model, calib)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,25 +3,28 @@
 suite, ``smoke`` every ported model with one forward.
 
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        serve --model unet|relaynet --quantize psrp --image-size 512 \\
+        serve --model unet|relaynet --quantize psrp|int4 --image-size 512 \\
         --device cuda [--init-features F] [--checkpoint state_dict.pt] \\
         [--seed 0]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         train --packed --image-size 512 --device cuda [--epochs 10] ...
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        infer --model unet --quantize off|int8|packed|psrp --out-dir DIR \\
-        [--export-probs] [--save-quantized q.npz | --load-quantized q.npz]
+        infer --model unet --quantize off|int8|packed|psrp|int4 \\
+        --out-dir DIR [--export-probs] \\
+        [--save-quantized q.npz | --load-quantized q.npz]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        eval --model unet|relaynet --quantize off|int8|psrp [--num-val 16]
+        eval --model unet|relaynet --quantize off|int8|psrp|int4 \\
+        [--num-val 16]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         smoke --model all|unet|relaynet|sdnet [--num-classes 10] --device cuda
 
 The int8 graphs are built by ``build_quantized_forward``: model -> BN fold
 -> calibration on a seeded standard-normal batch (after the same
 preprocessing the images get) -> int8 quantization -> the graph, behind the
-per-image z-score. ``psrp`` and ``packed`` run on the CUDA kernels; ``int8``
-is the all-int8 oracle graph in plain PyTorch (the JAX package runs it in
-XLA). ``serve`` serves ``psrp`` (``build_psrp_forward`` for the U-Net,
+per-image z-score. ``psrp``, ``int4`` (the U-Net's w4a4 mode of the psrp
+graph) and ``packed`` run on the CUDA kernels; ``int8`` is the all-int8
+oracle graph in plain PyTorch (the JAX package runs it in XLA). ``serve``
+serves ``psrp`` or ``int4`` (``build_psrp_forward`` for the U-Net,
 ``build_relaynet_psrp_forward`` for ReLayNet). ``train`` builds its trainer
 and synthetic datasets with ``build_training``. ``infer`` and ``eval`` run
 on synthetic B-scans made on the device from ``--seed`` (eval's from seed
@@ -123,6 +126,11 @@ GRAPHS = {
         lambda layers, taps, dev: quantize_unet_psrp(
             layers, taps, int(layers["blk0_conv0"]["w"].shape[0]),
             device=dev),
+        attach_kernel_params, unet_psrp_forward),
+    ("unet", "int4"): (
+        lambda layers, taps, dev: quantize_unet_psrp(
+            layers, taps, int(layers["blk0_conv0"]["w"].shape[0]),
+            deep_int4=True, device=dev),
         attach_kernel_params, unet_psrp_forward),
     ("unet", "packed"): (
         lambda layers, taps, dev: quantize_unet_packed(
@@ -270,10 +278,6 @@ def cmd_serve(args) -> None:
 def _refuse_unported(args) -> None:
     """The JAX flags whose paths are not ported yet raise, naming the
     ROADMAP.md item (Queue A) they wait for."""
-    if getattr(args, "quantize", "off") == "int4":
-        raise NotImplementedError(
-            "--quantize int4: the w4a4 mode is not ported yet (ROADMAP.md, "
-            "Queue A item 6)")
     if getattr(args, "spatial", 1) > 1:
         raise NotImplementedError(
             "--spatial: spatially sharded inference is not ported yet "
@@ -327,7 +331,8 @@ def cmd_infer(args):
     if args.model != "unet" and (args.save_quantized or args.load_quantized):
         raise SystemExit("--save-quantized/--load-quantized: U-Net only")
     if args.load_quantized and args.quantize == "off":
-        raise SystemExit("--load-quantized needs --quantize int8|packed|psrp")
+        raise SystemExit(
+            "--load-quantized needs --quantize int8|packed|psrp|int4")
     trainer, state = build_eval_trainer(args)
     g = torch.Generator(device=trainer.device).manual_seed(args.seed)
     images, _ = synth_batch(g, args.batch_size,
@@ -437,9 +442,9 @@ def parser() -> argparse.ArgumentParser:
     s = sub.add_parser("serve",
                        help="HTTP serving of the int8 U-Net or ReLayNet")
     s.add_argument("--model", default="unet", choices=list(WIDTH_ARGS))
-    s.add_argument("--quantize", default="psrp", choices=["psrp"],
-                   help="int8 graph on the CUDA kernels (the only mode "
-                        "ported so far)")
+    s.add_argument("--quantize", default="psrp", choices=["psrp", "int4"],
+                   help="the served graph on the CUDA kernels: psrp (int8), "
+                        "or int4 (the U-Net's w4a4 mode)")
     s.add_argument("--num-classes", type=int, default=10)
     s.add_argument("--init-features", type=int, default=None,
                    help="model width (ReLayNet: num_filters); default the "
@@ -491,7 +496,7 @@ def parser() -> argparse.ArgumentParser:
     e.add_argument("--quantize", default="off",
                    choices=("off", "int8", "psrp", "int4"),
                    help="evaluate an int8 graph instead of the float model "
-                        "(int4 is not ported yet: raises)")
+                        "(int4: the U-Net's w4a4 mode of psrp)")
     e.add_argument("--data", default=None,
                    help="real dataset spec (not ported yet: raises)")
     e.set_defaults(fn=cmd_eval)
@@ -513,9 +518,9 @@ def parser() -> argparse.ArgumentParser:
                         "package (unet)")
     i.add_argument("--quantize", default="off",
                    choices=("off", "int8", "packed", "psrp", "int4"),
-                   help="int8 graphs: packed and psrp (unet) on the CUDA "
-                        "kernels, int8 the all-int8 oracle; relaynet takes "
-                        "int8|psrp (int4 is not ported yet: raises)")
+                   help="int8 graphs: packed, psrp and int4 (its w4a4 "
+                        "mode) (unet) on the CUDA kernels, int8 the all-int8 "
+                        "oracle; relaynet takes int8|psrp")
     i.set_defaults(fn=cmd_infer)
 
     m = sub.add_parser("smoke", help="one forward of each ported model")

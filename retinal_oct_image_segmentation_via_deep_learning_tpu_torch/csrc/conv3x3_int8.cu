@@ -1,21 +1,41 @@
 // K1: int8 3x3 stride-1 "same" convolution with a fused requant epilogue
-// and an optional fused 2x2/2 max-pool, for NHWC int8 activations.
+// and an optional fused 2x2/2 max-pool or fused 1x1 head + argmax, for
+// NHWC int8 activations.
 //
 // Replaces three TPU kernels that compute this one function in different
 // lane packings:
-//   ops/pallas_conv_psrp.py:conv3x3_psrp  (512^2 / 256^2 stages, +pool)
+//   ops/pallas_conv_psrp.py:conv3x3_psrp  (512^2 / 256^2 stages, +pool,
+//                                          +head)
 //   ops/pallas_conv_psrp.py:stem_psrp     (the Cin=1 stem)
 //   ops/pallas_conv_int8.py:conv3x3_int8  (deep stages, by=1)
+// with the knobs of the w4a4 serving mode (out_clip, pad_val(s), the
+// split-scale pool) and conv3x3_psrp's fused head.
 //
 // Function: acc[n,y,x,co] = sum_{ky,kx,c} in[n,y+ky-1,x+kx-1,c] * w[ky,kx,c,co]
 // in int32, where `in` is the channel concat of one or two inputs (the
 // concat is never materialised: the tile loader reads both pointers) and
-// out-of-image pixels are zero. Epilogue, in this order:
+// out-of-image pixels of input k hold pad_k (0, or -7 for an input stored
+// at zero point 7). Epilogue, in this order:
 //   v = fmaf(float(acc), scale[co], bias[co]); relu; rint (half-even);
-//   clip to [-127, 127]; int8.
-// With a pool output, each thread owns a 2x2 output quad, so the pooled
-// value is the max of four int8 results it already holds (exact: round and
-// clip are monotone).
+//   clip to [-out_clip, out_clip]; int8.
+// With a pool output, each thread owns a 2x2 output quad and keeps the
+// float32 max m of its four v (after relu, before rounding); the pooled
+// value is clip(rint(fmaf(m, pool_rescale, pool_shift)), +-pool_clip).
+// With pool_rescale = 1, pool_shift = 0 and pool_clip = out_clip that is
+// the max of the four int8 results (round and clip are monotone); the w4a4
+// mode sets (14/127, -7, 7), so the pooled tensor gets a 4-bit scale of
+// its own while the unpooled output keeps 8 bits.
+// With the head (HEAD), the block writes its requantized 16x16 x cout
+// tile to shared memory instead of device memory, and one thread per pixel
+// then computes z[k] = fmaf(float(sum_c t[c] * wh[k,c]), hscale[k],
+// hbias[k]) and the argmax with ties to the lowest class (K3's arithmetic,
+// csrc/head_argmax.cu). Only the labels leave the chip. A tile's channel
+// groups are four different warps, hence the trip through shared memory.
+//
+// The TPU kernels' dot_int4 knob runs the MXU at its int4 rate. Hopper's
+// wgmma takes s8/u8 operands and no s4, and the card's data sheet lists no
+// int4 rate; the w4a4 operands are +-7 values stored in int8, whose int32
+// dot __dp4a computes exactly, so the 4-bit modes run this same dp4a loop.
 //
 // Bound on the card: the __dp4a issue rate (four int8 MACs per instruction
 // on the CUDA cores, well below the tensor cores' int8 rate). The design
@@ -28,9 +48,11 @@
 // Weights are pre-arranged (ops/conv_int8.py:pack_conv3x3_weights) as int32
 // words (9, cinp/4, coutp): word [t, j, co] holds w[t//3, t%3, 4j..4j+3, co],
 // cinp = cin padded to the chunk width, coutp = cout padded to 32; padding
-// is zero.
+// is zero. Head weights (ops/head_argmax.py:pack_head_weights) are int32
+// words (nc, cout/4).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -40,28 +62,40 @@ constexpr int HALO = TILE + 2;     // input tile edge
 constexpr int COUT_T = 32;         // output channels per block
 constexpr int CPT = 8;             // output channels per thread
 constexpr int THREADS = 256;       // 64 quads x 4 channel groups
+constexpr int HEAD_STRIDE = COUT_T / 4 + 1;  // words per pixel of the head tile
+constexpr int MAX_NC = 32;         // head classes
 
-__device__ __forceinline__ int8_t requant(int acc, float s, float b, bool relu) {
-    float v = __fmaf_rn(__int2float_rn(acc), s, b);
-    if (relu) v = fmaxf(v, 0.0f);
+__device__ __forceinline__ int8_t round_clip(float v, float clip) {
     v = rintf(v);
-    v = fminf(fmaxf(v, -127.0f), 127.0f);
+    v = fminf(fmaxf(v, -clip), clip);
     return static_cast<int8_t>(__float2int_rn(v));
+}
+
+__device__ __forceinline__ uint32_t splat(int pad) {
+    return (uint32_t)(uint8_t)(int8_t)pad * 0x01010101u;
 }
 
 // KW: int32 words (4 channels each) per channel chunk. WORDS: both inputs
 // have a channel count divisible by 4, so a word never straddles inputs and
 // is one aligned 32-bit load; otherwise bytes are gathered one by one.
-template <int KW, bool WORDS>
+// HEAD: end in the 1x1 head + argmax (one block of output channels).
+template <int KW, bool WORDS, bool HEAD>
 __global__ void __launch_bounds__(THREADS) conv3x3_int8_kernel(
     const int8_t* __restrict__ x0, int cin0,
     const int8_t* __restrict__ x1, int cin1,
     const int32_t* __restrict__ w, const float* __restrict__ scale,
     const float* __restrict__ bias, int8_t* __restrict__ y,
     int8_t* __restrict__ yp, int H, int W, int cinp, int cout, int coutp,
-    int relu, int tiles_x) {
+    int relu, int pad0, int pad1, float out_clip, float pool_rescale,
+    float pool_shift, float pool_clip, const int32_t* __restrict__ hw,
+    const float* __restrict__ hscale, const float* __restrict__ hbias,
+    int nc, int8_t* __restrict__ labels, int tiles_x) {
     __shared__ int32_t xs[HALO * HALO][KW + 1];
     __shared__ __align__(16) int32_t ws[9][KW][COUT_T];
+    static_assert(!HEAD || HALO * HALO * (KW + 1) >= TILE * TILE * HEAD_STRIDE,
+                  "the head tile reuses the input tile's shared memory");
+    static_assert(!HEAD || 9 * KW * COUT_T >= MAX_NC * (COUT_T / 4 + 2),
+                  "the head weights reuse the weight tile's shared memory");
 
     const int n = blockIdx.z;
     const int co0 = blockIdx.y * COUT_T;
@@ -73,6 +107,7 @@ __global__ void __launch_bounds__(THREADS) conv3x3_int8_kernel(
     const int qy = q >> 3, qx = q & 7;
     const int cin = cin0 + cin1;
     const int cinw = cinp / 4;
+    const uint32_t fill0 = splat(pad0), fill1 = splat(pad1);
 
     int acc[4][CPT];
 #pragma unroll
@@ -85,25 +120,27 @@ __global__ void __launch_bounds__(THREADS) conv3x3_int8_kernel(
             const int p = i / KW, j = i - p * KW;
             const int iy = ty0 - 1 + p / HALO, ix = tx0 - 1 + p % HALO;
             const int c = (ch * KW + j) * 4;
-            int32_t v = 0;
-            if (iy >= 0 && iy < H && ix >= 0 && ix < W && c < cin) {
-                const size_t pix = ((size_t)n * H + iy) * W + ix;
-                if (WORDS) {
-                    v = c < cin0
-                        ? *reinterpret_cast<const int32_t*>(x0 + pix * cin0 + c)
-                        : *reinterpret_cast<const int32_t*>(x1 + pix * cin1 + (c - cin0));
-                } else {
-                    uint32_t u = 0;
+            const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
+            const size_t pix = ((size_t)n * H + iy) * W + ix;
+            int32_t v = 0;  // channel padding c >= cin stays 0
+            if (WORDS) {
+                if (c < cin0)
+                    v = inside ? *reinterpret_cast<const int32_t*>(x0 + pix * cin0 + c)
+                               : (int32_t)fill0;
+                else if (c < cin)
+                    v = inside ? *reinterpret_cast<const int32_t*>(x1 + pix * cin1 + (c - cin0))
+                               : (int32_t)fill1;
+            } else {
+                uint32_t u = 0;
 #pragma unroll
-                    for (int b = 0; b < 4; ++b) {
-                        const int cc = c + b;
-                        int8_t s = 0;
-                        if (cc < cin0) s = x0[pix * cin0 + cc];
-                        else if (cc < cin) s = x1[pix * cin1 + (cc - cin0)];
-                        u |= (uint32_t)(uint8_t)s << (8 * b);
-                    }
-                    v = (int32_t)u;
+                for (int b = 0; b < 4; ++b) {
+                    const int cc = c + b;
+                    int8_t s = 0;
+                    if (cc < cin0) s = inside ? x0[pix * cin0 + cc] : (int8_t)pad0;
+                    else if (cc < cin) s = inside ? x1[pix * cin1 + (cc - cin0)] : (int8_t)pad1;
+                    u |= (uint32_t)(uint8_t)s << (8 * b);
                 }
+                v = (int32_t)u;
             }
             xs[p][j] = v;
         }
@@ -143,51 +180,105 @@ __global__ void __launch_bounds__(THREADS) conv3x3_int8_kernel(
         __syncthreads();
     }
 
+    // HEAD: the requantized tile, int32 words [pixel][HEAD_STRIDE], in xs
+    int8_t* tile = reinterpret_cast<int8_t*>(&xs[0][0]);
     const int oy = ty0 + 2 * qy, ox = tx0 + 2 * qx;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
         const int co = co0 + g * CPT + c;
         if (co >= cout) break;
         const float s = scale[co], b = bias[co];
-        int8_t m = -128;
+        float m = -INFINITY;
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy)
 #pragma unroll
             for (int dx = 0; dx < 2; ++dx) {
                 const int yy = oy + dy, xx = ox + dx;
                 if (yy < H && xx < W) {
-                    const int8_t v = requant(acc[dy * 2 + dx][c], s, b, relu != 0);
-                    y[(((size_t)n * H + yy) * W + xx) * cout + co] = v;
-                    m = v > m ? v : m;
+                    float v = __fmaf_rn(__int2float_rn(acc[dy * 2 + dx][c]), s, b);
+                    if (relu) v = fmaxf(v, 0.0f);
+                    const int8_t r = round_clip(v, out_clip);
+                    if constexpr (HEAD) {
+                        const int p = (2 * qy + dy) * TILE + 2 * qx + dx;
+                        tile[p * HEAD_STRIDE * 4 + co] = r;
+                    } else {
+                        y[(((size_t)n * H + yy) * W + xx) * cout + co] = r;
+                    }
+                    m = fmaxf(m, v);
                 }
             }
-        if (yp != nullptr && oy < H && ox < W)
-            yp[(((size_t)n * (H / 2) + oy / 2) * (W / 2) + ox / 2) * cout + co] = m;
+        if (!HEAD && yp != nullptr && oy < H && ox < W)
+            yp[(((size_t)n * (H / 2) + oy / 2) * (W / 2) + ox / 2) * cout + co] =
+                round_clip(__fmaf_rn(m, pool_rescale, pool_shift), pool_clip);
+    }
+
+    if constexpr (HEAD) {
+        const int cw = cout / 4;
+        int32_t* hws = &ws[0][0][0];
+        float* hss = reinterpret_cast<float*>(hws + MAX_NC * (COUT_T / 4));
+        float* hbs = hss + MAX_NC;
+        for (int i = tid; i < nc * cw; i += THREADS) hws[i] = hw[i];
+        for (int i = tid; i < nc; i += THREADS) {
+            hss[i] = hscale[i];
+            hbs[i] = hbias[i];
+        }
+        __syncthreads();
+        const int py = tid / TILE, px = tid % TILE;
+        const int yy = ty0 + py, xx = tx0 + px;
+        if (yy < H && xx < W) {
+            const int32_t* t = reinterpret_cast<const int32_t*>(tile) + tid * HEAD_STRIDE;
+            int32_t tv[COUT_T / 4];
+#pragma unroll
+            for (int j = 0; j < COUT_T / 4; ++j) tv[j] = j < cw ? t[j] : 0;
+            float best = 0.0f;
+            int arg = 0;
+            for (int k = 0; k < nc; ++k) {
+                int a = 0;
+#pragma unroll
+                for (int j = 0; j < COUT_T / 4; ++j)
+                    if (j < cw) a = __dp4a(tv[j], hws[k * cw + j], a);
+                const float z = __fmaf_rn(__int2float_rn(a), hss[k], hbs[k]);
+                if (k == 0 || z > best) {
+                    best = z;
+                    arg = k;
+                }
+            }
+            labels[((size_t)n * H + yy) * W + xx] = static_cast<int8_t>(arg);
+        }
     }
 }
 
-template <int KW, bool WORDS>
+template <int KW, bool WORDS, bool HEAD>
 void launch(const int8_t* x0, int cin0, const int8_t* x1, int cin1,
             const int32_t* w, const float* scale, const float* bias,
             int8_t* y, int8_t* yp, int N, int H, int W, int cinp, int cout,
-            int coutp, int relu, cudaStream_t stream) {
+            int coutp, int relu, int pad0, int pad1, float out_clip,
+            float pool_rescale, float pool_shift, float pool_clip,
+            const int32_t* hw, const float* hscale, const float* hbias,
+            int nc, int8_t* labels, cudaStream_t stream) {
     const int tiles_x = (W + TILE - 1) / TILE;
     const int tiles_y = (H + TILE - 1) / TILE;
     dim3 grid(tiles_x * tiles_y, coutp / COUT_T, N);
-    conv3x3_int8_kernel<KW, WORDS><<<grid, THREADS, 0, stream>>>(
+    conv3x3_int8_kernel<KW, WORDS, HEAD><<<grid, THREADS, 0, stream>>>(
         x0, cin0, x1, cin1, w, scale, bias, y, yp, H, W, cinp, cout, coutp,
-        relu, tiles_x);
+        relu, pad0, pad1, out_clip, pool_rescale, pool_shift, pool_clip, hw,
+        hscale, hbias, nc, labels, tiles_x);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched). x1 may be
-// null with cin1 = 0; yp may be null (no pool). cinp must be 4 (cin <= 4)
-// or a multiple of 32; coutp a multiple of 32.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a head it cannot take. x1 may be null with
+// cin1 = 0; yp may be null (no pool). cinp must be 4 (cin <= 4) or a
+// multiple of 32; coutp a multiple of 32. With labels (the head): y and yp
+// null, cinp a multiple of 32, cout <= 32 and a multiple of 4, nc <= 32.
 extern "C" int octseg_conv3x3_int8(
     const void* x0, int cin0, const void* x1, int cin1, const void* w,
     const void* scale, const void* bias, void* y, void* yp, int N, int H,
-    int W, int cinp, int cout, int coutp, int relu, void* stream) {
+    int W, int cinp, int cout, int coutp, int relu, int pad0, int pad1,
+    float out_clip, float pool_rescale, float pool_shift, float pool_clip,
+    const void* head_w, const void* head_scale, const void* head_bias,
+    int nc, void* labels, void* stream) {
     const bool words = (cin0 % 4 == 0) && (cin1 % 4 == 0);
     auto s = static_cast<cudaStream_t>(stream);
     auto a0 = static_cast<const int8_t*>(x0);
@@ -197,12 +288,25 @@ extern "C" int octseg_conv3x3_int8(
     auto bi = static_cast<const float*>(bias);
     auto o = static_cast<int8_t*>(y);
     auto op = static_cast<int8_t*>(yp);
-    if (cinp == 4) {
-        if (words) launch<1, true>(a0, cin0, a1, cin1, wq, sc, bi, o, op, N, H, W, cinp, cout, coutp, relu, s);
-        else launch<1, false>(a0, cin0, a1, cin1, wq, sc, bi, o, op, N, H, W, cinp, cout, coutp, relu, s);
+    auto hw = static_cast<const int32_t*>(head_w);
+    auto hs = static_cast<const float*>(head_scale);
+    auto hb = static_cast<const float*>(head_bias);
+    auto lab = static_cast<int8_t*>(labels);
+#define OCTSEG_K1_ARGS a0, cin0, a1, cin1, wq, sc, bi, o, op, N, H, W, cinp, \
+    cout, coutp, relu, pad0, pad1, out_clip, pool_rescale, pool_shift,      \
+    pool_clip, hw, hs, hb, nc, lab, s
+    if (lab != nullptr) {
+        if (cinp == 4 || cout > COUT_T || cout % 4 != 0 || nc < 1 || nc > MAX_NC)
+            return static_cast<int>(cudaErrorInvalidValue);
+        if (words) launch<8, true, true>(OCTSEG_K1_ARGS);
+        else launch<8, false, true>(OCTSEG_K1_ARGS);
+    } else if (cinp == 4) {
+        if (words) launch<1, true, false>(OCTSEG_K1_ARGS);
+        else launch<1, false, false>(OCTSEG_K1_ARGS);
     } else {
-        if (words) launch<8, true>(a0, cin0, a1, cin1, wq, sc, bi, o, op, N, H, W, cinp, cout, coutp, relu, s);
-        else launch<8, false>(a0, cin0, a1, cin1, wq, sc, bi, o, op, N, H, W, cinp, cout, coutp, relu, s);
+        if (words) launch<8, true, false>(OCTSEG_K1_ARGS);
+        else launch<8, false, false>(OCTSEG_K1_ARGS);
     }
+#undef OCTSEG_K1_ARGS
     return static_cast<int>(cudaGetLastError());
 }

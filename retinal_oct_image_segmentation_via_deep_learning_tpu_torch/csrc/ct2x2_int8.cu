@@ -9,10 +9,15 @@
 //
 // Function: the kernel never overlaps, so every output pixel is one dot:
 //   out[n, 2i+dy, 2j+dx, co] = requant(sum_c x[n,i,j,c] * w[dy,dx,c,co])
-// with requant v = fmaf(float(acc), scale[co], bias[co]), rint (half-even),
-// clip to [-127, 127], int8. That is a GEMM of (N*H*W, cin) pixels by
-// (cin, 4*cout) columns, column = (dy*2 + dx)*cout + co, whose epilogue
-// scatters each column to its output phase.
+// with requant v = fmaf(float(acc), scale[co], bias[i]), rint (half-even),
+// clip to [-out_clip, out_clip], int8. That is a GEMM of (N*H*W, cin)
+// pixels by (cin, 4*cout) columns, column = (dy*2 + dx)*cout + co, whose
+// epilogue scatters each column to its output phase. The bias is per output
+// channel (i = co) or, in the w4a4 mode, per column (i = column: the fold of
+// the input's zero point 7 differs per tap), and out_clip is 127, or 7 for a
+// 4-bit consumer. The TPU kernel's dot_int4 (the MXU's int4 rate) has no
+// counterpart: the card has no int4 tensor-core path, and __dp4a computes
+// the dot of the +-7 operands exactly.
 //
 // Bound on the card: __dp4a issue rate (the GEMM is K = cin = 64..512 deep).
 // A block stages a 128-pixel x 32-channel A tile and a 32-channel x 64-column
@@ -38,8 +43,8 @@ constexpr int THREADS = 256;   // 32 row lanes x 8 column groups
 __global__ void __launch_bounds__(THREADS) ct2x2_int8_kernel(
     const int8_t* __restrict__ x, const int32_t* __restrict__ w,
     const float* __restrict__ scale, const float* __restrict__ bias,
-    int8_t* __restrict__ y, long long M, int H, int W, int cin, int cinp,
-    int cout, int colp) {
+    int bias_per_col, float out_clip, int8_t* __restrict__ y, long long M,
+    int H, int W, int cin, int cinp, int cout, int colp) {
     __shared__ int32_t as[TM][KW + 1];
     __shared__ __align__(16) int32_t bs[KW][TN];
 
@@ -101,8 +106,9 @@ __global__ void __launch_bounds__(THREADS) ct2x2_int8_kernel(
             if (col >= ncol) break;
             const int ph = col / cout, co = col - ph * cout;
             const int dy = ph >> 1, dx = ph & 1;
-            float v = __fmaf_rn(__int2float_rn(acc[i][c]), scale[co], bias[co]);
-            v = fminf(fmaxf(rintf(v), -127.0f), 127.0f);
+            const float b = bias[bias_per_col ? col : co];
+            float v = __fmaf_rn(__int2float_rn(acc[i][c]), scale[co], b);
+            v = fminf(fmaxf(rintf(v), -out_clip), out_clip);
             y[((n * 2 * H + 2 * iy + dy) * 2 * W + 2 * jx + dx) * cout + co] =
                 static_cast<int8_t>(__float2int_rn(v));
         }
@@ -112,9 +118,11 @@ __global__ void __launch_bounds__(THREADS) ct2x2_int8_kernel(
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched). cin must be a
-// multiple of 4; cinp a multiple of 32; colp a multiple of 64.
+// multiple of 4; cinp a multiple of 32; colp a multiple of 64. bias holds
+// cout values, or 4*cout with bias_per_col.
 extern "C" int octseg_ct2x2_int8(const void* x, const void* w,
-                                 const void* scale, const void* bias, void* y,
+                                 const void* scale, const void* bias,
+                                 int bias_per_col, float out_clip, void* y,
                                  int N, int H, int W, int cin, int cinp,
                                  int cout, int colp, void* stream) {
     const long long M = (long long)N * H * W;
@@ -122,6 +130,7 @@ extern "C" int octseg_ct2x2_int8(const void* x, const void* w,
     ct2x2_int8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(x), static_cast<const int32_t*>(w),
         static_cast<const float*>(scale), static_cast<const float*>(bias),
-        static_cast<int8_t*>(y), M, H, W, cin, cinp, cout, colp);
+        bias_per_col, out_clip, static_cast<int8_t*>(y), M, H, W, cin, cinp,
+        cout, colp);
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,16 @@
-"""Quantized-serving artifacts: the U-Net's int8 qparams in one ``.npz``.
+"""Quantized-serving artifacts: the U-Net's int8 and w4a4 qparams in one
+``.npz``.
 
 The file format is the JAX package's (``inference/artifacts.py``): leaf
 arrays under path-encoded keys, dict segments joined by ``\\x1f`` and
 tuple slots written ``[i]``; no pickle (``np.load(allow_pickle=False)``).
 The port writes the raw qparams in the JAX layout (weights (kh, kw, cin,
-cout), float32 scales, ``_act_scales``) plus a ``_mode`` key, and rebuilds
-the kernels' parameters when it loads, so an int8 artifact written here is
-also one the JAX package serves. It reads JAX artifacts of mode int8, psrp
-and packed, taking ``w_q``, ``s_w``, ``b`` and ``_act_scales`` and leaving
-the TPU packs.
+cout), float32 scales, ``_act_scales``; for the w4a4 mode also ``wsum4``
+and the mode keys ``_deep_*``, ``_w8_*``) plus a ``_mode`` key, and
+rebuilds the kernels' parameters when it loads, so an int8 artifact written
+here is also one the JAX package serves. It reads JAX artifacts of mode
+int8, psrp, packed and int4, taking ``w_q``, ``s_w``, ``b``, ``wsum4``,
+``_act_scales`` and the mode keys and leaving the TPU packs.
 
 An artifact's mode comes from its ``_mode`` key, or for a JAX artifact from
 its keys: ``w_psrp`` packs mean psrp, ``w_packed_by`` packs mean packed, a
@@ -22,10 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.convert import unet_qparams_from_jax
+from ..utils.convert import MODE_KEY_PREFIXES, unet_qparams_from_jax
 
 _SEP = "\x1f"  # key-segment separator (never appears in layer names)
-MODES = ("int8", "psrp", "packed")
+MODES = ("int8", "psrp", "packed", "int4")
 
 
 def _jax_layout(w_q: torch.Tensor, name: str) -> np.ndarray:
@@ -44,12 +46,15 @@ def save_qparams(path: str, qparams: dict, mode: str) -> None:
     for key, v in qparams["_act_scales"].items():
         flat[_SEP.join(("_act_scales", key))] = np.float32(float(v))
     for name, lw in qparams.items():
+        if name.startswith(MODE_KEY_PREFIXES):
+            flat[name] = np.asarray(True)
         if name.startswith("_"):
             continue
         flat[_SEP.join((name, "w_q"))] = _jax_layout(lw["w_q"], name)
-        for leaf in ("s_w", "b"):
-            flat[_SEP.join((name, leaf))] = \
-                lw[leaf].detach().cpu().numpy().astype(np.float32)
+        for leaf in ("s_w", "b", "wsum4"):
+            if leaf in lw:
+                flat[_SEP.join((name, leaf))] = \
+                    lw[leaf].detach().cpu().numpy().astype(np.float32)
     np.savez(path, **flat)
 
 
@@ -76,19 +81,19 @@ def load_qparams(path: str, mode: str) -> dict:
     found = (str(items.pop("_mode")) if "_mode" in items
              else artifact_mode(items))
     if found != mode:
-        hint = (" (the w4a4 mode is not ported yet; see ROADMAP.md, Queue A "
-                "item 6)" if found == "int4" else "")
         raise ValueError(
             f"{path}: a {found} artifact, but --quantize {mode} was asked "
-            f"for{hint}")
+            f"for")
     tree: dict = {}
     for key, val in items.items():
         segs = key.split(_SEP)
+        if len(segs) == 1 and key.startswith(MODE_KEY_PREFIXES):
+            tree[key] = True
         if len(segs) != 2:
             continue  # TPU packs: tuple slots and the like
         node, leaf = segs
         if node.startswith("_") and node != "_act_scales":
             continue
-        if leaf in ("w_q", "s_w", "b") or node == "_act_scales":
+        if leaf in ("w_q", "s_w", "b", "wsum4") or node == "_act_scales":
             tree.setdefault(node, {})[leaf] = val
     return unet_qparams_from_jax(tree)

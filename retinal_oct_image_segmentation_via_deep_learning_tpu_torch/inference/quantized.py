@@ -138,15 +138,16 @@ def _out_dims(name: str) -> tuple[int, ...]:
     return (0, 2, 3) if name.startswith("ct") else (1, 2, 3)
 
 
-def quant_weights(w: torch.Tensor, name: str):
-    """float32 weights -> (int8 weights, per-out-channel float32 scale)."""
+def quant_weights(w: torch.Tensor, name: str, lim: int = 127):
+    """float32 weights -> (int8 weights in [-lim, lim], per-out-channel
+    float32 scale absmax/lim); ``lim`` is 127, or 7 for 4-bit weights."""
     amax = w.abs().amax(dim=_out_dims(name))
     # divide by a tensor, not a Python scalar: on CUDA torch turns division
     # by a scalar into a multiply by its reciprocal, which is 1 ulp off
-    s_w = (amax / amax.new_full((), 127.0)).clamp_min(1e-12)
+    s_w = (amax / amax.new_full((), float(lim))).clamp_min(1e-12)
     shape = [1] * w.dim()
     shape[1 if name.startswith("ct") else 0] = -1
-    w_q = torch.round(w / s_w.view(shape)).clamp(-127, 127).to(torch.int8)
+    w_q = torch.round(w / s_w.view(shape)).clamp(-lim, lim).to(torch.int8)
     return w_q, s_w
 
 

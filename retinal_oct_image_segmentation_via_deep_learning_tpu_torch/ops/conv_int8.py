@@ -3,8 +3,21 @@ transposed), and K11, the standalone 2x2/2 max-pool of the row-packed graph.
 
 K1 and K2 take NHWC int8 activations, contiguous, and end in the same fused
 requant: ``v = fmaf(float(acc), scale[co], bias[co])``, then (K1 only) relu,
-then round-half-even, clip to [-127, 127], int8. ``scale = (s_in*s_w)/s_out``
-and ``bias = b/s_out`` are per output channel, float32.
+then round-half-even, clip to [-out_clip, out_clip], int8. ``scale =
+(s_in*s_w)/s_out`` and ``bias = b/s_out`` are per output channel, float32
+(K2's bias may also be per output column, ``4*cout`` values).
+
+The w4a4 serving mode stores 4-bit values in int8 and reuses these kernels:
+``out_clip=7`` for a 4-bit consumer, ``pad_vals`` (-7, the stored zero of a
+zero-point-7 input) for the borders, and K1's split-scale pool
+(``pool_rescale``, ``pool_shift``, ``pool_clip``), which requantizes the
+pooled tensor from the float32 values before rounding while the unpooled
+output keeps its own scale. The TPU kernels' ``dot_int4`` only picks the
+MXU's int4 rate; the card has no int4 tensor-core path, and the int32 dot
+of +-7 operands is exact in int8 arithmetic, so it has no counterpart here.
+
+K1 can also end in the 1x1 classifier head and argmax (``head``): it then
+returns the labels only, and its int8 output never reaches device memory.
 
 K11 (``pool2x2_int8``) takes the max of each 2x2 window of an NHWC int8
 tensor.
@@ -12,9 +25,9 @@ tensor.
 Each wrapper runs its CUDA kernel (``csrc/``) for a CUDA tensor, and its
 plain PyTorch version (``*_reference``) only for a CPU tensor. The plain
 versions do the products in float64, which is exact here (|acc| reaches
-9*512*127^2 ~ 7.4e7 > 2^24, beyond float32), and emulate the FMA as
-``(float(acc) as double * scale + bias)`` rounded once to float32 (the
-product of two float32 values is exact in float64).
+9*512*127^2 ~ 7.4e7 > 2^24, beyond float32), and emulate each FMA as
+``(a as double * b + c)`` rounded once to float32 (the product of two
+float32 values is exact in float64).
 
 Weights are packed once, at quantize time, into the order the kernels read
 (``pack_conv3x3_weights``, ``pack_ct2x2_weights``).
@@ -34,14 +47,26 @@ def _round_up(n: int, m: int) -> int:
     return (n + m - 1) // m * m
 
 
+def fma_reference(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``fmaf(a, b, c)``: the product in float64 (exact for float32
+    factors), the sum rounded once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def round_clip_reference(v: torch.Tensor, clip: float) -> torch.Tensor:
+    """float32 -> int8: round-half-even, clip to [-clip, clip]."""
+    return torch.round(v).clamp(-clip, clip).to(torch.int8)
+
+
 def requant_reference(acc: torch.Tensor, scale: torch.Tensor,
-                      bias: torch.Tensor, *, relu: bool) -> torch.Tensor:
+                      bias: torch.Tensor, *, relu: bool,
+                      out_clip: float = 127.0) -> torch.Tensor:
     """float64 integer accumulators (channels last) -> int8, the kernels'
-    epilogue: FMA, relu, round-half-even, clip +-127."""
-    v = (acc.float().double() * scale.double() + bias.double()).float()
+    epilogue: FMA, relu, round-half-even, clip +-out_clip."""
+    v = fma_reference(acc.float(), scale, bias)
     if relu:
         v = v.clamp_min(0.0)
-    return torch.round(v).clamp(-127, 127).to(torch.int8)
+    return round_clip_reference(v, out_clip)
 
 
 # ---------------------------------------------------------------------------
@@ -78,19 +103,37 @@ def unpack_conv3x3_weights(w: torch.Tensor, cin: int,
 
 def conv3x3_int8_reference(inputs: Sequence[torch.Tensor], w: torch.Tensor,
                            scale: torch.Tensor, bias: torch.Tensor, *,
-                           relu: bool = True, pool: bool = False):
-    """Plain version of K1 (any device)."""
-    x = torch.cat(tuple(inputs), dim=-1) if len(inputs) > 1 else inputs[0]
+                           relu: bool = True, pool: bool = False,
+                           out_clip: float = 127.0, pad_vals=None,
+                           pool_rescale: float | None = None,
+                           pool_shift: float = 0.0, pool_clip=None,
+                           head=None):
+    """Plain version of K1 (any device); the arguments are K1's."""
+    inputs = tuple(inputs) if isinstance(inputs, (tuple, list)) else (inputs,)
+    pad_vals = tuple(pad_vals) if pad_vals else (0,) * len(inputs)
+    x = torch.cat([F.pad(t.permute(0, 3, 1, 2).double(), (1, 1, 1, 1),
+                         value=float(pv))
+                   for t, pv in zip(inputs, pad_vals)], dim=1)
     cout = scale.shape[0]
-    wd = unpack_conv3x3_weights(w, x.shape[-1], cout).double()
-    acc = F.conv2d(x.permute(0, 3, 1, 2).double(), wd, padding=1)
-    y = requant_reference(acc.permute(0, 2, 3, 1), scale, bias, relu=relu)
-    y = y.contiguous()
+    wd = unpack_conv3x3_weights(w, x.shape[1], cout).double()
+    acc = F.conv2d(x, wd).permute(0, 2, 3, 1)
+    v = fma_reference(acc.float(), scale, bias)
+    if relu:
+        v = v.clamp_min(0.0)
+    y = round_clip_reference(v, out_clip).contiguous()
+    if head is not None:
+        from .head_argmax import head_argmax_reference  # it imports us
+
+        return head_argmax_reference(y, *head)
     if not pool:
         return y
-    n, h, wd_, c = y.shape
-    p = y.reshape(n, h // 2, 2, wd_ // 2, 2, c).amax(dim=(2, 4))
-    return y, p.contiguous()
+    n, h, wd_, c = v.shape
+    m = v.reshape(n, h // 2, 2, wd_ // 2, 2, c).amax(dim=(2, 4))
+    if pool_rescale is not None:
+        m = fma_reference(m, torch.tensor(pool_rescale, dtype=torch.float32),
+                          torch.tensor(pool_shift, dtype=torch.float32))
+    clip = out_clip if pool_clip is None else pool_clip
+    return y, round_clip_reference(m, clip).contiguous()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -119,21 +162,53 @@ def _check_vec(t: torch.Tensor, n: int, what: str,
            f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+HEAD_MAX_COUT = 32  # the head reads one 32-channel block of K1's output
+HEAD_MAX_CLASSES = 32
+
+
 def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor, *, relu: bool = True,
-                 pool: bool = False):
+                 pool: bool = False, out_clip: float = 127.0,
+                 pad_vals=None, pool_rescale: float | None = None,
+                 pool_shift: float = 0.0, pool_clip: float | None = None,
+                 head=None):
     """K1: int8 3x3 'same' conv over the channel concat of 1-2 NHWC inputs.
 
     inputs: one (N, H, W, C) int8 tensor or a tuple of two (the concat is
     folded into the kernel: no ``torch.cat`` is made). w:
     ``pack_conv3x3_weights`` of the (cout, sum C, 3, 3) weights. Returns
     (N, H, W, cout) int8; with ``pool=True`` also its 2x2/2 max-pool.
+
+    ``out_clip``: the requant's clip bound (127, or 7 for a 4-bit
+    consumer). ``pad_vals``: one border value per input (default 0; -7 for
+    a zero-point-7 input). The pooled output is
+    ``clip(rint(fmaf(m, pool_rescale, pool_shift)), +-pool_clip)`` of the
+    float32 max ``m`` of each window before rounding; by default
+    (no rescale, ``pool_clip = out_clip``) that is the max of the int8
+    outputs. ``head=(w_head, hscale, hbias)`` (``head_argmax``'s packed
+    weights and epilogue; cout <= 32, a multiple of 4, cin > 4, no pool)
+    ends in the 1x1 head and argmax and returns only the (N, H, W) int8
+    labels.
     """
     inputs = tuple(inputs) if isinstance(inputs, (tuple, list)) else (inputs,)
+    knobs = dict(relu=relu, pool=pool, out_clip=out_clip, pad_vals=pad_vals,
+                 pool_rescale=pool_rescale, pool_shift=pool_shift,
+                 pool_clip=pool_clip, head=head)
     x0 = inputs[0]
+    cout = scale.shape[0]
+    nc = 0
+    if head is not None:
+        nc = head[1].shape[0]
+        _check(not pool and cout <= HEAD_MAX_COUT and cout % 4 == 0
+               and x0.shape[-1] + sum(t.shape[-1] for t in inputs[1:]) > 4,
+               f"conv3x3_int8: the head needs cout <= {HEAD_MAX_COUT}, a "
+               f"multiple of 4, more than 4 input channels and no pool; got "
+               f"cout {cout}, pool {pool}")
+        _check(1 <= nc <= HEAD_MAX_CLASSES,
+               f"conv3x3_int8: {nc} head classes, at most "
+               f"{HEAD_MAX_CLASSES}")
     if x0.device.type == "cpu":
-        return conv3x3_int8_reference(inputs, w, scale, bias, relu=relu,
-                                      pool=pool)
+        return conv3x3_int8_reference(inputs, w, scale, bias, **knobs)
     dev = x0.device
     _check(dev.type == "cuda", f"conv3x3_int8: unsupported device {dev}")
     _check(1 <= len(inputs) <= 2, "conv3x3_int8: one or two inputs")
@@ -143,7 +218,6 @@ def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
                f"conv3x3_int8: input shapes {[tuple(t.shape) for t in inputs]}")
     N, H, W, cin0 = x0.shape
     cin1 = inputs[1].shape[-1] if len(inputs) > 1 else 0
-    cout = scale.shape[0]
     _check_cuda_int8(w, 4, "conv3x3_int8 weights", dev)
     cinp, coutp = conv3x3_chunk(cin0 + cin1), _round_up(cout, 32)
     _check(tuple(w.shape) == (9, cinp // 4, coutp, 4),
@@ -153,18 +227,43 @@ def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
     _check_vec(bias, cout, "conv3x3_int8 bias", dev)
     _check(not pool or (H % 2 == 0 and W % 2 == 0),
            f"conv3x3_int8: pool needs even H, W, got {(H, W)}")
-    y = torch.empty((N, H, W, cout), dtype=torch.int8, device=dev)
-    yp = (torch.empty((N, H // 2, W // 2, cout), dtype=torch.int8,
-                      device=dev) if pool else None)
+    pads = tuple(pad_vals) if pad_vals else (0,) * len(inputs)
+    _check(len(pads) == len(inputs) and all(-128 <= p <= 127 for p in pads),
+           f"conv3x3_int8: pad_vals {pad_vals} for {len(inputs)} input(s)")
     x1 = inputs[1] if len(inputs) > 1 else None
+    hw = hs = hb = lab = None
+    if head is not None:
+        hw, hs, hb = head
+        _check_cuda_int8(hw, 2, "conv3x3_int8 head weights", dev)
+        _check(tuple(hw.shape) == (nc, cout),
+               f"conv3x3_int8: head weights {tuple(hw.shape)}, expected "
+               f"{(nc, cout)}")
+        _check_vec(hs, nc, "conv3x3_int8 head scale", dev)
+        _check_vec(hb, nc, "conv3x3_int8 head bias", dev)
+        lab = torch.empty((N, H, W), dtype=torch.int8, device=dev)
+        y = yp = None
+    else:
+        y = torch.empty((N, H, W, cout), dtype=torch.int8, device=dev)
+        yp = (torch.empty((N, H // 2, W // 2, cout), dtype=torch.int8,
+                          device=dev) if pool else None)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     with torch.cuda.device(dev):
         err = _build.lib().octseg_conv3x3_int8(
-            x0.data_ptr(), cin0, x1.data_ptr() if x1 is not None else None,
-            cin1, w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), yp.data_ptr() if pool else None, N, H, W, cinp,
-            cout, coutp, int(relu), _stream(x0))
+            x0.data_ptr(), cin0, ptr(x1), cin1, w.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), ptr(y), ptr(yp), N, H, W,
+            cinp, cout, coutp, int(relu), pads[0],
+            pads[1] if x1 is not None else 0, float(out_clip),
+            1.0 if pool_rescale is None else float(pool_rescale),
+            float(pool_shift) if pool_rescale is not None else 0.0,
+            float(out_clip if pool_clip is None else pool_clip), ptr(hw),
+            ptr(hs), ptr(hb), nc, ptr(lab), _stream(x0))
     _build.check(err, "conv3x3_int8")
     conv3x3_int8.launches += 1
+    if head is not None:
+        return lab
     return (y, yp) if pool else y
 
 
@@ -190,25 +289,29 @@ def pack_ct2x2_weights(w_q: torch.Tensor) -> torch.Tensor:
 
 
 def ct2x2_int8_reference(x: torch.Tensor, w: torch.Tensor,
-                         scale: torch.Tensor,
-                         bias: torch.Tensor) -> torch.Tensor:
+                         scale: torch.Tensor, bias: torch.Tensor, *,
+                         out_clip: float = 127.0) -> torch.Tensor:
     """Plain version of K2 (any device)."""
     N, H, W, cin = x.shape
     cout = scale.shape[0]
     dense = w.permute(0, 2, 1).reshape(-1, w.shape[1])[:cin, :4 * cout]
     acc = x.reshape(-1, cin).double() @ dense.double()
     acc = acc.reshape(N, H, W, 2, 2, cout)
-    y = requant_reference(acc, scale, bias, relu=False)
+    if bias.numel() == 4 * cout:  # per column (2*dy + dx)*cout + co
+        bias = bias.reshape(2, 2, cout)
+    y = requant_reference(acc, scale, bias, relu=False, out_clip=out_clip)
     return y.permute(0, 1, 3, 2, 4, 5).reshape(N, 2 * H, 2 * W, cout)
 
 
 def ct2x2_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-               bias: torch.Tensor) -> torch.Tensor:
+               bias: torch.Tensor, *, out_clip: float = 127.0) -> torch.Tensor:
     """K2: (N, H, W, cin) int8 -> (N, 2H, 2W, cout) int8 with
     out[n, 2i+dy, 2j+dx, co] = requant(x[n, i, j, :] . w[:, co, dy, dx]),
-    no relu. w: ``pack_ct2x2_weights``; cin must be a multiple of 4."""
+    no relu, clip +-``out_clip``. w: ``pack_ct2x2_weights``; cin must be a
+    multiple of 4. bias: ``cout`` values, or ``4*cout`` indexed by the
+    column ``(2*dy + dx)*cout + co`` (a per-tap bias)."""
     if x.device.type == "cpu":
-        return ct2x2_int8_reference(x, w, scale, bias)
+        return ct2x2_int8_reference(x, w, scale, bias, out_clip=out_clip)
     dev = x.device
     _check(dev.type == "cuda", f"ct2x2_int8: unsupported device {dev}")
     _check_cuda_int8(x, 4, "ct2x2_int8 input", dev)
@@ -221,12 +324,14 @@ def ct2x2_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
            f"ct2x2_int8: weights {tuple(w.shape)}, expected "
            f"{(cinp // 4, colp, 4)}")
     _check_vec(scale, cout, "ct2x2_int8 scale", dev)
-    _check_vec(bias, cout, "ct2x2_int8 bias", dev)
+    per_col = bias.numel() == 4 * cout
+    _check_vec(bias, 4 * cout if per_col else cout, "ct2x2_int8 bias", dev)
     y = torch.empty((N, 2 * H, 2 * W, cout), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().octseg_ct2x2_int8(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), N, H, W, cin, cinp, cout, colp, _stream(x))
+            int(per_col), float(out_clip), y.data_ptr(), N, H, W, cin, cinp,
+            cout, colp, _stream(x))
     _build.check(err, "ct2x2_int8")
     ct2x2_int8.launches += 1
     return y

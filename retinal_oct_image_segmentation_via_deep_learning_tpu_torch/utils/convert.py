@@ -110,9 +110,15 @@ def unet_variables_from_state_dict(state_dict, *,
     return {"params": params, "batch_stats": stats}
 
 
+# prefixes of the w4a4 mode's keys in U-Net qparams (``_deep_int4``,
+# ``_deep_w4``, ``_deep_a4``, ``_w8_<stage>``), whose presence is the mode
+MODE_KEY_PREFIXES = ("_deep_", "_w8_")
+
+
 def unet_qparams_from_jax(qparams) -> dict:
-    """JAX int8 qparams (``quantize_unet`` / ``quantize_unet_psrp`` /
-    ``quantize_unet_packed``: w_q, s_w, b and ``_act_scales``) -> this
+    """JAX U-Net qparams (``quantize_unet`` / ``quantize_unet_psrp`` in any
+    ``deep_int4`` mode / ``quantize_unet_packed``: w_q, s_w, b, ``wsum4``,
+    ``_act_scales`` and the mode keys ``_deep_*`` and ``_w8_*``) -> this
     package's layout, on the CPU.
     Packed TPU weights are dropped; ``inference/psrp.attach_kernel_params``
     packs for the CUDA kernels."""
@@ -120,6 +126,8 @@ def unet_qparams_from_jax(qparams) -> dict:
         k: torch.tensor(np.float32(v)) for k, v in qparams["_act_scales"].items()
     }}
     for name, lw in qparams.items():
+        if name.startswith(MODE_KEY_PREFIXES):
+            out[name] = True
         if name.startswith("_"):
             continue
         perm = (2, 3, 0, 1) if name.startswith("ct") else (3, 2, 0, 1)
@@ -129,6 +137,8 @@ def unet_qparams_from_jax(qparams) -> dict:
             "s_w": _t(lw["s_w"]),
             "b": _t(lw["b"]),
         }
+        if "wsum4" in lw:  # (cout,), or (2, 2, cout) for ct0/ct1
+            out[name]["wsum4"] = _t(lw["wsum4"])
     return out
 
 

@@ -50,6 +50,10 @@ MODES = {
     "packed": (lambda layers, taps, f: jp.quantize_unet_packed(layers, taps),
                tp.attach_packed_params,
                lambda q, x: tp.unet_packed_forward(q, x, NC)),
+    "int4": (lambda layers, taps, f: jpsrp.quantize_unet_psrp(
+                 layers, taps, init_features=f, deep_int4=True),
+             tpsrp.attach_kernel_params,
+             lambda q, x: tpsrp.unet_psrp_forward(q, x, NC)),
 }
 
 
@@ -66,22 +70,27 @@ def _labels(mode, raw):
     return graph(attach(raw), torch.from_numpy(normal_images(1, 2, HW)))
 
 
-@pytest.mark.parametrize("mode", ["int8", "psrp", "packed"])
+@pytest.mark.parametrize("mode", ["int8", "psrp", "packed", "int4"])
 def test_port_round_trip(tmp_path, mode):
-    """save -> load gives back every w_q, s_w, b and activation scale, and
-    the graph's labels; served qparams save as their raw part."""
+    """save -> load gives back every w_q, s_w, b (wsum4 and the mode keys of
+    int4) and activation scale, and the graph's labels; served qparams save
+    as their raw part."""
     raw = unet_qparams_from_jax(_jax_qparams(mode))
     path = str(tmp_path / f"{mode}.npz")
     ta.save_qparams(path, MODES[mode][1](raw), mode)
     back = ta.load_qparams(path, mode)
     assert set(back) == set(raw)
     for name, lw in raw.items():
+        if not isinstance(lw, dict):  # a mode key
+            assert back[name] is lw is True, name
+            continue
+        assert set(back[name]) == set(lw), name
         for k, v in lw.items():
             assert torch.equal(back[name][k], v), (name, k)
     assert torch.equal(_labels(mode, back), _labels(mode, raw))
 
 
-@pytest.mark.parametrize("mode", ["psrp", "packed"])
+@pytest.mark.parametrize("mode", ["psrp", "packed", "int4"])
 def test_jax_artifact_loads_into_the_port(tmp_path, mode):
     """An artifact the JAX package wrote (TPU packs and all) gives the
     labels of the same qparams handed over in memory."""
@@ -113,11 +122,15 @@ def test_mode_mismatch_raises(tmp_path):
                                          "packed"):
         ta.load_qparams(path, "packed")
     ja.save_qparams(path, {**qp, "_deep_int4": True})
-    with pytest.raises(ValueError, match="int4 artifact.*item 6"):
+    with pytest.raises(ValueError, match="int4 artifact, but --quantize "
+                                         "psrp"):
         ta.load_qparams(path, "psrp")
     ta.save_qparams(path, unet_qparams_from_jax(qp), "psrp")
     with pytest.raises(ValueError, match="a psrp artifact, but --quantize "
                                          "int8"):
         ta.load_qparams(path, "int8")
-    with pytest.raises(ValueError, match="mode 'int4'"):
-        ta.save_qparams(path, unet_qparams_from_jax(qp), "int4")
+    with pytest.raises(ValueError, match="a psrp artifact, but --quantize "
+                                         "int4"):
+        ta.load_qparams(path, "int4")
+    with pytest.raises(ValueError, match="mode 'int2'"):
+        ta.save_qparams(path, unet_qparams_from_jax(qp), "int2")

@@ -125,8 +125,8 @@ def test_eval_off_prints_what_jax_prints(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["infer", "--quantize", "int4"], "item 6"),
-    (["eval", "--quantize", "int4"], "item 6"),
+    (["infer", "--spatial", "4"], "item 12"),
+    (["eval", "--data", "retouch:/x"], "item 11"),
     (["infer", "--spatial", "2"], "item 12"),
     (["eval", "--data", "duke:/x"], "item 11"),
     (["infer", "--image-dir", "/x"], "item 11"),

@@ -120,11 +120,12 @@ def agreement(a, b):
     return float((np.asarray(a, np.int64) == np.asarray(b, np.int64)).mean())
 
 
-def psrp_reference_case(f, nc=10, hw=64):
+def psrp_reference_case(f, nc=10, hw=64, deep_int4=False):
     """The JAX side of the whole-graph comparisons, computed once per module.
 
-    * ``qparams``/``psrp``: PSRP qparams of the randomized U-Net and the
-      labels of the JAX PSRP graph (Pallas in interpret mode on the CPU).
+    * ``qparams``/``psrp``: PSRP qparams of the randomized U-Net (in the
+      ``deep_int4`` mode) and the labels of the JAX PSRP graph (Pallas in
+      interpret mode on the CPU).
     * ``variables``/``int8``/``float``: the regime of the JAX graph's own
       contract test (tests/test_psrp_forward.py): the U-Net as initialised,
       and the labels of the all-int8 and float graphs. Under the randomized
@@ -145,20 +146,22 @@ def psrp_reference_case(f, nc=10, hw=64):
     _, vr = jax_unet(f, nc, hw)
     layers = jq.fold_unet_bn(vr)
     qp = jax.tree.map(jnp.asarray, jpsrp.quantize_unet_psrp(
-        layers, jq.calibrate_unet(layers, calib), init_features=f))
+        layers, jq.calibrate_unet(layers, calib), init_features=f,
+        deep_int4=deep_int4))
     _, v = jax_unet(f, nc, hw, randomize=False)
     layers = jq.fold_unet_bn(v)
     q8 = jq.quantize_unet(layers, jq.calibrate_unet(layers, calib),
                           pallas=False)
     return {
         "f": f, "nc": nc, "x": x, "qparams": qp, "variables": v,
+        "deep_int4": deep_int4,
         "psrp": np.asarray(jpsrp.unet_psrp_forward(qp, xj, nc, tg=4)),
         "int8": np.asarray(jnp.argmax(jq.unet_int8_forward(q8, xj), -1)),
         "float": np.asarray(jnp.argmax(jq.folded_forward(layers, xj), -1)),
     }
 
 
-def port_psrp_labels_given_jax_qparams(case):
+def port_psrp_labels_given_jax_qparams(case, **kw):
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.psrp import (
         attach_kernel_params,
         unet_psrp_forward,
@@ -168,7 +171,8 @@ def port_psrp_labels_given_jax_qparams(case):
     )
 
     qp = attach_kernel_params(unet_qparams_from_jax(case["qparams"]))
-    return unet_psrp_forward(qp, torch.from_numpy(case["x"]), case["nc"])
+    return unet_psrp_forward(qp, torch.from_numpy(case["x"]), case["nc"],
+                             **kw)
 
 
 def port_psrp_labels_full_pipeline(case):
@@ -192,7 +196,8 @@ def port_psrp_labels_full_pipeline(case):
     model.load_state_dict(unet_state_dict_from_jax(case["variables"]))
     layers = tq.fold_unet_bn(model)
     taps = tq.calibrate_unet(layers, [normal_images(0, 2, case["x"].shape[1])])
-    qp = quantize_unet_psrp(layers, taps, init_features=case["f"])
+    qp = quantize_unet_psrp(layers, taps, init_features=case["f"],
+                            deep_int4=case["deep_int4"])
     return unet_psrp_forward(qp, torch.from_numpy(case["x"]), case["nc"])
 
 

@@ -156,3 +156,38 @@ def test_k2_vs_tpu_transpose_convs(kernel):
     got = _port_ct(x, w, scale, bias)
     assert got.shape == (2, 2 * H, 2 * W, cout)
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("cin,cout,nc", [(8, 8, 5), (32, 32, 10)])
+def test_k1_fused_head_vs_conv3x3_psrp(cin, cout, nc):
+    """K1 ending in the 1x1 head and argmax (blk8_conv1 + head) against
+    ``conv3x3_psrp(head=...)`` in interpret mode, as
+    tests/test_psrp_kernels.py's fused-head case; and equal to K1 then K3."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.head_argmax import (
+        head_argmax,
+        pack_head_weights,
+    )
+
+    by = nph = 4
+    H = W = 16
+    x = rand_int8(RNG, (2, H, W, cin))
+    w = rand_int8(RNG, (3, 3, cin, cout), -20, 20)
+    wh = rand_int8(RNG, (1, 1, cout, nc), -20, 20)
+    scale, bias = _scales(cout)
+    hs = RNG.uniform(1e-3, 2e-3, nc).astype(np.float32)
+    hb = RNG.uniform(-0.5, 0.5, nc).astype(np.float32)
+    fused = jp.conv3x3_psrp(
+        (jp.pack_psrp(jnp.asarray(x), by, nph),),
+        tuple(jnp.asarray(m) for m in jp.pack_psrp_weights(w, by, nph)[0]),
+        jnp.asarray(scale), jnp.asarray(bias), by=by, nph=nph, cins=(cin,),
+        tg=2, head=(jnp.asarray(jp.pack_head_psrp_weights(wh, by, ncp=16)),
+                    hs, hb), interpret=True)
+    want = np.asarray(fused.reshape(2, nph, by, H // by, W // nph)
+                      .transpose(0, 3, 2, 4, 1).reshape(2, H, W))
+    head = (pack_head_weights(_t(wh.transpose(3, 2, 0, 1))), _t(hs), _t(hb))
+    got = _port_conv([x], w, scale, bias, head=head)
+    assert got.dtype == torch.int8 and got.shape == (2, H, W)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want)) > 1
+    unfused = head_argmax(_port_conv([x], w, scale, bias), *head)
+    assert torch.equal(got, unfused)

@@ -608,3 +608,89 @@ def test_sdnet_forward_kernel_matches_plain(dev):
         <= 1e-5
     assert float((got["layer_positions"] - want["layer_positions"]).abs()
                  .max()) <= 1e-5 * 64
+
+
+# the w4a4 knobs of K1 and K2, and K1's fused head
+
+
+@pytest.mark.parametrize("n,h,w,cins,cout,knobs", [
+    (2, 16, 16, (16,), 16, dict(pad_vals=(-7,), relu=False, out_clip=7.0)),
+    (1, 8, 16, (64, 64), 64, dict(pad_vals=(0, -7), relu=False,
+                                 out_clip=7.0)),
+    (1, 7, 9, (5, 3), 8, dict(pad_vals=(-7, 3))),   # byte loads, odd H, W
+    (2, 16, 16, (8,), 8, dict(pool=True, pool_rescale=14 / 127,
+                             pool_shift=-7.0, pool_clip=7.0)),
+    (1, 34, 18, (32,), 64, dict(pool=True, relu=False, out_clip=7.0)),
+])
+def test_k1_w4a4_knobs_match_plain(dev, n, h, w, cins, cout, knobs):
+    rng = np.random.default_rng(20)
+    xs = tuple(_i8(rng, (n, h, w, c), dev, -7, 8) for c in cins)
+    wk = k12.pack_conv3x3_weights(_i8(rng, (cout, sum(cins), 3, 3), dev,
+                                      -7, 8))
+    sc, b = _vec(rng, cout, 0.01, 0.05, dev), _vec(rng, cout, -5, 5, dev)
+    got = k12.conv3x3_int8(xs, wk, sc, b, **knobs)
+    want = k12.conv3x3_int8_reference(xs, wk, sc, b, **knobs)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got if knobs.get("pool") else (got,),
+                      want if knobs.get("pool") else (want,)):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,nc", [
+    (2, 16, 16, 32, 32, 10), (1, 7, 21, 8, 12, 5), (1, 16, 16, 36, 4, 32),
+])
+def test_k1_fused_head_matches_plain(dev, n, h, w, cin, cout, nc):
+    rng = np.random.default_rng(21)
+    x = _i8(rng, (n, h, w, cin), dev)
+    wk = k12.pack_conv3x3_weights(_i8(rng, (cout, cin, 3, 3), dev, -40, 40))
+    sc, b = _vec(rng, cout, 1e-4, 3e-4, dev), _vec(rng, cout, -5, 5, dev)
+    head = (k3.pack_head_weights(_i8(rng, (nc, cout, 1, 1), dev, -40, 40)),
+            _vec(rng, nc, 1e-3, 2e-3, dev), _vec(rng, nc, -1, 1, dev))
+    before = k12.conv3x3_int8.launches
+    got = k12.conv3x3_int8(x, wk, sc, b, head=head)
+    torch.cuda.synchronize()
+    assert k12.conv3x3_int8.launches == before + 1
+    assert got.shape == (n, h, w) and got.dtype == torch.int8
+    assert torch.equal(got, k12.conv3x3_int8_reference(x, wk, sc, b,
+                                                       head=head))
+    assert torch.equal(got, k3.head_argmax_reference(
+        k12.conv3x3_int8(x, wk, sc, b), *head))
+    with pytest.raises(ValueError, match="head"):
+        k12.conv3x3_int8(x, wk, sc, b, head=head, pool=True)
+
+
+def test_k2_per_column_bias_matches_plain(dev):
+    rng = np.random.default_rng(22)
+    x = _i8(rng, (2, 8, 8, 128), dev, -7, 8)
+    wk = k12.pack_ct2x2_weights(_i8(rng, (128, 64, 2, 2), dev, -7, 8))
+    sc, b = _vec(rng, 64, 0.01, 0.03, dev), _vec(rng, 256, -5, 5, dev)
+    got = k12.ct2x2_int8(x, wk, sc, b, out_clip=7.0)
+    assert torch.equal(got, k12.ct2x2_int8_reference(x, wk, sc, b,
+                                                     out_clip=7.0))
+    assert int(got.abs().max()) == 7
+
+
+@pytest.mark.parametrize("mode", [True, "w4", "a4"])
+def test_w4a4_graph_kernels_match_plain(dev, mode):
+    """The w4a4 graph (f=16) on the kernels equals its plain graph, with
+    the fused head too; K1 18, K2 4 launches per forward."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.psrp import (
+        quantize_unet_psrp,
+    )
+
+    model = build_model(num_classes=5, init_features=16, seed=0, device=dev)
+    _, calib = build_psrp_forward(model, image_size=64, device=dev)
+    qp = quantize_unet_psrp(calib["layers"], calib["taps"], 16,
+                            deep_int4=mode, device=dev)
+    x = preprocess(torch.tensor(
+        np.random.default_rng(23).uniform(0, 255, (2, 64, 64, 1)),
+        dtype=torch.float32, device=dev))
+    with torch.inference_mode():
+        before = k12.conv3x3_int8.launches, k12.ct2x2_int8.launches
+        got = unet_psrp_forward(qp, x, 5, head_fuse=False)
+        torch.cuda.synchronize()
+        assert (k12.conv3x3_int8.launches - before[0],
+                k12.ct2x2_int8.launches - before[1]) == (18, 4)
+        want = unet_psrp_forward(qp, x, 5, reference=True)
+        fused = unet_psrp_forward(qp, x, 5, head_fuse=True)
+    assert torch.equal(got, want) and torch.equal(fused, want)

@@ -111,8 +111,11 @@ def test_quantize_unet_and_psrp_bit_equal(folded):
     tp = tpsrp.quantize_unet_psrp(t, taps, init_features=F)
     _assert_qparams_equal(tp, jpsrp.quantize_unet_psrp(j, taps,
                                                        init_features=F), j)
-    with pytest.raises(NotImplementedError):
-        tpsrp.quantize_unet_psrp(t, taps, init_features=F, deep_int4=True)
+    tp = tpsrp.quantize_unet_psrp(t, taps, init_features=F, deep_int4=True)
+    _assert_qparams_equal(tp, jpsrp.quantize_unet_psrp(
+        j, taps, init_features=F, deep_int4=True), j)
+    with pytest.raises(ValueError, match="deep_int4"):
+        tpsrp.quantize_unet_psrp(t, taps, init_features=F, deep_int4="w2")
 
 
 def test_unet_int8_forward_bit_equal(folded):
