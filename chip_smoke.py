@@ -25,17 +25,22 @@ Phases (any failure raises; the exit code is then non-zero):
    conv shapes of the f=32 U-Net at 512x512, batch 8 (the train step's),
    on integer inputs, bit-equal to the plain versions; K6 in both modes at
    the 18 BatchNorm shapes, batch 8, within rtol 1e-6 of the float64 plain
-   version (N(1, 1) inputs);
+   version (N(1, 1) inputs); K5 twice on the same random inputs at the
+   default step's three K5 shapes, bit-identical (its fixed-order sums);
 7. train: the trainer as ``cli train --packed`` builds it (f=32, 10 classes,
    512x512 synthetic data, batch 8, Adam 1e-3), five steps: loss finite and
    lower at step 5 than at step 1, and K4/K5/K6 launched 6/3/36 times per
    step; from the state those steps reached, one step on the kernels
    against the same step with the plain versions patched in (``GATE``:
    loss, and per gradient tensor above a norm of 1e-3 the cosine and the
-   norm), and two planted kernel faults that this gate must reject;
+   norm), and two planted kernel faults that this gate must reject (K5
+   leaving out every 64th of its bands, K6 sums 0.5% high);
    launches per step with ``mid=deep="kernel"`` 34/17/36;
 8. times on the card: each training kernel summed over the step's calls at
-   batch 8 against its plain version and one library call, the train step
+   batch 8 against its plain version and one library call; K5's device
+   time (``torch.profiler``, both passes) per call, summed over the default
+   step's three calls and over all 17 convs, beside ``conv2d_weight``'s,
+   the bound and the GB/s achieved on the bound's bytes; the train step
    at batch 8 and 16 in both conv settings (and the library-conv step),
    peak memory, and a ``torch.profiler`` breakdown of the step;
 9. fused-loss kernels: K8 and K9 at the train step's logits (8, 512, 512,
@@ -582,6 +587,20 @@ def train_phases(dev, card, time_ms):
                 bad += 1
     print(f"K6 at the 18 BN shapes, both modes: worst relative error "
           f"{worst_rel:.3e} (limit 1e-6), max abs {max_err['bn_pair_sums']:.3e}")
+    # K5 sums in a fixed order: two calls on the same random inputs at the
+    # default step's three K5 shapes give the same bits
+    for name, h, cin, cout, group in train_convs():
+        if group != "always":
+            continue
+        x, dy = normal((nb, h, h, cin)), normal((nb, h, h, cout))
+        first, second = k45.conv3x3_bf16_wgrad(x, dy), \
+            k45.conv3x3_bf16_wgrad(x, dy)
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        print(f"K5 {name} {h}^2 {cin}->{cout}, two calls on random inputs: "
+              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+        bad += not same
+        del x, dy, first, second
     if bad:
         raise RuntimeError(f"{bad} training-kernel checks failed")
     torch.cuda.empty_cache()
@@ -648,14 +667,16 @@ def train_phases(dev, card, time_ms):
     wgrad, sums = k45.conv3x3_bf16_wgrad, k6.pair_sums
 
     def k5_drops_tiles(x, dy):
-        """K5 with every 64th 8x16 output tile (its unit of work) left
-        out."""
-        n, h, w, _ = dy.shape
-        keep = torch.ones(n * -(-h // 8) * -(-w // 16), dtype=dy.dtype,
-                          device=dy.device)
-        keep[::64] = 0
-        keep = keep.view(n, -(-h // 8), -(-w // 16))
-        mask = keep.repeat_interleave(8, 1)[:, :h].repeat_interleave(16, 2)
+        """K5 with every 64th band x column tile (its unit of work, from
+        ``wgrad_plan``) left out, counted from the centre of the first image
+        (the retina; the top band is background)."""
+        n, h, w, cout = dy.shape
+        plan = k45.wgrad_plan(n, h, w, x.shape[-1], cout)
+        keep = torch.ones(plan.units, dtype=dy.dtype, device=dy.device)
+        keep[(plan.nbands // 2 * plan.nct + plan.nct // 2) % 64::64] = 0
+        keep = keep.view(n, plan.nbands, plan.nct)
+        mask = keep.repeat_interleave(plan.R, 1)[:, :h] \
+            .repeat_interleave(plan.twk, 2)
         return wgrad(x, (dy * mask[:, :, :w, None]).contiguous())
 
     def k6_sums_high(a, b=None):
@@ -667,7 +688,7 @@ def train_phases(dev, card, time_ms):
     k5_drops_tiles.launches = k6_sums_high.launches = 0
     faults = {}
     for label, fault in (
-        ("K5 leaves out 1/64 of the output tiles",
+        ("K5 leaves out 1/64 of its bands",
          swapped(k45, conv3x3_bf16_wgrad=k5_drops_tiles)),
         ("K6 sums 0.5% high", swapped(k6, pair_sums=k6_sums_high)),
     ):
@@ -701,6 +722,10 @@ def train_phases(dev, card, time_ms):
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                 "operations": 0.0, "bytes": 0.0} for k in names}
     every17 = {k: [0.0, 0.0] for k in ("conv3x3_bf16", "conv3x3_bf16_wgrad")}
+    # K5's own reading (device time over both of its passes, torch.profiler)
+    k5 = {"ms": 0.0, "device": 0.0, "library": 0.0, "library_device": 0.0,
+          "bound": 0.0, "bytes": 0.0, "device17": 0.0,
+          "library_device17": 0.0}
 
     def add(k, main, ms, pms, lms, work, peak):
         b_ms, b_by = bound(*work, peak)
@@ -752,11 +777,35 @@ def train_phases(dev, card, time_ms):
                       f"({ops / ms / 1e9:.1f} TFLOP/s), plain {pms:.4f}, "
                       f"library {lms:.4f}, bound {b_ms:.4f} ({b_by})"
                       f"{' [main path]' if main else ''}", flush=True)
+                if label != "wgrad":
+                    continue
+                dms, dlms = device_ms(fn), device_ms(lib)
+                k5["device17"] += dms
+                k5["library_device17"] += dlms
+                if main:
+                    for key, v in (("ms", ms), ("device", dms),
+                                   ("library", lms), ("library_device", dlms),
+                                   ("bound", b_ms), ("bytes", nbytes)):
+                        k5[key] += v
+                print(f"time b{nb} {name:11s} K5 device {dms:.4f} ms "
+                      f"({ops / dms / 1e9:.1f} TFLOP/s, "
+                      f"{nbytes / dms / 1e6:.0f} GB/s of {nbytes / 1e6:.1f} "
+                      f"MB), conv2d_weight device {dlms:.4f} ms, plan "
+                      f"{k45.wgrad_plan(nb, h, h, cin, cout)}", flush=True)
         del x, dy, w, wf, w_oihw, xc, dyc
         torch.cuda.empty_cache()
     for k, (ms, lms) in every17.items():
         print(f"time b{nb} {k} over all 17 convs (the mid=deep='kernel' "
               f"step): kernel {ms:.4f} ms, library {lms:.4f} ms")
+    print(f"time b{nb} K5 over all 17 convs, device: kernel "
+          f"{k5['device17']:.4f} ms, conv2d_weight {k5['library_device17']:.4f}"
+          f" ms")
+    print(f"time b{nb} K5 summed over the default step's three calls: device "
+          f"{k5['device']:.4f} ms (event {k5['ms']:.4f}), conv2d_weight device "
+          f"{k5['library_device']:.4f} ms (event {k5['library']:.4f}), bound "
+          f"{k5['bound']:.4f} ms (bytes: {k5['bytes'] / 1e6:.1f} MB), achieved "
+          f"{k5['bytes'] / k5['device'] / 1e6:.0f} GB/s of {HBM / 1e9:.0f}",
+          flush=True)
     dims = (0, 1, 2)
     for h, c in bn_shapes():
         a, b = normal((nb, h, h, c), 1.0), normal((nb, h, h, c), 1.0)

@@ -42,7 +42,7 @@ SIGNATURES = {
     "octseg_head_argmax": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     "octseg_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "octseg_conv3x3_bf16_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _P],
+                                  _I, _I, _I, _P],
     "octseg_bn_pair_sums": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P],
     "octseg_dice_ce_stats": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I,
                              _P],

@@ -22,13 +22,20 @@ bit-equal; on random data K4 may differ by one bf16 ulp on a few elements.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
 from .conv_int8 import _check, _round_up, _stream
 
-_KC, _CO_T = 16, 32  # K5's channel tiles (csrc/conv3x3_bf16.cu)
+# K5's fixed sizes (csrc/conv3x3_bf16.cu): output channels a block, widest
+# column tile, tallest band; and the card it is planned for (an H100 SXM:
+# 132 SMs, two K5 blocks each)
+_CO_T, _TWK_MAX, _R_MAX = 32, 128, 64
+_SMS, _BLOCKS_PER_SM = 132, 2
 
 
 def flip_w(w: torch.Tensor) -> torch.Tensor:
@@ -105,17 +112,113 @@ def conv3x3_bf16_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 conv3x3_bf16_fwd.launches = 0
 
 
-def wgrad_groups(N: int, H: int, W: int, cin: int, cout: int) -> int:
-    """K5's number of pixel groups G (one fp32 partial each): about 2048
-    blocks in all, and no more groups than 8x16 output tiles."""
-    tiles = N * -(-H // 8) * -(-W // 16)
-    channel_tiles = -(-cin // _KC) * -(-cout // _CO_T)
-    return max(1, min(tiles, 2048 // channel_tiles))
+class WgradPlan(NamedTuple):
+    """K5's work plan for one call (``wgrad_plan``). The grid is (G, n_ci,
+    n_co); a band ("unit") is R output rows x ``twk`` columns of one image,
+    numbered u = (n * nbands + band) * nct + column tile, and block g takes
+    the units g, g+G, g+2G, ... in that order, for one channel tile of
+    ``ci_t`` input and ``co_t`` output channels."""
+
+    N: int
+    H: int
+    W: int
+    cin: int
+    cout: int
+    G: int
+    R: int
+    twk: int
+    ci_t: int
+    co_t: int
+
+    @property
+    def nbands(self) -> int:
+        return -(-self.H // self.R)
+
+    @property
+    def nct(self) -> int:
+        return -(-self.W // self.twk)
+
+    @property
+    def units(self) -> int:
+        return self.N * self.nbands * self.nct
+
+    @property
+    def n_ci(self) -> int:
+        return -(-self.cin // self.ci_t)
+
+    @property
+    def n_co(self) -> int:
+        return -(-self.cout // self.co_t)
+
+    def order(self, g: int) -> list[tuple[int, int, int]]:
+        """Block g's bands in the order it walks them: (n, first row, first
+        column)."""
+        out = []
+        for u in range(g, self.units, self.G):
+            nb, ct = divmod(u, self.nct)
+            n, band = divmod(nb, self.nbands)
+            out.append((n, band * self.R, ct * self.twk))
+        return out
+
+    def reads(self) -> tuple[float, float]:
+        """How many times the kernel reads each element of x and of dy from
+        device memory: the in-image part of every x row segment (rows y0-1
+        .. y0+R, columns x0-1 .. x0+twk) and dy row segment it copies, over
+        all blocks and channel tiles, divided by the elements of x and dy."""
+        xs = ds = 0
+        for g in range(self.G):
+            for n, y0, x0 in self.order(g):
+                rows = min(self.R, self.H - y0)
+                xrows = min(self.H, y0 + rows + 1) - max(0, y0 - 1)
+                xcols = min(self.W, x0 + self.twk + 1) - max(0, x0 - 1)
+                xs += xrows * xcols
+                ds += rows * min(self.twk, self.W - x0)
+        pixels = self.N * self.H * self.W
+        return xs * self.n_co / pixels, ds * self.n_ci / pixels
+
+
+@functools.lru_cache(maxsize=64)
+def wgrad_plan(N: int, H: int, W: int, cin: int, cout: int) -> WgradPlan:
+    """K5's plan for x (N, H, W, cin) and dy (N, H, W, cout). Column tiles
+    of up to 128 pixels; the channel tile all of cin up to 64 (16, 32 or 64
+    channels) by 32 output channels; bands of 64, 32, 16 or 8 rows, the
+    tallest of those that give the shortest block (waves of the grid over
+    the 132 x 2 block slots of an H100, times the bands a block walks, times
+    R); G as few blocks per channel tile as keep that length."""
+    twk = min(_TWK_MAX, _round_up(W, 16))
+    ci_t = 16 if cin <= 16 else 32 if cin <= 32 else 64
+    tiles = -(-cin // ci_t) * -(-cout // _CO_T)
+    nct = -(-W // twk)
+    slots = _BLOCKS_PER_SM * _SMS
+    g_max = max(1, slots // tiles)
+
+    def grid(r):
+        units = N * -(-H // r) * nct
+        per_block = -(-units // g_max)  # bands a block walks
+        g = -(-units // per_block)
+        return -(-g * tiles // slots) * per_block * r, g
+
+    rows = [min(H, _R_MAX)] + [r for r in (32, 16, 8) if r < min(H, _R_MAX)]
+    R = min(rows, key=lambda r: (grid(r)[0], -r))
+    return WgradPlan(N, H, W, cin, cout, grid(R)[1], R, twk, ci_t, _CO_T)
+
+
+def pad_channels(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., C) with C zero-padded to a multiple of 8, in a fresh
+    (16-byte aligned) tensor where C needs padding or ``t`` is not 16-byte
+    aligned; else ``t`` itself. Zero channels add exact zeros to K5's
+    sums."""
+    c = t.shape[-1]
+    if c % 8:
+        return F.pad(t, (0, _round_up(c, 8) - c))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def conv3x3_bf16_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """K5: dW[ky, kx, ci, co] = sum over n, h, w of x[n, h+ky-1, w+kx-1, ci]
-    * dy[n, h, w, co]; (3, 3, cin, cout) float32."""
+    * dy[n, h, w, co]; (3, 3, cin, cout) float32. On the card K5 runs on
+    ``pad_channels`` of x and dy, with the plan of ``wgrad_plan``, and dW is
+    sliced back to cin x cout."""
     if x.device.type == "cpu":
         return conv3x3_bf16_wgrad_reference(x, dy)
     dev = x.device
@@ -127,17 +230,22 @@ def conv3x3_bf16_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _check(tuple(dy.shape[:3]) == (N, H, W),
            f"conv3x3_bf16_wgrad: dy {tuple(dy.shape)} for input "
            f"{tuple(x.shape)}")
-    cinp, coutp = _round_up(cin, _KC), _round_up(cout, _CO_T)
-    G = wgrad_groups(N, H, W, cin, cout)
-    partial = torch.empty((G, 9, cinp, coutp), dtype=torch.float32,
+    xk, dk = pad_channels(x), pad_channels(dy)
+    plan = wgrad_plan(N, H, W, xk.shape[-1], dk.shape[-1])
+    partial = torch.empty((plan.G, 9, plan.n_ci * plan.ci_t,
+                           plan.n_co * plan.co_t), dtype=torch.float32,
                           device=dev)
-    dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=dev)
+    dw = torch.empty((3, 3, plan.cin, plan.cout), dtype=torch.float32,
+                     device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().octseg_conv3x3_bf16_wgrad(
-            x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            N, H, W, cin, cout, cinp, coutp, G, _stream(x))
+            xk.data_ptr(), dk.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            N, H, W, plan.cin, plan.cout, plan.G, plan.R, plan.twk,
+            plan.ci_t, _stream(x))
     _build.check(err, "conv3x3_bf16_wgrad")
     conv3x3_bf16_wgrad.launches += 1
+    if (plan.cin, plan.cout) != (cin, cout):
+        dw = dw[..., :cin, :cout].contiguous()
     return dw
 
 

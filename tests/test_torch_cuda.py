@@ -154,6 +154,10 @@ CONV_SHAPES = [
     (1, 7, 9, 5, 3),       # odd channels (scalar loads), partial tiles
     (2, 10, 20, 24, 40),   # cout not a multiple of 32
     (1, 8, 16, 64, 96),    # several channel chunks and cout tiles
+    # K5's ring and tiles (ops/conv_bf16.py:wgrad_plan)
+    (1, 70, 24, 32, 32),   # bands of 8 rows, the last one of 6
+    (2, 9, 200, 16, 32),   # column tiles of 128, the last one of 72
+    (1, 10, 160, 64, 32),  # cin 64 -> cout 32 wider than a column tile
 ]
 
 
