@@ -56,15 +56,19 @@ Phases (any failure raises; the exit code is then non-zero):
     backward, and the train step at batch 8 with and without the fused
     loss (in turns: unfused, fused, fused, unfused);
 12. ReLayNet kernels: K7 at its 7 stage shapes (f=64, 512x512, batch 2),
-    bit for bit against its plain version (pool values and indices too);
+    bit for bit against its plain version (pool values and indices too),
+    a second call at b0 and b6 bit-identical to the first, and at the b0
+    and b6 shapes (with the pool) inputs whose 2x2 windows all tie (index
+    0) and inputs and weights all +-127 (|acc| up to 43,354,368 at b6);
 13. ReLayNet graph (f=64, 10 classes, seeded random weights, batch 8):
     labels identical to the plain graph's, agreement with the all-int8
     oracle > 0.995 and the float graph > 0.95;
 14. ReLayNet served as ``cli serve --model relaynet`` builds it: 6 HTTP
     requests, each equal to the direct forward; K7 7 and K3 1 launches
     per forward;
-15. ReLayNet times at batch 32: K7 per stage and summed, against its plain
-    version and its bound, and the served forward;
+15. ReLayNet times at batch 32: K7 per stage and summed (event time and
+    device time, TOPS), against its plain version and its bound, and the
+    served forward with a ``torch.profiler`` breakdown;
 16. K10 (the fused stem) and K11 (the int8 pool) bit for bit against their
     plain versions: K10 at (2, 512, 512) with f=32 and f=16 and at the
     non-square (2, 80, 48), K11 at the packed graph's deep pool shapes
@@ -1212,6 +1216,50 @@ def relaynet_phases(dev, card, time_ms, http_post):
               f"outputs {[tuple(a.shape) for a in got]} mismatches {mism}",
               flush=True)
         bad += mism
+        if name.startswith(("b0", "b6")):
+            again = k7.conv7x3_int8(*args, pool=pool)
+            torch.cuda.synchronize()
+            again = again if pool else (again,)
+            diff = sum(int((a != b).sum()) for a, b in zip(again, got))
+            print(f"{name:8s} a second call on the same inputs: {diff} "
+                  "outputs differ from the first", flush=True)
+            bad += diff
+    # at the b0 and b6 shapes: every 2x2 window tied (constant input, zero
+    # weights: the index must be 0), and inputs and weights all +-127 (at
+    # b6, cin 128, |acc| reaches 21 * 128 * 127^2 = 43,354,368)
+    for name, h, cins in (("b0 stem", HW, (1,)), ("b6", HW, (rf, rf))):
+        cin = sum(cins)
+        x = tuple(torch.full((2, h, h, c), 5, dtype=torch.int8, device=dev)
+                  for c in cins)
+        bias = torch.tensor(gen.uniform(-100, 100, rf), dtype=torch.float32,
+                            device=dev)
+        tie = (x, k7.pack_conv7x3_weights(torch.zeros(
+            (rf, cin, 7, 3), dtype=torch.int8, device=dev)),
+            torch.ones(rf, device=dev), bias, 0.25)
+        x = tuple(torch.full((2, h, h, c), 127, dtype=torch.int8, device=dev)
+                  for c in cins)
+        x[-1][:, :h // 4] = -127
+        sign = torch.tensor(gen.choice([-1, 1], (rf, cin, 7, 3)), device=dev)
+        sign[0::3], sign[1::3] = 1, -1
+        top = 21 * cin * 127 * 127
+        extreme = (x, k7.pack_conv7x3_weights((127 * sign).to(torch.int8)),
+                   torch.tensor(gen.uniform(100, 200, rf) / top,
+                                dtype=torch.float32, device=dev),
+                   torch.tensor(gen.uniform(-5, 5, rf), dtype=torch.float32,
+                                device=dev), 0.5)
+        for case, args in (("ties", tie), ("+-127", extreme)):
+            got = k7.conv7x3_int8(*args, pool=True)
+            want = k7.conv7x3_int8_reference(*args, pool=True)
+            torch.cuda.synchronize()
+            mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+            if case == "ties" and bool(got[2].any()):
+                mism += int((got[2] != 0).sum())
+            max_err = max([max_err] + [int((a.int() - b.int()).abs().max())
+                                       for a, b in zip(got, want)])
+            print(f"{name:8s} {case:5s} pool=True: mismatches {mism}; "
+                  f"indices {torch.unique(got[2]).tolist()}", flush=True)
+            bad += mism
+        del x, tie, extreme
     if bad:
         raise RuntimeError(f"{bad} K7 outputs differ from plain")
 
@@ -1321,35 +1369,40 @@ def relaynet_phases(dev, card, time_ms, http_post):
     # ------------------------------------------------------------------ 15
     phase(f"15 ReLayNet times on {card} (batch 32)")
     n = 32
-    total = [0.0, 0.0]
+    total = [0.0, 0.0, 0.0]
     bounds = {"operations": 0.0, "bytes": 0.0}
     by_row = {}
     for name, h, cins, pool in relaynet_stages(rf, HW):
         args = stage_args(h, cins, n)
         with torch.inference_mode():
             ms = time_ms(lambda: k7.conv7x3_int8(*args, pool=pool))
+            dms = device_ms(lambda: k7.conv7x3_int8(*args, pool=pool))
             pms = time_ms(lambda: k7.conv7x3_int8_reference(*args, pool=pool),
                           3)
         ops, nbytes = relaynet_work(h, cins, pool, n, rf)
         b_ms, b_by = bound(ops, nbytes, PEAK["int8"])
         total[0] += ms
         total[1] += pms
+        total[2] += dms
         bounds[b_by] += b_ms
         row = by_row.setdefault("B14" if name.startswith("b0") else "B13",
-                                [0, 0.0, 0.0, 0.0])
-        for i, v in enumerate((1, ms, pms, b_ms)):
+                                [0, 0.0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((1, ms, pms, b_ms, dms)):
             row[i] += v
         print(f"time b{n} {name:8s} K7 kernel {ms:.4f} ms "
-              f"({ops / ms / 1e9:.1f} TOPS), plain {pms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+              f"({ops / ms / 1e9:.1f} TOPS), device_ms {dms:.4f} "
+              f"({ops / dms / 1e9:.1f} TOPS, {nbytes / dms / 1e6:.1f} GB/s), "
+              f"plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / dms:.1f}% of the bound's rate", flush=True)
         del args
         torch.cuda.empty_cache()
     print(f"time b{n} K7 summed over the 7 stages: kernel {total[0]:.4f} ms, "
-          f"plain {total[1]:.4f} ms, bound {sum(bounds.values()):.4f} ms "
-          f"{bounds}")
-    for row, (n_st, ms, pms, b_ms) in sorted(by_row.items()):
+          f"device_ms {total[2]:.4f}, plain {total[1]:.4f} ms, bound "
+          f"{sum(bounds.values()):.4f} ms {bounds}")
+    for row, (n_st, ms, pms, b_ms, dms) in sorted(by_row.items()):
         print(f"time b{n} TPU kernel {row} ({n_st} launches per forward): "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, device_ms {dms:.4f}, plain {pms:.4f} ms, "
+              f"bound {b_ms:.4f} ms")
     xb = torch.tensor(np.random.default_rng(n).uniform(0, 255, (n, HW, HW, 1)),
                       dtype=torch.float32, device=dev)
     with torch.inference_mode():
@@ -1357,7 +1410,7 @@ def relaynet_phases(dev, card, time_ms, http_post):
     print(f"served ReLayNet forward (z-score + graph) batch {n}: {ms:.3f} ms, "
           f"{n / ms * 1e3:.1f} B-scans/s", flush=True)
     profile_breakdown(lambda: forward(xb), 3, f"the served forward, batch {n}",
-                      {"K7 conv7x3_int8": "conv_kh3_int8",
+                      {"K7 conv7x3_int8": "7x3_mma",
                        "K3 head_argmax": "head_argmax"})
     del xb, forward, calib, model
     torch.cuda.empty_cache()

@@ -264,6 +264,7 @@ def test_bn_train_cuda_matches_cpu(dev, dtype):
     (1, 20, 36, (64, 64), 64, 7, False),    # the decoders' two inputs
     (1, 12, 8, (8, 4), 40, 5, True),        # kh 5, cout % 32 != 0
     (1, 7, 9, (32,), 32, 3, False),         # kh 3, odd H, W
+    (1, 40, 72, (64, 64), 64, 7, False),    # b6-like, partial tiles
 ])
 def test_k7_matches_plain(dev, n, h, w, cins, cout, kh, pool):
     rng = np.random.default_rng(9)
@@ -282,6 +283,65 @@ def test_k7_matches_plain(dev, n, h, w, cins, cout, kh, pool):
     for g_, w_ in zip(got, want):
         assert torch.equal(g_, w_)
     assert bool((got[0] < -10).any() and (got[0] > 10).any())
+
+
+def _k7_both(xs, wk, sc, b, alpha, pool):
+    got = k7.conv7x3_int8(xs, wk, sc, b, alpha, pool=pool)
+    want = k7.conv7x3_int8_reference(xs, wk, sc, b, alpha, pool=pool)
+    torch.cuda.synchronize()
+    return (got, want) if pool else ((got,), (want,))
+
+
+@pytest.mark.parametrize("h,cins", [(32, (1,)), (34, (64,)), (20, (64, 64))])
+def test_k7_pool_ties_take_index_0(dev, h, cins):
+    """Constant input and zero weights: every 2x2 window ties (the value is
+    the bias), so every pooled index is 0, as the strict > order says."""
+    rng = np.random.default_rng(11)
+    xs = tuple(torch.full((2, h, h + 2, c), 5, dtype=torch.int8, device=dev)
+               for c in cins)
+    wk = k7.pack_conv7x3_weights(torch.zeros((64, sum(cins), 7, 3),
+                                             dtype=torch.int8, device=dev))
+    sc, b = _vec(rng, 64, 0.5, 1.0, dev), _vec(rng, 64, -100, 100, dev)
+    got, want = _k7_both(xs, wk, sc, b, 0.21, True)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    assert not bool(got[2].any())
+    assert bool((got[1] < -10).any() and (got[1] > 10).any())
+
+
+def test_k7_extreme_values(dev):
+    """All inputs and weights at +-127, cin 128: |acc| reaches 21 * 128 *
+    127^2 = 43,354,368 in the interior; outputs match the plain version."""
+    rng = np.random.default_rng(12)
+    xs = tuple(torch.full((2, 40, 36, 64), 127, dtype=torch.int8, device=dev)
+               for _ in range(2))
+    xs[1][:, :10] = -127  # rows 13.. see all +127: |acc| = 43,354,368
+    sign = torch.tensor(rng.choice([-1, 1], (64, 128, 7, 3)), device=dev)
+    sign[0::3] = 1
+    sign[1::3] = -1
+    wk = k7.pack_conv7x3_weights((127 * sign).to(torch.int8))
+    sc = _vec(rng, 64, 100 / 43354368, 200 / 43354368, dev)
+    b = _vec(rng, 64, -5, 5, dev)
+    got, want = _k7_both(xs, wk, sc, b, 0.5, True)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)
+    assert bool((got[0] == 127).any() and (got[0] < -40).any())
+
+
+@pytest.mark.parametrize("h,cins,pool", [(64, (1,), True),
+                                         (48, (64, 64), False)])
+def test_k7_repeats_bit_for_bit(dev, h, cins, pool):
+    rng = np.random.default_rng(13)
+    xs = tuple(_i8(rng, (2, h, h, c), dev) for c in cins)
+    wk = k7.pack_conv7x3_weights(_i8(rng, (64, sum(cins), 7, 3), dev))
+    std = (21 * sum(cins)) ** 0.5 * 73 * 73
+    sc, b = _vec(rng, 64, 30 / std, 60 / std, dev), _vec(rng, 64, -5, 5, dev)
+    first = k7.conv7x3_int8(xs, wk, sc, b, 0.3, pool=pool)
+    second = k7.conv7x3_int8(xs, wk, sc, b, 0.3, pool=pool)
+    torch.cuda.synchronize()
+    first, second = (first, second) if pool else ((first,), (second,))
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 def test_relaynet_graph_kernels_match_plain(dev):
