@@ -27,18 +27,25 @@ Phases (any failure raises; the exit code is then non-zero):
    the 18 BatchNorm shapes, batch 8, within rtol 1e-6 of the float64 plain
    version (N(1, 1) inputs); K5 twice on the same random inputs at the
    default step's three K5 shapes, bit-identical (its fixed-order sums);
+   K4 at the default step's six calls on random inputs, within one bf16
+   ulp plus 2^-16 of the sum of |products| of the float64 plain version,
+   and a second call bit-identical;
 7. train: the trainer as ``cli train --packed`` builds it (f=32, 10 classes,
    512x512 synthetic data, batch 8, Adam 1e-3), five steps: loss finite and
    lower at step 5 than at step 1, and K4/K5/K6 launched 6/3/36 times per
    step; from the state those steps reached, one step on the kernels
    against the same step with the plain versions patched in (``GATE``:
    loss, and per gradient tensor above a norm of 1e-3 the cosine and the
-   norm), and two planted kernel faults that this gate must reject (K5
-   leaving out every 64th of its bands, K6 sums 0.5% high);
+   norm), and three planted kernel faults that this gate must reject (K4
+   leaving out every 64th of its tiles, K5 every 64th of its bands, K6
+   sums 0.5% high);
    launches per step with ``mid=deep="kernel"`` 34/17/36;
 8. times on the card: each training kernel summed over the step's calls at
-   batch 8 against its plain version and one library call; K5's device
-   time (``torch.profiler``, both passes) per call, summed over the default
+   batch 8 against its plain version and one library call; K4's device
+   time (``torch.profiler``) and plan per call beside its event time and
+   the WMMA body's, summed over the default step's six calls against the
+   library's and over all 17 convs; K5's device
+   time (both passes) per call, summed over the default
    step's three calls and over all 17 convs, beside ``conv2d_weight``'s,
    the bound and the GB/s achieved on the bound's bytes; the train step
    at batch 8 and 16 in both conv settings (and the library-conv step),
@@ -407,6 +414,14 @@ def agreement(a, b):
     return abs(a[0] - b[0]) / abs(b[0]), cos, ratio
 
 
+def bf16_ulp(t):
+    """bf16 ulp of each element's magnitude (float32)."""
+    import torch
+
+    t = torch.clamp_min(t.float().abs(), 2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(t)) - 7)
+
+
 def gate_passes(agree, gate):
     """A gate set between the one-ulp floor and planted faults (PERF.md
     section 6)."""
@@ -447,8 +462,12 @@ def profile_breakdown(fn, runs, what, groups):
     if total <= 0:
         print("profiler: no device time recorded (not measured)")
         return
-    by_group = {gname: sum(dev_us(e) for e in kern if key in e.key) / 1e3
-                for gname, key in groups.items()}
+    def in_group(e, keys):
+        return any(k in e.key for k in ((keys,) if isinstance(keys, str)
+                                        else keys))
+
+    by_group = {gname: sum(dev_us(e) for e in kern if in_group(e, keys)) / 1e3
+                for gname, keys in groups.items()}
     by_group["everything else"] = total - sum(by_group.values())
     print(f"profile, {runs} x {what}: wall {wall_ms / runs:.3f} ms each, "
           f"device busy {total / runs:.3f} ms ({100 * total / wall_ms:.2f}%), "
@@ -568,9 +587,11 @@ def train_phases(dev, card, time_ms):
                             "conv3x3_bf16_wgrad"), got, want):
             max_err[k] = max(max_err[k],
                              float((a.float() - b.float()).abs().max()))
+        bodies = (k45.fwd_plan(nb, h, h, cin, cout).body,
+                  k45.fwd_plan(nb, h, h, cout, cin).body)
         print(f"{name:11s} {h:4d}^2 {cin:4d}->{cout:4d} ({group:6s}) "
-              f"mismatches fwd {mism[0]} dgrad {mism[1]} wgrad {mism[2]}",
-              flush=True)
+              f"mismatches fwd {mism[0]} dgrad {mism[1]} wgrad {mism[2]} "
+              f"(K4 bodies fwd {bodies[0]}, dgrad {bodies[1]})", flush=True)
         bad += sum(mism)
         del x, w, dy, got, want
     worst_rel = 0.0
@@ -592,7 +613,10 @@ def train_phases(dev, card, time_ms):
     print(f"K6 at the 18 BN shapes, both modes: worst relative error "
           f"{worst_rel:.3e} (limit 1e-6), max abs {max_err['bn_pair_sums']:.3e}")
     # K5 sums in a fixed order: two calls on the same random inputs at the
-    # default step's three K5 shapes give the same bits
+    # default step's three K5 shapes give the same bits. K4 at the step's
+    # six calls on random data: within one bf16 ulp of the float64 plain
+    # version plus 2^-16 of the sum of |products| (the fp32 sums run in
+    # another order), and a second call bit-identical (no atomics)
     for name, h, cin, cout, group in train_convs():
         if group != "always":
             continue
@@ -604,7 +628,28 @@ def train_phases(dev, card, time_ms):
         print(f"K5 {name} {h}^2 {cin}->{cout}, two calls on random inputs: "
               f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
         bad += not same
-        del x, dy, first, second
+        del first, second
+        w = normal((3, 3, cin, cout))
+        for label, a, wk, plain in (
+            ("fwd", x, w, k45.conv3x3_bf16_reference),
+            ("dgrad", dy, k45.flip_w(w), k45.conv3x3_bf16_dgrad_reference),
+        ):
+            first, second = k45.conv3x3_bf16_fwd(a, wk), \
+                k45.conv3x3_bf16_fwd(a, wk)
+            want = plain(a, w).float()
+            mag = plain(a.abs(), w.abs()).float()
+            torch.cuda.synchronize()
+            err = (first.float() - want).abs()
+            over = int((err > bf16_ulp(want) + 2.0 ** -16 * mag).sum())
+            same = torch.equal(first, second)
+            print(f"K4 {label} {name} {h}^2 on random inputs "
+                  f"({k45.fwd_plan(*a.shape, wk.shape[-1]).body}): max abs "
+                  f"error {float(err.max()):.3e}, {over} elements beyond one "
+                  f"ulp + 2^-16 of the sum of |products|; a second call "
+                  f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+            bad += over + (not same)
+            del first, second, want, mag, err
+        del x, dy, w
     if bad:
         raise RuntimeError(f"{bad} training-kernel checks failed")
     torch.cuda.empty_cache()
@@ -668,7 +713,24 @@ def train_phases(dev, card, time_ms):
               f"{reading(floor)}", flush=True)
 
     # planted faults, each a wrong kernel the gate must reject
-    wgrad, sums = k45.conv3x3_bf16_wgrad, k6.pair_sums
+    fwd, wgrad, sums = k45.conv3x3_bf16_fwd, k45.conv3x3_bf16_wgrad, \
+        k6.pair_sums
+
+    def k4_drops_tiles(x, w):
+        """K4 with every 64th tile x channel tile (its unit of work, from
+        ``fwd_plan``) left out (zero), counted from the centre of the first
+        image (the retina; the top rows are background)."""
+        n, h, wd, _ = x.shape
+        cout = w.shape[-1]
+        plan = k45.fwd_plan(n, h, wd, x.shape[-1], cout)
+        keep = torch.ones(plan.units, dtype=x.dtype, device=x.device)
+        keep[((plan.tiles_y // 2) * plan.tiles_x + plan.tiles_x // 2)
+             * plan.n_co % 64::64] = 0
+        keep = keep.view(n, plan.tiles_y, plan.tiles_x, plan.n_co)
+        mask = keep.repeat_interleave(plan.rows, 1)[:, :h] \
+            .repeat_interleave(plan.cols, 2)[:, :, :wd] \
+            .repeat_interleave(plan.co_t, 3)[..., :cout]
+        return fwd(x, w) * mask
 
     def k5_drops_tiles(x, dy):
         """K5 with every 64th band x column tile (its unit of work, from
@@ -689,9 +751,12 @@ def train_phases(dev, card, time_ms):
 
     # the real wrappers count their launches under their module names,
     # which point at the faults while these run
-    k5_drops_tiles.launches = k6_sums_high.launches = 0
+    k4_drops_tiles.launches = k5_drops_tiles.launches = 0
+    k6_sums_high.launches = 0
     faults = {}
     for label, fault in (
+        ("K4 leaves out 1/64 of its tiles",
+         swapped(k45, conv3x3_bf16_fwd=k4_drops_tiles)),
         ("K5 leaves out 1/64 of its bands",
          swapped(k45, conv3x3_bf16_wgrad=k5_drops_tiles)),
         ("K6 sums 0.5% high", swapped(k6, pair_sums=k6_sums_high)),
@@ -730,6 +795,12 @@ def train_phases(dev, card, time_ms):
     k5 = {"ms": 0.0, "device": 0.0, "library": 0.0, "library_device": 0.0,
           "bound": 0.0, "bytes": 0.0, "device17": 0.0,
           "library_device17": 0.0}
+    # K4's: device time per call beside event time, and the WMMA body at
+    # the same calls (the default step's six; all 17 convs' fwd and dgrad)
+    k4 = {"ms": 0.0, "device": 0.0, "library": 0.0, "library_device": 0.0,
+          "bound": 0.0, "wmma": 0.0, "wmma_device": 0.0, "device17": 0.0,
+          "wmma_device17": 0.0, "library_device17": 0.0}
+    k4_plans = []
 
     def add(k, main, ms, pms, lms, work, peak):
         b_ms, b_by = bound(*work, peak)
@@ -782,6 +853,37 @@ def train_phases(dev, card, time_ms):
                       f"library {lms:.4f}, bound {b_ms:.4f} ({b_by})"
                       f"{' [main path]' if main else ''}", flush=True)
                 if label != "wgrad":
+                    a, wk = (x, w) if label == "fwd" else (dy, wf)
+                    plan = k45.fwd_plan(*a.shape, wk.shape[-1],
+                                        a.data_ptr() % 16 == 0)
+                    wmma = k45.plan_for(*a.shape, wk.shape[-1], "wmma")
+                    dms, dlms = device_ms(fn), device_ms(lib)
+                    wms = time_ms(lambda: k45._launch_fwd(a, wk, wmma), runs)
+                    wdms = device_ms(lambda: k45._launch_fwd(a, wk, wmma))
+                    for key, v in (("device17", dms), ("wmma_device17", wdms),
+                                   ("library_device17", dlms)):
+                        k4[key] += v
+                    if main:
+                        for key, v in (("ms", ms), ("device", dms),
+                                       ("library", lms),
+                                       ("library_device", dlms),
+                                       ("bound", b_ms), ("wmma", wms),
+                                       ("wmma_device", wdms)):
+                            k4[key] += v
+                        k4_plans.append({
+                            "call": f"{label} {name}", "body": plan.body,
+                            "tile": [plan.rows, plan.cols],
+                            "co_t": plan.co_t, "stages": plan.stages,
+                            "blocks_per_sm": plan.blocks_per_sm,
+                            "smem": plan.smem})
+                    print(f"time b{nb} {name:11s} {label:5s} K4 "
+                          f"{'[WMMA body] ' if plan.body == 'wmma' else ''}"
+                          f"device {dms:.4f} ms "
+                          f"({ops / dms / 1e9:.1f} TFLOP/s, "
+                          f"{nbytes / dms / 1e6:.0f} GB/s), event {ms:.4f}; "
+                          f"the WMMA body device {wdms:.4f}, event {wms:.4f}; "
+                          f"library device {dlms:.4f}; plan {plan}",
+                          flush=True)
                     continue
                 dms, dlms = device_ms(fn), device_ms(lib)
                 k5["device17"] += dms
@@ -801,6 +903,18 @@ def train_phases(dev, card, time_ms):
     for k, (ms, lms) in every17.items():
         print(f"time b{nb} {k} over all 17 convs (the mid=deep='kernel' "
               f"step): kernel {ms:.4f} ms, library {lms:.4f} ms")
+    print(f"time b{nb} K4 summed over the default step's six calls: event "
+          f"{k4['ms']:.4f} ms, device {k4['device']:.4f} ms; library "
+          f"(F.conv2d + conv2d_input) event {k4['library']:.4f}, device "
+          f"{k4['library_device']:.4f}; the WMMA body event {k4['wmma']:.4f}, "
+          f"device {k4['wmma_device']:.4f}; bound {k4['bound']:.4f} ms; "
+          f"event time {k4['ms'] / k4['library']:.3f}x the library's, "
+          f"device time at {100 * k4['bound'] / k4['device']:.1f}% of the "
+          f"bound's rate", flush=True)
+    print(f"time b{nb} K4 over all 17 convs (fwd and dgrad), device: the "
+          f"planned bodies {k4['device17']:.4f} ms, the WMMA body "
+          f"{k4['wmma_device17']:.4f} ms, the library "
+          f"{k4['library_device17']:.4f} ms")
     print(f"time b{nb} K5 over all 17 convs, device: kernel "
           f"{k5['device17']:.4f} ms, conv2d_weight {k5['library_device17']:.4f}"
           f" ms")
@@ -871,12 +985,13 @@ def train_phases(dev, card, time_ms):
         step(state, x8, y8)
     profile_breakdown(lambda: step(state, x8, y8), 3,
                       f"default steps at batch {TRAIN_BATCH}",
-                      {"K4 conv3x3_bf16": "conv3x3_bf16_fwd",
+                      {"K4 conv3x3_bf16": ("conv3x3_bf16_fwd",
+                                           "conv3x3_bf16_mma"),
                        "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
                        "K6 bn_pair_sums": "pair_sums"})
     del state, step
 
-    return [{
+    out = [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": "; ".join(REPLACES[k]), "launches": launches[k],
         "max_abs_err": max_err[k], "ms": rows[k]["ms"],
@@ -886,6 +1001,8 @@ def train_phases(dev, card, time_ms):
                      >= rows[k]["bytes"] else "bytes"),
         "library_ms": rows[k]["library_ms"],
     } for k in names]
+    out[0].update(device_ms=k4["device"], plan=k4_plans)
+    return out
 
 
 def k9_within_ulp(dx, exact):
@@ -1137,7 +1254,8 @@ def fused_loss_phases(dev, card, time_ms):
     profile_breakdown(warm_step(True), 3, f"fused-loss steps at batch {nb}",
                       {"K8 dice_ce_stats": "dice_ce_stats",
                        "K9 dice_ce_bwd": "dice_ce_bwd",
-                       "K4 conv3x3_bf16": "conv3x3_bf16_fwd",
+                       "K4 conv3x3_bf16": ("conv3x3_bf16_fwd",
+                                           "conv3x3_bf16_mma"),
                        "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
                        "K6 bn_pair_sums": "pair_sums"})
     del step, xs, ys

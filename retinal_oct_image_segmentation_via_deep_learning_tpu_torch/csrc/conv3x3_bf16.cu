@@ -6,10 +6,44 @@
 //   y[n,h,w,co] = bf16_rn( sum_{ky,kx,ci} x[n,h+ky-1,w+kx-1,ci] * w[ky,kx,ci,co] )
 // (zero outside the image). The dgrad is the same kernel on dy with the
 // weights rotated 180 degrees and transposed (ops/conv_bf16.py:flip_w).
-// K4 stages an 8x16-pixel output tile's input rows plus halo (16 input
-// channels at a time) and the matching weight slice in shared memory, and
-// each warp runs one 16-pixel row of the tile through WMMA 16x16x16 for the
-// nine taps.
+//
+// What bounds K4 on the card: at the default train step's six 512^2 calls
+// (cin 32 or 64, cout 32 or 64, batch 8) the bytes: 144-192 operations a
+// byte moved, under the ~295 bf16 operations a byte at which the tensor
+// cores become the limit (0.0801-0.1202 ms a call at 3.35 TB/s).
+//
+// K4 has two bodies; ops/conv_bf16.py:fwd_plan chooses one per call.
+// - conv3x3_bf16_mma (cin % 16 == 0, cout % 8 == 0, 16-byte aligned
+//   pointers): K7's implicit GEMM (csrc/conv7x3_int8.cu:conv7x3_mma) with
+//   KH = 3 on mma.sync m16n8k16 bf16 -> fp32. A K chunk of 16 input
+//   channels is 32 bytes a pixel, K7's chunk, and the bf16 m16n8k16
+//   fragments sit in the registers byte for byte as K7's s8 m16n8k32 ones
+//   (A: a0 row g, bytes 4t..4t+3, a1 row g+8, a2/a3 16 bytes on; B: b0
+//   column g, bytes 4t..4t+3, b1 16 bytes on; C: c0/c1 row g, columns 2t,
+//   2t+1, c2/c3 row g+8), so K7's loader, ring, swizzle and ldmatrix
+//   addresses carry over unchanged. M = a 32 x 16 output tile (8 warps x 4
+//   m16 tiles), N = 32 (or 64) output channels a block, K = 9 taps x the
+//   chunks. A warp reads each of its 6 halo rows once a kx for all three
+//   ky (18 A ldmatrix a chunk, not 36). Chunk j's (32+2) x 18 halo and its
+//   9 x N weight rows arrive by cp.async 16-byte copies, zero-filled
+//   outside the image by source size, into a ring of 2-3 slots.
+//   A tile has only 2-4 chunks, too few for the ring to hide the first
+//   chunk's copy; the overlap comes from a second resident block: at
+//   N = 32 the 64 fp32 accumulators a thread let two blocks share an SM,
+//   so one multiplies while the other copies or stores. Three slots put a
+//   tile's first two chunks in flight from its start. (A persistent grid
+//   whose two-slot ring ran across tiles, with the epilogue's tile apart,
+//   was slower on the card: PERF.md section 6.) The epilogue
+//   rounds each sum once to bf16 into a 32 x 16 x N tile in shared memory
+//   that reuses the ring (rows padded by 16 bytes: conflict-free 4-byte
+//   writes) and stores it as 16-byte chunks, neighbouring threads on
+//   neighbouring addresses.
+// - conv3x3_bf16_fwd_kernel (every other call: odd channel counts,
+//   misaligned inputs): an 8x16-pixel output tile's input rows plus halo
+//   (16 input channels at a time) and the matching weight slice staged in
+//   shared memory, each warp one 16-pixel row of the tile through WMMA
+//   16x16x16 for the nine taps.
+// With no atomics, a repeated call gives the same bits.
 //
 // K5 replaces ops/pallas_conv_bf16.py:_conv_wgrad_pallas and the band fold
 // after it: it writes the (3, 3, cin, cout) fp32 weight gradient directly,
@@ -461,6 +495,230 @@ int launch_wgrad_ring(dim3 grid, cudaStream_t s, const bf16* x,
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- K4, mma.sync
+constexpr int MW = 4;                  // tile rows (m16 tiles) a warp
+constexpr int M_WARPS = 8;
+constexpr int M_THREADS = 32 * M_WARPS;  // 256
+constexpr int ROWS = M_WARPS * MW;     // output tile rows
+constexpr int COLS = 16;               // output tile columns: one m16 tile
+constexpr int HALO_W = COLS + 2;       // halo columns
+constexpr int HR = ROWS + 2;           // halo rows
+constexpr int KCH = 32;                // bytes of K a chunk: 16 bf16 channels
+constexpr int PITCH = HALO_W * KCH;    // bytes a halo row of one chunk
+constexpr int HALO = HR * PITCH;       // bytes of one chunk's halo
+
+// Four 8x8 b16 matrices (8 rows of 16 bytes each); lane l gives the row
+// address of matrix l / 8, row l % 8, and receives 4 bytes of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+        : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate; not
+// volatile (as K7's mma_s8), so the compiler may schedule the products
+// among the ldmatrix reads.
+__device__ __forceinline__ void mma_bf16_sched(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte unit u (0 or 1) of 32-byte row p within a run of
+// rows: the unit index 2p + u with its low bit XORed with bit 2 of p, so
+// that 8 consecutive rows at one u fill 8 different bank groups.
+__device__ __forceinline__ uint32_t swz(int p, int u) {
+    return static_cast<uint32_t>((2 * p + u) ^ ((p >> 2) & 1)) * 16u;
+}
+
+// The products of one K chunk (the 3 x 3 taps) for a warp's M tile rows.
+// For each kx: the B fragments of the taps (0..2, kx) (ldmatrix from each
+// tap's N x 32 bytes at b_base), then each of the M + 2 halo rows r that
+// the tile rows read at that kx (ldmatrix at a_rows + r * RP + a_col[kx]),
+// multiplied into every tile row m = r - ky it serves: a halo row is read
+// once for up to three taps.
+template <int M, int NT, int RP>
+__device__ __forceinline__ void mma_chunk(float (&acc)[M][NT][4],
+                                          uint32_t a_rows,
+                                          const uint32_t (&a_col)[3],
+                                          uint32_t b_base,
+                                          const uint32_t (&b_off)[NT / 2]) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+        uint32_t b[3][NT][2];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+            const uint32_t bt = b_base + (ky * 3 + kx) * NT * 8 * KCH;
+#pragma unroll
+            for (int j = 0; j < NT / 2; ++j) {
+                uint32_t r[4];
+                ldmatrix_x4(r, bt + b_off[j]);
+                b[ky][2 * j][0] = r[0];
+                b[ky][2 * j][1] = r[1];
+                b[ky][2 * j + 1][0] = r[2];
+                b[ky][2 * j + 1][1] = r[3];
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < M + 2; ++r) {
+            uint32_t a[4];
+            ldmatrix_x4(a, a_rows + r * RP + a_col[kx]);
+#pragma unroll
+            for (int ky = 0; ky < 3; ++ky) {
+                const int m = r - ky;
+                if (m < 0 || m >= M) continue;
+#pragma unroll
+                for (int t = 0; t < NT; ++t)
+                    mma_bf16_sched(acc[m][t], a, b[ky][t][0], b[ky][t][1]);
+            }
+        }
+    }
+}
+
+// This lane's ldmatrix offsets: A rows are 16 pixels of a tile row (matrix
+// l/8: pixels 0-7 | 8-15, bytes 0-15 | 16-31), shifted by kx; B rows are
+// output channels (matrices: channels 16j + 0-7, units 0 | 1, then 16j +
+// 8-15).
+template <int NT>
+__device__ __forceinline__ void lane_offsets(int lane, uint32_t (&a_col)[3],
+                                             uint32_t (&b_off)[NT / 2]) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+        a_col[kx] = swz(kx + (lane & 7) + 8 * ((lane >> 3) & 1), lane >> 4);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+        b_off[j] = swz(16 * j + (lane & 7) + 8 * (lane >> 4), (lane >> 3) & 1);
+}
+
+// Round the accumulators once to bf16 into the tile os (ROWS x COLS
+// pixels, rows of 2N + 16 bytes), then write y from it in 16-byte chunks
+// (8 channels; cout % 8 == 0).
+template <int NT>
+__device__ __forceinline__ void epilogue(const float (&acc)[MW][NT][4],
+                                         uint8_t* os, bf16* __restrict__ y,
+                                         int n, int H, int W, int y0, int x0,
+                                         int co0, int cout) {
+    constexpr int N_T = NT * 8, OP = 2 * N_T + 16, UPP = N_T / 8;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+        const int c = 8 * t + 2 * (lane & 3);
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int px = (warp * MW + m) * COLS + (lane >> 2) + 8 * h;
+                *reinterpret_cast<__nv_bfloat162*>(os + px * OP + 2 * c) =
+                    __halves2bfloat162(__float2bfloat16_rn(acc[m][t][2 * h]),
+                                       __float2bfloat16_rn(acc[m][t][2 * h + 1]));
+            }
+    }
+    __syncthreads();
+    for (int e = tid; e < ROWS * COLS * UPP; e += M_THREADS) {
+        const int px = e / UPP, u = e - px * UPP;
+        const int oy = y0 + px / COLS, ox = x0 + px % COLS, co = co0 + 8 * u;
+        if (oy < H && ox < W && co < cout)
+            *reinterpret_cast<uint4*>(y + (((size_t)n * H + oy) * W + ox) * cout + co) =
+                *reinterpret_cast<const uint4*>(os + px * OP + 16 * u);
+    }
+}
+
+// K4, mma.sync body: grid (tiles * n_co, N), the channel tile fastest (so
+// the blocks of one tile's channel tiles run side by side and the second
+// read of its input comes from L2), M_THREADS threads, dynamic shared
+// memory of `stages` ring slots (halo chunk, then weights); the
+// epilogue's tile reuses the ring. w: (nk, 9, coutp, 16) bf16.
+template <int NT>
+__global__ void __launch_bounds__(M_THREADS, NT == 4 ? 2 : 1) conv3x3_bf16_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ w,
+    bf16* __restrict__ y, int H, int W, int cin, int cout, int coutp, int nk,
+    int stages, int tiles_x, int n_co) {
+    constexpr int N_T = NT * 8, STAGE = HALO + 9 * N_T * KCH;
+    extern __shared__ __align__(128) uint8_t k4_smem[];
+    const uint32_t base = smem_addr(k4_smem);
+
+    const int n = blockIdx.y, tile = blockIdx.x / n_co;
+    const int co0 = (blockIdx.x - tile * n_co) * N_T;
+    const int ty0 = (tile / tiles_x) * ROWS;  // the tile's origin
+    const int tx0 = (tile % tiles_x) * COLS;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    uint32_t a_col[3], b_off[NT / 2];
+    lane_offsets<NT>(lane, a_col, b_off);
+
+    float acc[MW][NT][4];
+#pragma unroll
+    for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][t][e] = 0.0f;
+
+    // copy group j: chunk j's halo (pixel rows y0-1.., columns x0-1..) and
+    // weights into ring slot j % stages
+    auto issue = [&](int j) {
+        if (j < nk) {
+            const uint32_t off = (j % stages) * STAGE;
+            for (int e = tid; e < HR * HALO_W * 2; e += M_THREADS) {
+                const int u = e & 1, p = e >> 1;
+                const int hr = p / HALO_W, hc = p - hr * HALO_W;
+                const int iy = ty0 - 1 + hr, ix = tx0 - 1 + hc;
+                const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
+                const size_t pix = in ? ((size_t)n * H + iy) * W + ix : 0;
+                cp_async16(base + off + hr * PITCH + swz(hc, u),
+                           in ? x + pix * cin + 16 * j + 8 * u : x, in);
+            }
+            const bf16* wj = w + (size_t)j * 9 * coutp * 16;
+            for (int e = tid; e < 9 * N_T * 2; e += M_THREADS) {
+                const int u = e & 1, r = e >> 1;
+                const int tap = r / N_T, co = r - tap * N_T;
+                cp_async16(base + off + HALO + tap * N_T * KCH + swz(co, u),
+                           wj + ((size_t)tap * coutp + co0 + co) * 16 + 8 * u,
+                           true);
+            }
+        }
+        cp_async_commit();
+    };
+
+    for (int s = 0; s < stages - 1; ++s) issue(s);
+    for (int j = 0; j < nk; ++j) {
+        if (stages == 3) cp_async_wait<1>();  // this thread's group j landed
+        else cp_async_wait<0>();
+        __syncthreads();        // everyone's has; chunk j-1's products done
+        issue(j + stages - 1);  // into the slot chunk j-1 freed
+        const uint32_t slot = base + (j % stages) * STAGE;
+        mma_chunk<MW, NT, PITCH>(acc, slot + warp * MW * PITCH, a_col,
+                                 slot + HALO, b_off);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the epilogue's tile reuses the ring
+    epilogue<NT>(acc, k4_smem, y, n, H, W, ty0, tx0, co0, cout);
+}
+
+// Dynamic shared memory of one mma.sync block (ops/conv_bf16.py:mma_smem).
+int mma_smem_bytes(int co_t, int stages) {
+    const int ring = stages * (HALO + 9 * co_t * KCH);
+    const int out = ROWS * COLS * (2 * co_t + 16);
+    return ring > out ? ring : out;  // the tile reuses the ring
+}
+
+template <int NT>
+int launch_mma(const bf16* x, const bf16* w, bf16* y, int N, int H, int W,
+               int cin, int cout, int coutp, int nk, int stages, int smem,
+               cudaStream_t s) {
+    const int tiles_x = (W + COLS - 1) / COLS, tiles_y = (H + ROWS - 1) / ROWS;
+    const int n_co = coutp / (NT * 8);
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_bf16_mma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_bf16_mma<NT><<<dim3(tiles_x * tiles_y * n_co, N), M_THREADS, smem, s>>>(
+        x, w, y, H, W, cin, cout, coutp, nk, stages, tiles_x, n_co);
+    return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
@@ -481,6 +739,37 @@ extern "C" int octseg_conv3x3_bf16(const void* x, const void* w, void* y,
     else
         conv3x3_bf16_fwd_kernel<false><<<grid, FWD_THREADS, 0, s>>>(xp, wp, yp, H, W, cin, cout, tiles_x);
     return static_cast<int>(cudaGetLastError());
+}
+
+// K4's mma.sync body. x: (N, H, W, cin) bf16, cin % 16 == 0; w: (nk, 9,
+// coutp, 16) bf16 (ops/conv_bf16.py:pack_conv3x3_bf16_weights); y: (N, H,
+// W, cout) bf16, cout % 8 == 0; all contiguous and 16-byte aligned. The
+// plan (ops/conv_bf16.py:fwd_plan) gives co_t (32 or 64 output channels a
+// block), nk = cin / 16, stages (2 or 3 ring slots) and smem (dynamic
+// shared memory bytes). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the plan would not give.
+extern "C" int octseg_conv3x3_bf16_mma(const void* x, const void* w, void* y,
+                                       int N, int H, int W, int cin, int cout,
+                                       int coutp, int co_t, int nk, int stages,
+                                       int smem, void* stream) {
+    const long long blocks = (long long)((H + ROWS - 1) / ROWS) *
+                             ((W + COLS - 1) / COLS) *
+                             (co_t > 0 ? coutp / co_t : 0);
+    const bool bad =
+        N < 1 || N > 65535 || H < 1 || W < 1 || cin < 16 || cin % 16 != 0 ||
+        nk != cin / 16 || cout < 1 || cout % 8 != 0 ||
+        (co_t != 32 && co_t != 64) || coutp % co_t != 0 || coutp < cout ||
+        coutp - cout >= co_t || (stages != 2 && stages != 3) ||
+        blocks > 0x7fffffffLL || !aligned16(x) || !aligned16(w) ||
+        !aligned16(y) || smem != mma_smem_bytes(co_t, stages);
+    if (bad) return static_cast<int>(cudaErrorInvalidValue);
+    auto s = static_cast<cudaStream_t>(stream);
+    auto xp = static_cast<const bf16*>(x);
+    auto wp = static_cast<const bf16*>(w);
+    auto yp = static_cast<bf16*>(y);
+    if (co_t == 64)
+        return launch_mma<8>(xp, wp, yp, N, H, W, cin, cout, coutp, nk, stages, smem, s);
+    return launch_mma<4>(xp, wp, yp, N, H, W, cin, cout, coutp, nk, stages, smem, s);
 }
 
 // K5. x: (N, H, W, cin) bf16, dy: (N, H, W, cout) bf16, both 16-byte

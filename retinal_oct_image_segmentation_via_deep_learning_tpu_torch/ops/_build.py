@@ -41,6 +41,7 @@ SIGNATURES = {
                           _I, _I, _P],
     "octseg_head_argmax": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     "octseg_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "octseg_conv3x3_bf16_mma": [_P, _P, _P] + [_I] * 10 + [_P],
     "octseg_conv3x3_bf16_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _P],
     "octseg_bn_pair_sums": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P],

@@ -14,7 +14,10 @@ gradient directly, which is the function the band fold computed.
 
 Each wrapper runs its CUDA kernel (``csrc/conv3x3_bf16.cu``) for a CUDA
 tensor and its plain PyTorch version (``*_reference``) only for a CPU
-tensor. The plain versions compute in float64 and round as the kernels do:
+tensor. K4 has two bodies: ``fwd_plan`` puts a call on the ``mma.sync``
+implicit GEMM where its channels and pointers allow, with the weights
+packed per call (``pack_conv3x3_bf16_weights``), and on the WMMA body
+otherwise. The plain versions compute in float64 and round as the kernels do:
 to float32 (the accumulator), then, for K4, to bf16. Where every fp32
 partial sum is exact (small integer inputs) kernel and plain version are
 bit-equal; on random data K4 may differ by one bf16 ulp on a few elements.
@@ -36,6 +39,15 @@ from .conv_int8 import _check, _round_up, _stream
 # 132 SMs, two K5 blocks each)
 _CO_T, _TWK_MAX, _R_MAX = 32, 128, 64
 _SMS, _BLOCKS_PER_SM = 132, 2
+# K4's mma.sync body (csrc/conv3x3_bf16.cu:conv3x3_bf16_mma): an output
+# tile of ROWS x COLS pixels for 256 threads (8 warps, 4 tile rows = 4
+# m16 tiles each), K chunks of KCHUNK input channels (32 bytes a pixel, the
+# MMA's k), 32 or 64 output channels a block; the WMMA body's tile and
+# static shared memory; an H100 SM's shared memory, of which each resident
+# block takes 1 KB more than it asks for
+ROWS, COLS, KCHUNK = 32, 16, 16
+_WMMA_ROWS, _WMMA_SMEM = 8, 31360
+SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
 
 
 def flip_w(w: torch.Tensor) -> torch.Tensor:
@@ -86,9 +98,149 @@ def _check_bf16(t: torch.Tensor, ndim: int, what: str,
     _check(t.is_contiguous(), f"{what}: not contiguous")
 
 
+def pack_conv3x3_bf16_weights(w: torch.Tensor, co_t: int = 32) -> torch.Tensor:
+    """(3, 3, cin, cout) bf16 -> the mma.sync body's weights, (nk, 9,
+    coutp, 16) with [j, t, co, b] = w[t // 3, t % 3, 16j + b, co]: K
+    contiguous per output channel (the MMA's B operand, 32 bytes a row),
+    zero-padded to nk = ceil(cin / 16) chunks and coutp = cout rounded up
+    to ``co_t``."""
+    _, _, cin, cout = w.shape
+    nk, coutp = -(-cin // KCHUNK), _round_up(cout, co_t)
+    dense = w.reshape(9, cin, cout)
+    if (nk * KCHUNK, coutp) != (cin, cout):
+        dense = F.pad(dense, (0, coutp - cout, 0, nk * KCHUNK - cin))
+    return dense.reshape(9, nk, KCHUNK, coutp).permute(1, 0, 3, 2) \
+        .contiguous()
+
+
+def unpack_conv3x3_bf16_weights(wk: torch.Tensor, cin: int,
+                                cout: int) -> torch.Tensor:
+    """Inverse of ``pack_conv3x3_bf16_weights``: (3, 3, cin, cout)."""
+    nk, taps, coutp, kc = wk.shape
+    dense = wk.permute(1, 0, 3, 2).reshape(taps, nk * kc, coutp)
+    return dense[:, :cin, :cout].reshape(3, 3, cin, cout)
+
+
+class FwdPlan(NamedTuple):
+    """K4's launch for one call (``fwd_plan``). The output is cut into
+    units of ``rows`` x ``cols`` pixels by ``co_t`` output channels, one
+    block a unit, numbered u = ((n * tiles_y + ty) * tiles_x + tx) * n_co
+    + channel tile: the grid is (tiles of an image x n_co, N) with the
+    channel tile fastest, so the blocks of one tile's channel tiles run
+    side by side and the second read of its input comes from L2. ``body``
+    "mma": the K chunks of 16 input channels pass through a ring of
+    ``stages`` shared-memory slots, ``smem`` bytes of dynamic shared memory
+    a block, ``blocks_per_sm`` resident blocks (the kernel's
+    ``__launch_bounds__``). "wmma": the WMMA body, 8 x 16 tiles, ``smem``
+    bytes of static shared memory."""
+
+    N: int
+    H: int
+    W: int
+    cin: int
+    cout: int
+    body: str
+    rows: int
+    cols: int
+    co_t: int
+    coutp: int
+    nk: int
+    stages: int
+    blocks_per_sm: int
+    smem: int
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.H // self.rows)
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.W // self.cols)
+
+    @property
+    def n_co(self) -> int:
+        return self.coutp // self.co_t
+
+    @property
+    def units(self) -> int:
+        return self.N * self.tiles_y * self.tiles_x * self.n_co
+
+
+def mma_smem(co_t: int, stages: int) -> int:
+    """Dynamic shared memory of one mma.sync block (the C side computes
+    the same): ``stages`` slots of a (ROWS+2) x (COLS+2) halo chunk and
+    the chunk's 9 x co_t weight rows, 32 bytes each; the epilogue's bf16
+    tile (rows of co_t channels + 16 bytes) reuses the ring."""
+    ring = stages * ((ROWS + 2) * (COLS + 2) + 9 * co_t) * 2 * KCHUNK
+    return max(ring, ROWS * COLS * (2 * co_t + 16))
+
+
+def plan_for(N: int, H: int, W: int, cin: int, cout: int, body: str,
+             co_t: int = 32) -> FwdPlan:
+    """The plan of one body, admitted or not (``fwd_plan`` chooses). The
+    mma.sync body: three ring slots where there are two chunks or more
+    (a tile's first two chunks in flight from its start), two blocks an
+    SM at co_t 32 (2 x 86,400 bytes of shared memory, and the 1 KB each
+    block reserves, fit an SM's 228 KB), one at co_t 64."""
+    nk = -(-cin // KCHUNK)
+    if body == "wmma":
+        return FwdPlan(N, H, W, cin, cout, "wmma", _WMMA_ROWS, COLS, 32,
+                       _round_up(cout, 32), nk, 1, 1, _WMMA_SMEM)
+    stages = 3 if nk >= 2 else 2
+    return FwdPlan(N, H, W, cin, cout, "mma", ROWS, COLS, co_t,
+                   _round_up(cout, co_t), nk, stages, 2 if co_t == 32 else 1,
+                   mma_smem(co_t, stages))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(N: int, H: int, W: int, cin: int, cout: int,
+             aligned: bool = True) -> FwdPlan:
+    """K4's plan for x (N, H, W, cin) and cout outputs. ``aligned``: x is
+    16-byte aligned (the weights and y are fresh tensors). The mma.sync
+    body takes the call when cin % 16 == 0 (whole 32-byte K chunks, copied
+    16 bytes at a time), cout % 8 == 0 (16-byte stores) and x is aligned,
+    with 32 output channels a block; every other call stays on the WMMA
+    body. At all 17 convs of the U-Net, forward and dgrad, the mma.sync
+    body was 4-5x faster than WMMA on the card (``k4_probe.py``, PERF.md
+    section 6), so the plan admits them all.
+
+    Overlap: a tile has only 2-4 K chunks x 9 taps, too short a loop for a
+    ring inside one block to hide its first chunk's copy. It comes from a
+    second resident block: at 32 output channels a block the fp32
+    accumulators are 64 registers a thread, so two 256-thread blocks share
+    an SM (``__launch_bounds__(256, 2)``), and while one waits for its
+    copies or stores its tile the other multiplies. (A persistent grid
+    whose ring ran across tiles was slower: PERF.md section 6.)"""
+    if cin % KCHUNK == 0 and cout % 8 == 0 and aligned:
+        return plan_for(N, H, W, cin, cout, "mma")
+    return plan_for(N, H, W, cin, cout, "wmma")
+
+
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor,
+                plan: FwdPlan) -> torch.Tensor:
+    """One launch of K4's body ``plan.body`` on checked CUDA tensors."""
+    N, H, W, cin = x.shape
+    cout = w.shape[-1]
+    y = torch.empty((N, H, W, cout), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        if plan.body == "mma":
+            wk = pack_conv3x3_bf16_weights(w, plan.co_t)
+            err = _build.lib().octseg_conv3x3_bf16_mma(
+                x.data_ptr(), wk.data_ptr(), y.data_ptr(), N, H, W, cin, cout,
+                plan.coutp, plan.co_t, plan.nk, plan.stages, plan.smem,
+                _stream(x))
+        else:
+            err = _build.lib().octseg_conv3x3_bf16(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, cin, cout,
+                _stream(x))
+    _build.check(err, f"conv3x3_bf16 ({plan.body})")
+    return y
+
+
 def conv3x3_bf16_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K4: (N, H, W, cin) bf16 * (3, 3, cin, cout) bf16 -> (N, H, W, cout)
-    bf16. Forward, and the dgrad on ``flip_w`` weights."""
+    bf16. Forward, and the dgrad on ``flip_w`` weights. The body is
+    ``fwd_plan``'s."""
     if x.device.type == "cpu":
         return conv3x3_bf16_reference(x, w)
     dev = x.device
@@ -99,12 +251,7 @@ def conv3x3_bf16_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     cout = w.shape[-1]
     _check(tuple(w.shape) == (3, 3, cin, cout),
            f"conv3x3_bf16: weights {tuple(w.shape)} for input {tuple(x.shape)}")
-    y = torch.empty((N, H, W, cout), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.lib().octseg_conv3x3_bf16(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, cin, cout,
-            _stream(x))
-    _build.check(err, "conv3x3_bf16")
+    y = _launch_fwd(x, w, fwd_plan(N, H, W, cin, cout, x.data_ptr() % 16 == 0))
     conv3x3_bf16_fwd.launches += 1
     return y
 

@@ -158,6 +158,10 @@ CONV_SHAPES = [
     (1, 70, 24, 32, 32),   # bands of 8 rows, the last one of 6
     (2, 9, 200, 16, 32),   # column tiles of 128, the last one of 72
     (1, 10, 160, 64, 32),  # cin 64 -> cout 32 wider than a column tile
+    # K4's mma.sync body (ops/conv_bf16.py:fwd_plan): partial 32 x 16
+    # tiles at 32 and 64 outputs (two channel tiles)
+    (1, 40, 48, 64, 32),
+    (1, 40, 48, 32, 64),
 ]
 
 
@@ -197,6 +201,21 @@ def test_k4_k5_on_random_data(dev, n, h, w, cin, cout):
     want = k45.conv3x3_bf16_wgrad_reference(x, dy)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 64, 48, 32, 32),
+                                             (1, 40, 48, 32, 64)])
+def test_k4_repeats_bit_for_bit(dev, n, h, w, cin, cout):
+    """K4's mma.sync body sums without atomics: two calls on the same
+    random inputs give the same bits."""
+    assert k45.fwd_plan(n, h, w, cin, cout).body == "mma"
+    rng = np.random.default_rng(7)
+    x = _bf16(rng, (n, h, w, cin), dev, integers=False)
+    wt = _bf16(rng, (3, 3, cin, cout), dev, integers=False)
+    first = k45.conv3x3_bf16_fwd(x, wt)
+    second = k45.conv3x3_bf16_fwd(x, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_conv3x3_bf16_autograd_launches(dev):
