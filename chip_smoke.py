@@ -11,7 +11,9 @@ Phases (any failure raises; the exit code is then non-zero):
 1. device: card name and power limit, versions, compute capability 9.0,
    and the build of the CUDA kernels from ``csrc/``;
 2. kernels: every stage of the served graph (f=32, 512x512, batch 2) on
-   its kernel and on the kernel's plain PyTorch version, bit for bit;
+   its kernel and on the kernel's plain PyTorch version, bit for bit; K1's
+   plan at each stage (the 17 non-stem stages must be on its mma.sync
+   body);
 3. graph: the U-Net (f=32, 10 classes, seeded random weights), folded,
    calibrated and quantized; labels of the kernel graph identical to the
    plain graph's at batch 8, and agreeing with the all-int8 oracle
@@ -19,8 +21,11 @@ Phases (any failure raises; the exit code is then non-zero):
 4. serve: the ServingLoop and HTTP server built as the CLI builds them,
    12 requests from 3 client threads; every response equals the direct
    forward, and every forward launched K1 18 times, K2 4 times, K3 once;
-5. times on the card (CUDA events): each kernel against its plain version
-   at batch 32, the served forward at batch 32 and 128, serve latency;
+5. times on the card (CUDA events; K1 also device time): each kernel
+   against its plain version at batch 32, K1's 17 non-stem stages also
+   against its dp4a body through that body's own entry point (bit-equal),
+   the served forward at batch 32 and 128 with a profile at 32, serve
+   latency;
 6. training kernels: K4 (forward and dgrad) and K5 at the 17 non-stem 3x3
    conv shapes of the f=32 U-Net at 512x512, batch 8 (the train step's),
    on integer inputs, bit-equal to the plain versions; K6 in both modes at
@@ -1548,26 +1553,40 @@ def relaynet_phases(dev, card, time_ms, http_post):
 def device_ms(fn, runs=20):
     """Device time per call of ``fn``, summed over the kernels it launches
     (``torch.profiler``): the event timings of a kernel of tens of
-    microseconds carry its launch."""
+    microseconds carry its launch. Three windows of ``runs`` / 2 calls.
+    On the card the profiler drops kernel events, more of them the longer
+    the process has run (late in this script, half a window's events or
+    more), and the events it keeps carry their full durations. So each
+    kernel's time is the mean of its recorded events times its launches a
+    call: the most it recorded in one window over the calls, rounded up
+    (every kernel here launches a whole number of times a call)."""
+    import math
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _attempt in range(3):  # a trace can come back without device events
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
+    n = max(1, runs // 2)
+    kernels = {}  # name -> [recorded us, recorded events, most in a window]
+    for _window in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / runs / 1e3
-    return float("nan")
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or not e.count:
+                continue
+            k = kernels.setdefault(e.key, [0.0, 0, 0])
+            k[0] += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+            k[1] += e.count
+            k[2] = max(k[2], e.count)
+    if not kernels:
+        return float("nan")
+    return sum(us / count * math.ceil(most / n)
+               for us, count, most in kernels.values()) / 1e3
 
 
 def stem_work(h, c1, cout, n):
@@ -1853,7 +1872,7 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
     def two_launches():
         mid = k12.conv3x3_int8((xq,), l0["w_k"], l0["scale"], l0["bias"])
         return k12.conv3x3_int8((mid,), l1["w_k"], l1["scale"], l1["bias"],
-                                pool=True)
+                                pool=True, w_mma=l1["w_m"])
 
     with torch.inference_mode():
         rows = {}
@@ -2472,7 +2491,7 @@ def int4_phases(dev, card, time_ms, model, calib):
             four = -7 in (lw["knobs"]["pad_vals"] or ())
             xs = tuple(i8((n, h, h, c), *((-7, 8) if four else ()))
                        for c in cins)
-            kw = dict(lw["knobs"], pool=pool)
+            kw = dict(lw["knobs"], pool=pool, w_mma=lw.get("w_m"))
             if head:
                 hd = qp["head"]
                 kw["head"] = (hd["w_k"], hd["scale"], hd["bias"])
@@ -2722,8 +2741,9 @@ def int4_phases(dev, card, time_ms, model, calib):
     # values, and clip 7 against clip 127 on the same +-7 inputs
     for h, c in ((HW // 4, 4 * F), (HW // 8, 8 * F), (HW // 16, 16 * F)):
         xs = {"int8": i8((32, h, h, c)), "w4a4": i8((32, h, h, c), -7, 8)}
-        ws = {"int8": k12.pack_conv3x3_weights(i8((c, c, 3, 3))),
-              "w4a4": k12.pack_conv3x3_weights(i8((c, c, 3, 3), -7, 8))}
+        wq = {"int8": i8((c, c, 3, 3)), "w4a4": i8((c, c, 3, 3), -7, 8)}
+        ws = {k: k12.pack_conv3x3_weights(v) for k, v in wq.items()}
+        wm = {k: k12.pack_conv3x3_mma_weights(v) for k, v in wq.items()}
         sc = torch.full((c,), 1e-4, device=dev)
         bi = torch.zeros(c, device=dev)
         t = {}
@@ -2734,14 +2754,15 @@ def int4_phases(dev, card, time_ms, model, calib):
                                        ("w4a4 clip 127", "w4a4", 127.0)):
                     t.setdefault(label, []).append(device_ms(
                         lambda: k12.conv3x3_int8((xs[v],), ws[v], sc, bi,
-                                                 out_clip=clip)))
+                                                 out_clip=clip,
+                                                 w_mma=wm[v])))
         ops = 2 * 32 * h * h * 9 * c * c
         print(f"time b32 P3 K1 {h}^2 x {c} -> {c} (device, profiler, "
               f"three rounds): " + ", ".join(
                   f"{k} {' / '.join(f'{x:.4f}' for x in v)} ms (median "
                   f"{ops / statistics.median(v) / 1e9:.1f} TOPS)"
                   for k, v in t.items()), flush=True)
-        del xs, ws
+        del xs, ws, wm
     torch.cuda.empty_cache()
     graphs = (("int8", lambda b: unet_psrp_forward(q8, preprocess(b), NC)),
               ("w4a4", lambda b: unet_psrp_forward(qp4, preprocess(b), NC)),
@@ -2859,10 +2880,12 @@ def main() -> int:
         if kernel == "conv3x3_int8":
             h, cins, cout, pool = shape
             xs = tuple(i8((n, h, h, c), 0, 128) for c in cins)
-            w = k12.pack_conv3x3_weights(i8((cout, sum(cins), 3, 3)))
+            wq = i8((cout, sum(cins), 3, 3))
             std = (9 * sum(cins)) ** 0.5 * 64 * 73
             kw = {"relu": True, "pool": pool}
-            args = (xs, w)
+            if sum(cins) > 4:  # packed once, as the graph's w_m
+                kw["w_mma"] = k12.pack_conv3x3_mma_weights(wq)
+            args = (xs, k12.pack_conv3x3_weights(wq))
         elif kernel == "ct2x2_int8":
             h, cin, cout = shape
             args = (i8((n, h, h, cin)),
@@ -2883,10 +2906,42 @@ def main() -> int:
             bias[3] = bias[7] = 10.0  # the all-zero row ties 3 and 7
         return args + (scale, bias), kw
 
+    def as_tuple(t):
+        return t if isinstance(t, tuple) else (t,)
+
+    def k1_plan(args):
+        """The plan K1's wrapper takes for these arguments (no head)."""
+        xs, _, scale, _ = args
+        N, H, W, _ = xs[0].shape
+        return k12.conv3x3_plan(N, H, W, tuple(x.shape[-1] for x in xs),
+                                scale.shape[0], False,
+                                all(x.data_ptr() % 16 == 0 for x in xs))
+
+    def k1_dp4a(args, kw):
+        """One launch of K1's dp4a body through its own C entry point, with
+        the int8 graph's knobs (relu, zero borders, no head)."""
+        xs, w, scale, bias = args
+        x1 = xs[1] if len(xs) > 1 else None
+        N, H, W, cin0 = xs[0].shape
+        cout, pool = scale.shape[0], kw["pool"]
+        y = torch.empty((N, H, W, cout), dtype=torch.int8, device=dev)
+        yp = torch.empty((N, H // 2, W // 2, cout), dtype=torch.int8,
+                         device=dev) if pool else None
+        _build.check(_build.lib().octseg_conv3x3_int8(
+            xs[0].data_ptr(), cin0, x1.data_ptr() if x1 is not None else None,
+            x1.shape[-1] if x1 is not None else 0, w.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            yp.data_ptr() if pool else None, N, H, W, 4 * w.shape[1], cout,
+            w.shape[2], int(kw["relu"]), 0, 0, 127.0, 1.0, 0.0, 127.0, None,
+            None, None, 0, None, torch.cuda.current_stream().cuda_stream),
+            "conv3x3_int8 (dp4a)")
+        return (y, yp) if pool else y
+
     # ------------------------------------------------------------------ 2
     phase("2 kernels vs plain versions (batch 2, every stage)")
     max_err = {k: 0 for k in wrappers}
     bad = 0
+    off_mma = []  # non-stem K1 stages the plan leaves on the dp4a body
     for name, kernel, shape in stages():
         args, kw = stage_args(kernel, shape, 2)
         got = wrappers[kernel](*args, **kw)
@@ -2904,12 +2959,20 @@ def main() -> int:
             extra = f", tie row labels {sorted(set(tie.tolist()))}"
             if not bool((tie == 3).all()):
                 raise RuntimeError("head tie did not go to the lowest class")
+        if kernel == "conv3x3_int8":
+            plan = k1_plan(args)
+            extra = (f", body {plan.body} (N {plan.co_t}, {plan.warps} "
+                     f"warps, stages {plan.stages})")
+            if not name.startswith("stem") and plan.body != "mma":
+                off_mma.append(name)
         print(f"{name:16s} {kernel:13s} {str(shape):28s} outputs "
               f"{[tuple(g.shape) for g in got]} mismatches {mism}{extra}",
               flush=True)
         bad += mism
     if bad:
         raise RuntimeError(f"{bad} kernel outputs differ from plain")
+    if off_mma:
+        raise RuntimeError(f"K1 stages off the mma.sync body: {off_mma}")
 
     # ------------------------------------------------------------------ 3
     phase("3 graph: f=32, 10 classes, 512x512")
@@ -3042,6 +3105,13 @@ def main() -> int:
     totals = {k: [0.0, 0.0] for k in wrappers}
     bounds = {k: {"operations": 0.0, "bytes": 0.0} for k in wrappers}
     by_row = {}  # TPU kernel id -> [stages, kernel ms, plain ms, bound ms]
+    # K1's 17 non-stem stages: the new body (event, device) against the
+    # dp4a body at the same shape (event, device), and the bound
+    k1 = {"ms": 0.0, "dev": 0.0, "dp4a": 0.0, "dp4a_dev": 0.0, "bound": 0.0}
+    k1_rows = {}  # TPU kernel id -> [event ms, device ms]
+    k1_slower = []
+    k1_dev = 0.0  # K1's device time over every stage
+    k1_plans = {}
     for name, kernel, shape in stages():
         args, kw = stage_args(kernel, shape, 32)
         with torch.inference_mode():
@@ -3055,8 +3125,38 @@ def main() -> int:
                                 [0, 0.0, 0.0, 0.0])
         for i, v in enumerate((1, ms, pms, b_ms)):
             row[i] += v
-        print(f"time b32 {name:16s} {kernel:13s} kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+        extra = ""
+        if kernel == "conv3x3_int8":
+            plan = k1_plan(args)
+            with torch.inference_mode():
+                dms = device_ms(lambda: wrappers[kernel](*args, **kw))
+                k1_dev += dms
+                extra = (f" (device {dms:.4f}; body {plan.body}, N "
+                         f"{plan.co_t}, {plan.warps} warps, stages "
+                         f"{plan.stages})")
+                if not name.startswith("stem"):
+                    d_ms = time_ms(lambda: k1_dp4a(args, kw))
+                    d_dms = device_ms(lambda: k1_dp4a(args, kw))
+                    same = all(torch.equal(a, b) for a, b in zip(
+                        as_tuple(k1_dp4a(args, kw)),
+                        as_tuple(wrappers[kernel](*args, **kw))))
+                    if not same:
+                        raise RuntimeError(f"K1's bodies differ at {name}")
+                    for key, v in (("ms", ms), ("dev", dms), ("dp4a", d_ms),
+                                   ("dp4a_dev", d_dms), ("bound", b_ms)):
+                        k1[key] += v
+                    r = k1_rows.setdefault(tpu_row(name, kernel, shape),
+                                           [0.0, 0.0])
+                    r[0] += ms
+                    r[1] += dms
+                    k1_plans[name] = (f"{plan.body} N{plan.co_t} "
+                                      f"w{plan.warps} s{plan.stages}")
+                    if dms >= d_dms:
+                        k1_slower.append(name)
+                    extra += (f", dp4a body {d_ms:.4f} ms (device "
+                              f"{d_dms:.4f}; bit-equal)")
+        print(f"time b32 {name:16s} {kernel:13s} kernel {ms:.4f} ms"
+              f"{extra}, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
               flush=True)
         del args
         torch.cuda.empty_cache()
@@ -3065,8 +3165,18 @@ def main() -> int:
               f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
               f"{sum(bounds[k].values()):.4f} ms {bounds[k]}")
     for row, (n_stages, ms, pms, b_ms) in sorted(by_row.items()):
+        dev_note = (f" (device {k1_rows[row][1]:.4f})" if row in k1_rows
+                    else "")
         print(f"time b32 TPU kernel {row} ({n_stages} launches per forward): "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms")
+              f"kernel {ms:.4f} ms{dev_note}, plain {pms:.4f} ms, bound "
+              f"{b_ms:.4f} ms")
+    print(f"time b32 K1's 17 non-stem stages: mma.sync body {k1['ms']:.4f} "
+          f"ms (device {k1['dev']:.4f}), dp4a body {k1['dp4a']:.4f} ms "
+          f"(device {k1['dp4a_dev']:.4f}), bound {k1['bound']:.4f} ms; "
+          f"device ratio {k1['dev'] / k1['dp4a_dev']:.4f} (must <= 0.25), "
+          f"{100 * k1['bound'] / k1['dev']:.2f}% of the bound's rate; "
+          f"stages not faster than the dp4a body: {k1_slower or 'none'}",
+          flush=True)
     for n in (32, 128):
         xb = torch.tensor(
             np.random.default_rng(n).uniform(0, 255, (n, HW, HW, 1)),
@@ -3076,6 +3186,14 @@ def main() -> int:
             ms = time_ms(lambda: forward(xb))
         print(f"served forward (z-score + graph) batch {n}: {ms:.3f} ms, "
               f"{n / ms * 1e3:.1f} B-scans/s", flush=True)
+        if n == 32:
+            with torch.inference_mode():
+                profile_breakdown(
+                    lambda: forward(xb), 3, f"the served forward, batch {n}",
+                    {"K1 mma.sync body": "conv3x3_int8_mma",
+                     "K1 dp4a body (stem)": "conv3x3_int8_kernel",
+                     "K2 ct2x2_int8": "ct2x2_int8",
+                     "K3 head_argmax": "head_argmax"})
         del xb
         torch.cuda.empty_cache()
     print(f"serve latency, one B-scan per request (HTTP, batch-8 loop): "
@@ -3088,6 +3206,8 @@ def main() -> int:
         "plain_ms": totals[k][1],
         "bound_ms": sum(bounds[k].values()),
         "bound_by": max(bounds[k], key=bounds[k].get),
+        **({"device_ms": k1_dev, "plan": k1_plans}
+           if k == "conv3x3_int8" else {}),
         # no single PyTorch call computes an int8 conv with requant (K1),
         # an int8 transposed conv with requant (K2) or head + argmax on
         # int8 (K3)

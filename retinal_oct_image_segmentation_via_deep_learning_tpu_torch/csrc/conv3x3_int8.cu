@@ -18,38 +18,78 @@
 // at zero point 7). Epilogue, in this order:
 //   v = fmaf(float(acc), scale[co], bias[co]); relu; rint (half-even);
 //   clip to [-out_clip, out_clip]; int8.
-// With a pool output, each thread owns a 2x2 output quad and keeps the
-// float32 max m of its four v (after relu, before rounding); the pooled
-// value is clip(rint(fmaf(m, pool_rescale, pool_shift)), +-pool_clip).
+// With a pool output, the pooled value of each 2x2 window is taken from
+// the float32 max m of its four v (after relu, before rounding):
+// clip(rint(fmaf(m, pool_rescale, pool_shift)), +-pool_clip).
 // With pool_rescale = 1, pool_shift = 0 and pool_clip = out_clip that is
 // the max of the four int8 results (round and clip are monotone); the w4a4
 // mode sets (14/127, -7, 7), so the pooled tensor gets a 4-bit scale of
 // its own while the unpooled output keeps 8 bits.
-// With the head (HEAD), the block writes its requantized 16x16 x cout
-// tile to shared memory instead of device memory, and one thread per pixel
-// then computes z[k] = fmaf(float(sum_c t[c] * wh[k,c]), hscale[k],
+// With the head (HEAD), the block keeps its requantized tile in shared
+// memory instead of writing it to device memory, and then computes for
+// each pixel z[k] = fmaf(float(sum_c t[c] * wh[k,c]), hscale[k],
 // hbias[k]) and the argmax with ties to the lowest class (K3's arithmetic,
-// csrc/head_argmax.cu). Only the labels leave the chip. A tile's channel
-// groups are four different warps, hence the trip through shared memory.
+// csrc/head_argmax.cu). Only the labels leave the chip.
+// int32 sums are exact in any order, so every body gives the same bits.
 //
 // The TPU kernels' dot_int4 knob runs the MXU at its int4 rate. Hopper's
-// wgmma takes s8/u8 operands and no s4, and the card's data sheet lists no
-// int4 rate; the w4a4 operands are +-7 values stored in int8, whose int32
-// dot __dp4a computes exactly, so the 4-bit modes run this same dp4a loop.
+// tensor cores take s8 and no s4 operands through mma.sync and wgmma; the
+// w4a4 operands are +-7 values stored in int8, so the 4-bit modes run the
+// same int8 products.
 //
-// Bound on the card: the __dp4a issue rate (four int8 MACs per instruction
-// on the CUDA cores, well below the tensor cores' int8 rate). The design
-// keeps the dp4a pipe fed from shared memory: a block stages a 18x18-pixel
-// input tile and the matching weight slice per 32-channel chunk, each
-// thread reuses every input word of its 4x4 window across 8 output
-// channels and 9 taps (288 dp4a per 16 input and 18 vector weight loads).
-// wgmma / IMMA tensor-core tiles are the next step.
+// What bounds K1 on an H100 (int8 at 1979 TOPS dense, HBM at 3.35 TB/s):
+// the three 512^2 stages and three of the four 256^2 ones (32-64 channels
+// in) do 256-576 operations a byte moved, under the ~590 at which the
+// tensor cores and not HBM are the limit: they are bound by bytes. The
+// others (blk7_conv0's 128 channels in, and every stage from 128^2 down)
+// are bound by operations.
 //
-// Weights are pre-arranged (ops/conv_int8.py:pack_conv3x3_weights) as int32
-// words (9, cinp/4, coutp): word [t, j, co] holds w[t//3, t%3, 4j..4j+3, co],
-// cinp = cin padded to the chunk width, coutp = cout padded to 32; padding
-// is zero. Head weights (ops/head_argmax.py:pack_head_weights) are int32
-// words (nc, cout/4).
+// K1 has two bodies; ops/conv_int8.py:conv3x3_plan chooses one per call.
+// - conv3x3_int8_mma (every input's channels a multiple of 32, cout a
+//   multiple of 32, 16-byte aligned inputs; with the head cout = 32):
+//   K7's implicit GEMM (csrc/conv7x3_int8.cu:conv7x3_mma) with KH = 3 on
+//   mma.sync m16n8k32 s8 * s8 -> s32. M = the pixels of a 32 x 16 output
+//   tile (8 warps x 4 m16 tiles; 16 x 16 for blocks of 4 warps), N = 32 or
+//   64 output channels a block, K = 9 taps x the chunks of 32 channels of
+//   one input (x0's chunks first). Chunk j's (rows + 2) x 18 halo (32
+//   bytes a pixel) and its 9 x N weight rows arrive by cp.async 16-byte
+//   copies into a ring of 2-3 slots in shared memory; a halo unit outside
+//   the image is filled with 16 bytes of its input's pad value by a
+//   shared-memory store (a chunk lies inside one input, so one value fills
+//   the unit). Each 32-byte row's two 16-byte units are XOR-swizzled by
+//   bit 2 of the pixel (swz), so the 8 rows of every ldmatrix phase fall
+//   in 8 bank groups. A warp reads each of its 6 halo rows once a kx for
+//   all three ky (K4's mma_chunk, csrc/conv3x3_bf16.cu). The 512^2 and
+//   256^2 stages have 1-2 chunks, too few for a ring in one block to hide
+//   the first copy or the epilogue: at N = 32 the 64 int32 accumulators a
+//   thread let two blocks of 8 warps (four of 4 warps at one chunk) share
+//   an SM, and one multiplies while another copies or stores; the deep
+//   stages take N = 64 where cout allows. Epilogue, from the accumulator
+//   fragments: FMA, relu and the clip, rounded by an add (rounded_bits,
+//   not rintf), the int8 result into a rows x 16 x N tile in shared
+//   memory (rows padded by 16 bytes: conflict-free 2-byte writes), which
+//   leaves as 16-byte stores, neighbouring threads on neighbouring
+//   addresses. The pool is taken from the float values in registers: the
+//   C fragment holds pixel (tile row warp*4 + m, column lane/4 + 8h), so
+//   a window's rows are m and m+1 of one thread (m even) and its columns
+//   lanes l and l^4; a register max and one shuffle give its max, and the
+//   pooled int8 tile leaves as 16-byte stores too. The head reads the
+//   int8 tile and the head's weights (in the freed ring) from shared
+//   memory, one thread per pixel.
+// - conv3x3_int8_kernel (the stem, cin <= 4; odd channel counts;
+//   misaligned inputs): the first design, on __dp4a. A block stages an
+//   18 x 18-pixel input tile and the matching weight slice per 32-channel
+//   chunk; each thread reuses every input word of its 4x4 window across 8
+//   output channels and 9 taps (288 dp4a per 16 input and 18 vector
+//   weight loads), and owns a 2x2 output quad (its pool).
+//
+// Weights: the mma.sync body reads ops/conv_int8.py:pack_conv3x3_mma_weights,
+// int8 (nk, 9, cout, 32), byte [j, t, co, b] = w[t/3, t%3, 32j+b, co]. The
+// dp4a body reads pack_conv3x3_weights, int32 words (9, cinp/4, coutp):
+// word [t, j, co] holds w[t//3, t%3, 4j..4j+3, co], cinp = cin padded to
+// the chunk width, coutp = cout padded to 32; padding is zero. Head
+// weights (ops/head_argmax.py:pack_head_weights) are int32 words (nc,
+// cout/4).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -265,6 +305,392 @@ void launch(const int8_t* x0, int cin0, const int8_t* x1, int cin1,
         hscale, hbias, nc, labels, tiles_x);
 }
 
+// ------------------------------------------------------------ mma.sync body
+// A block is WARPS warps (8 or 4) on a tile of WARPS * MW rows by COLS
+// columns; the halo of one chunk is (rows + 2) x HALO_W pixels.
+constexpr int MW = 4;                    // tile rows (m16 tiles) a warp
+constexpr int COLS = 16;                 // output tile columns: one m16 tile
+constexpr int HALO_W = COLS + 2;         // halo columns
+constexpr int KCH = 32;                  // bytes of K a chunk: the MMA's k
+constexpr int PITCH = HALO_W * KCH;      // bytes a halo row of one chunk
+
+__host__ __device__ constexpr int halo_bytes(int warps) { return (warps * MW + 2) * PITCH; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; ok == false reads nothing and
+// writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices (8 rows of 16 bytes each); lane l gives the row
+// address of matrix l / 8, row l % 8, and receives 4 bytes of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+        : "memory");
+}
+
+// d += a (16x32, row) * b (32x8, col), s8 in, s32 accumulate; not
+// volatile, so the compiler may schedule the products among the ldmatrix
+// reads.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+    asm(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset of 16-byte unit u (0 or 1) of 32-byte row p within a run of
+// rows: the unit index 2p + u with its low bit XORed with bit 2 of p, so
+// that 8 consecutive rows at one u fill 8 different bank groups.
+__device__ __forceinline__ uint32_t swz(int p, int u) {
+    return static_cast<uint32_t>((2 * p + u) ^ ((p >> 2) & 1)) * 16u;
+}
+
+// The products of one K chunk (the 3 x 3 taps) for a warp's M tile rows.
+// For each kx: the B fragments of the taps (0..2, kx) (ldmatrix from each
+// tap's N x 32 bytes at b_base), then each of the M + 2 halo rows r that
+// the tile rows read at that kx (ldmatrix at a_rows + r * RP + a_col[kx]),
+// multiplied into every tile row m = r - ky it serves: a halo row is read
+// once for up to three taps.
+template <int M, int NT, int RP>
+__device__ __forceinline__ void mma_chunk(int (&acc)[M][NT][4],
+                                          uint32_t a_rows,
+                                          const uint32_t (&a_col)[3],
+                                          uint32_t b_base,
+                                          const uint32_t (&b_off)[NT / 2]) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+        uint32_t b[3][NT][2];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+            const uint32_t bt = b_base + (ky * 3 + kx) * NT * 8 * KCH;
+#pragma unroll
+            for (int j = 0; j < NT / 2; ++j) {
+                uint32_t r[4];
+                ldmatrix_x4(r, bt + b_off[j]);
+                b[ky][2 * j][0] = r[0];
+                b[ky][2 * j][1] = r[1];
+                b[ky][2 * j + 1][0] = r[2];
+                b[ky][2 * j + 1][1] = r[3];
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < M + 2; ++r) {
+            uint32_t a[4];
+            ldmatrix_x4(a, a_rows + r * RP + a_col[kx]);
+#pragma unroll
+            for (int ky = 0; ky < 3; ++ky) {
+                const int m = r - ky;
+                if (m < 0 || m >= M) continue;
+#pragma unroll
+                for (int t = 0; t < NT; ++t)
+                    mma_s8(acc[m][t], a, b[ky][t][0], b[ky][t][1]);
+            }
+        }
+    }
+}
+
+// This lane's ldmatrix offsets: A rows are 16 pixels of a tile row (matrix
+// l/8: pixels 0-7 | 8-15, bytes 0-15 | 16-31), shifted by kx; B rows are
+// output channels (matrices: channels 16j + 0-7, units 0 | 1, then 16j +
+// 8-15).
+template <int NT>
+__device__ __forceinline__ void lane_offsets(int lane, uint32_t (&a_col)[3],
+                                             uint32_t (&b_off)[NT / 2]) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+        a_col[kx] = swz(kx + (lane & 7) + 8 * ((lane >> 3) & 1), lane >> 4);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j)
+        b_off[j] = swz(16 * j + (lane & 7) + 8 * (lane >> 4), (lane >> 3) & 1);
+}
+
+// The bits of 1.5 * 2^23 + clip(rint(v), lo..hi) for integral bounds in
+// [-127, 127]; the low byte is the int8 result. Clipping before rounding
+// gives the same value (rint is monotone, the bounds are integers), and
+// adding 1.5 * 2^23 rounds |t| <= 127 to an integer, ties to even (the
+// sum's ulp is 1 and 1.5 * 2^23 is even): no conversion instruction,
+// where rintf and __float2int_rn are two at a quarter of the FMA rate.
+__device__ __forceinline__ uint32_t rounded_bits(float v, float lo, float hi) {
+    return __float_as_uint(__fadd_rn(fminf(fmaxf(v, lo), hi), 12582912.0f));
+}
+
+// The requant and its knobs, the pool's and the head's tensors.
+struct Epilogue {
+    const float* scale;
+    const float* bias;
+    int relu;
+    float out_clip, pool_rescale, pool_shift, pool_clip;
+    int8_t* y;
+    int8_t* yp;
+    const int32_t* hw;
+    const float* hscale;
+    const float* hbias;
+    int nc;
+    int8_t* labels;
+};
+
+// Requant the accumulators into the int8 tile os (rows x COLS pixels, rows
+// of N + 16 bytes); with a pool, the pooled values of the tile's windows
+// from the float values into the pooled tile ps ((rows/2) x (COLS/2)
+// pixels, the same rows) after it; then y and yp leave from the tiles in
+// 16-byte stores. HEAD: the head's weights, scales and biases go after
+// the tile, and each pixel's labels leave instead.
+template <int NT, int WARPS, bool HEAD>
+__device__ __forceinline__ void epilogue(const int (&acc)[MW][NT][4],
+                                         uint8_t* smem, const Epilogue& ep,
+                                         int n, int H, int W, int y0, int x0,
+                                         int co0, int cout) {
+    constexpr int CO_T = NT * 8, OP = CO_T + 16, UPP = CO_T / 16;
+    constexpr int ROWS = WARPS * MW, THREADS_B = 32 * WARPS;
+    constexpr int OUT = ROWS * COLS * OP;
+    uint8_t* os = smem;
+    uint8_t* ps = smem + OUT;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const bool pool = ep.yp != nullptr;
+    int32_t* hws = reinterpret_cast<int32_t*>(smem + OUT);
+    float* hss = reinterpret_cast<float*>(hws + MAX_NC * (CO_T / 4));
+    float* hbs = hss + MAX_NC;
+    if constexpr (HEAD) {
+        for (int i = tid; i < ep.nc * (CO_T / 4); i += THREADS_B) hws[i] = ep.hw[i];
+        for (int i = tid; i < ep.nc; i += THREADS_B) {
+            hss[i] = ep.hscale[i];
+            hbs[i] = ep.hbias[i];
+        }
+    }
+    const float lo = ep.relu ? 0.0f : -ep.out_clip;  // relu, then the clip
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+        const int c = 8 * t + 2 * (lane & 3), co = co0 + c;
+        const float s0 = ep.scale[co], b0 = ep.bias[co];
+        const float s1 = ep.scale[co + 1], b1 = ep.bias[co + 1];
+        float v[MW][2][2];  // [tile row m][pixel half h][channel c + e]
+#pragma unroll
+        for (int m = 0; m < MW; ++m)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const float v0 = __fmaf_rn(__int2float_rn(acc[m][t][2 * h]), s0, b0);
+                const float v1 = __fmaf_rn(__int2float_rn(acc[m][t][2 * h + 1]), s1, b1);
+                v[m][h][0] = ep.relu ? fmaxf(v0, 0.0f) : v0;
+                v[m][h][1] = ep.relu ? fmaxf(v1, 0.0f) : v1;
+                const int px = (warp * MW + m) * COLS + (lane >> 2) + 8 * h;
+                *reinterpret_cast<uint16_t*>(os + px * OP + c) =
+                    static_cast<uint16_t>(__byte_perm(
+                        rounded_bits(v0, lo, ep.out_clip),
+                        rounded_bits(v1, lo, ep.out_clip), 0x0040));
+            }
+        if (!HEAD && pool) {
+            // window (tile rows m, m+1; columns of lanes l, l^4)
+#pragma unroll
+            for (int m = 0; m < MW; m += 2)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    float mx[2];
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        mx[e] = fmaxf(v[m][h][e], v[m + 1][h][e]);
+                        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 4));
+                    }
+                    if ((lane & 4) == 0) {
+                        const int pp = ((warp * MW + m) / 2) * (COLS / 2) +
+                                       (lane >> 3) + 4 * h;
+                        *reinterpret_cast<uint16_t*>(ps + pp * OP + c) =
+                            static_cast<uint16_t>(__byte_perm(
+                                rounded_bits(__fmaf_rn(mx[0], ep.pool_rescale, ep.pool_shift),
+                                             -ep.pool_clip, ep.pool_clip),
+                                rounded_bits(__fmaf_rn(mx[1], ep.pool_rescale, ep.pool_shift),
+                                             -ep.pool_clip, ep.pool_clip),
+                                0x0040));
+                    }
+                }
+        }
+    }
+    __syncthreads();
+    if constexpr (HEAD) {
+        constexpr int CW = CO_T / 4;  // int32 words of a pixel's channels
+        for (int p = tid; p < ROWS * COLS; p += THREADS_B) {
+            const int oy = y0 + p / COLS, ox = x0 + p % COLS;
+            if (oy >= H || ox >= W) continue;
+            int32_t tv[CW];
+#pragma unroll
+            for (int q = 0; q < CW / 4; ++q) {
+                const int4 u = *reinterpret_cast<const int4*>(os + p * OP + 16 * q);
+                tv[4 * q] = u.x;
+                tv[4 * q + 1] = u.y;
+                tv[4 * q + 2] = u.z;
+                tv[4 * q + 3] = u.w;
+            }
+            float best = 0.0f;
+            int arg = 0;
+            for (int k = 0; k < ep.nc; ++k) {
+                int a = 0;
+#pragma unroll
+                for (int j = 0; j < CW; ++j) a = __dp4a(tv[j], hws[k * CW + j], a);
+                const float z = __fmaf_rn(__int2float_rn(a), hss[k], hbs[k]);
+                if (k == 0 || z > best) {
+                    best = z;
+                    arg = k;
+                }
+            }
+            ep.labels[((size_t)n * H + oy) * W + ox] = static_cast<int8_t>(arg);
+        }
+        return;
+    }
+    for (int e = tid; e < ROWS * COLS * UPP; e += THREADS_B) {
+        const int px = e / UPP, u = e - px * UPP;
+        const int oy = y0 + px / COLS, ox = x0 + px % COLS;
+        if (oy < H && ox < W)
+            *reinterpret_cast<uint4*>(
+                ep.y + (((size_t)n * H + oy) * W + ox) * cout + co0 + 16 * u) =
+                *reinterpret_cast<const uint4*>(os + px * OP + 16 * u);
+    }
+    if (!pool) return;
+    const int H2 = H / 2, W2 = W / 2;
+    for (int e = tid; e < (ROWS / 2) * (COLS / 2) * UPP; e += THREADS_B) {
+        const int pp = e / UPP, u = e - pp * UPP;
+        const int oy = y0 / 2 + pp / (COLS / 2), ox = x0 / 2 + pp % (COLS / 2);
+        if (oy < H2 && ox < W2)
+            *reinterpret_cast<uint4*>(
+                ep.yp + (((size_t)n * H2 + oy) * W2 + ox) * cout + co0 + 16 * u) =
+                *reinterpret_cast<const uint4*>(ps + pp * OP + 16 * u);
+    }
+}
+
+// The mma.sync body: grid (tiles * n_co, N), the channel tile fastest (so
+// the blocks that read one tile's input run side by side and the second
+// read comes from L2), 32 * WARPS threads, dynamic shared memory of
+// `stages` ring slots (halo chunk, then weights); the epilogue's tiles
+// reuse the ring. w: (nk, 9, cout, 32) int8. Resident blocks an SM: four
+// of 4 warps, two of 8 warps at N = 32 (64 int32 accumulators a thread),
+// one at N = 64.
+template <int NT, int WARPS, bool HEAD>
+__global__ void __launch_bounds__(32 * WARPS, NT == 8 ? 1 : (WARPS == 4 ? 4 : 2)) conv3x3_int8_mma(
+    const int8_t* __restrict__ x0, int cin0, const int8_t* __restrict__ x1,
+    int cin1, const int8_t* __restrict__ w, Epilogue ep, int pad0, int pad1,
+    int H, int W, int cout, int nk, int stages, int tiles_x, int n_co) {
+    constexpr int CO_T = NT * 8, ROWS = WARPS * MW, HR = ROWS + 2;
+    constexpr int THREADS_B = 32 * WARPS, M_HALO = halo_bytes(WARPS);
+    constexpr int STAGE = M_HALO + 9 * CO_T * KCH;
+    extern __shared__ __align__(128) uint8_t k1_smem[];
+    const uint32_t base = smem_addr(k1_smem);
+
+    const int n = blockIdx.y, tile = blockIdx.x / n_co;
+    const int co0 = (blockIdx.x - tile * n_co) * CO_T;
+    const int ty0 = (tile / tiles_x) * ROWS;  // the tile's origin
+    const int tx0 = (tile % tiles_x) * COLS;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    uint32_t a_col[3], b_off[NT / 2];
+    lane_offsets<NT>(lane, a_col, b_off);
+
+    int acc[MW][NT][4];
+#pragma unroll
+    for (int m = 0; m < MW; ++m)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][t][e] = 0;
+
+    // copy group j: chunk j's halo (pixel rows y0-1.., columns x0-1..; 32
+    // channels of one input, its pad value outside the image) and weights
+    // into ring slot j % stages
+    auto issue = [&](int j) {
+        if (j < nk) {
+            const uint32_t off = (j % stages) * STAGE;
+            const bool first = j * KCH < cin0;
+            const int8_t* src = first ? x0 + j * KCH : x1 + (j * KCH - cin0);
+            const int stride = first ? cin0 : cin1;
+            const uint32_t f = splat(first ? pad0 : pad1);
+            for (int e = tid; e < HR * HALO_W * 2; e += THREADS_B) {
+                const int u = e & 1, p = e >> 1;
+                const int hr = p / HALO_W, hc = p - hr * HALO_W;
+                const int iy = ty0 - 1 + hr, ix = tx0 - 1 + hc;
+                const uint32_t dst = off + hr * PITCH + swz(hc, u);
+                if (iy >= 0 && iy < H && ix >= 0 && ix < W)
+                    cp_async16(base + dst,
+                               src + (((size_t)n * H + iy) * W + ix) * stride + 16 * u,
+                               true);
+                else
+                    *reinterpret_cast<uint4*>(k1_smem + dst) = make_uint4(f, f, f, f);
+            }
+            const int8_t* wj = w + (size_t)j * 9 * cout * KCH;
+            for (int e = tid; e < 9 * CO_T * 2; e += THREADS_B) {
+                const int u = e & 1, r = e >> 1;
+                const int tap = r / CO_T, co = r - tap * CO_T;
+                cp_async16(base + off + M_HALO + tap * CO_T * KCH + swz(co, u),
+                           wj + ((size_t)tap * cout + co0 + co) * KCH + 16 * u,
+                           true);
+            }
+        }
+        cp_async_commit();
+    };
+
+    for (int s = 0; s < stages - 1; ++s) issue(s);
+    for (int j = 0; j < nk; ++j) {
+        if (stages == 3) cp_async_wait<1>();  // this thread's group j landed
+        else cp_async_wait<0>();
+        __syncthreads();        // everyone's has; chunk j-1's products done
+        issue(j + stages - 1);  // into the slot chunk j-1 freed
+        const uint32_t slot = base + (j % stages) * STAGE;
+        mma_chunk<MW, NT, PITCH>(acc, slot + warp * MW * PITCH, a_col,
+                                 slot + M_HALO, b_off);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the epilogue's tiles reuse the ring
+    epilogue<NT, WARPS, HEAD>(acc, k1_smem, ep, n, H, W, ty0, tx0, co0, cout);
+}
+
+// Dynamic shared memory of one mma.sync block (ops/conv_int8.py:mma_smem):
+// the ring, or the epilogue's int8 tile and after it the pooled tile or
+// the head's parameters, whichever is larger.
+int mma_smem_bytes(int co_t, int stages, int warps) {
+    const int ring = stages * (halo_bytes(warps) + 9 * co_t * KCH);
+    const int rows = warps * MW, op = co_t + 16, pooled = rows * COLS / 4 * op;
+    const int head = MAX_NC * (co_t + 8);
+    const int epi = rows * COLS * op + (pooled > head ? pooled : head);
+    return ring > epi ? ring : epi;
+}
+
+template <int NT, int WARPS, bool HEAD>
+int launch_mma(const int8_t* x0, int cin0, const int8_t* x1, int cin1,
+               const int8_t* w, const Epilogue& ep, int pad0, int pad1, int N,
+               int H, int W, int cout, int nk, int stages, int smem,
+               cudaStream_t s) {
+    constexpr int ROWS = WARPS * MW;
+    const int tiles_x = (W + COLS - 1) / COLS, tiles_y = (H + ROWS - 1) / ROWS;
+    const int n_co = cout / (NT * 8);
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_int8_mma<NT, WARPS, HEAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_int8_mma<NT, WARPS, HEAD><<<dim3(tiles_x * tiles_y * n_co, N), 32 * WARPS, smem, s>>>(
+        x0, cin0, x1, cin1, w, ep, pad0, pad1, H, W, cout, nk, stages, tiles_x, n_co);
+    return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// a clip bound the epilogue's rounding takes: an integer in [0, 127]
+bool integral_clip(float c) { return c >= 0.0f && c <= 127.0f && c == floorf(c); }
+
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
@@ -309,4 +735,70 @@ extern "C" int octseg_conv3x3_int8(
     }
 #undef OCTSEG_K1_ARGS
     return static_cast<int>(cudaGetLastError());
+}
+
+// K1's mma.sync body. x0 (N, H, W, cin0) and x1 (N, H, W, cin1) int8, cin0
+// and cin1 multiples of 32 (x1 null with cin1 = 0); w: (nk, 9, cout, 32)
+// int8 (ops/conv_int8.py:pack_conv3x3_mma_weights), nk = (cin0 + cin1) /
+// 32; cout a multiple of co_t; x0, x1 and w 16-byte aligned; out_clip and
+// pool_clip integers in [0, 127]. y (N, H, W,
+// cout) and yp (N, H/2, W/2, cout; null: no pool; H, W even) int8,
+// 16-byte aligned. With labels (the head): y and yp null, cout = co_t =
+// 32, 1 <= nc <= 32. The plan (ops/conv_int8.py:conv3x3_plan) gives co_t
+// (32 or 64 output channels a block), warps (8: 32 x 16 tiles; 4: 16 x 16
+// tiles, at co_t 32 only), stages (2 or 3 ring slots) and smem (dynamic
+// shared memory bytes). Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments the plan would not give.
+extern "C" int octseg_conv3x3_int8_mma(
+    const void* x0, int cin0, const void* x1, int cin1, const void* w,
+    const void* scale, const void* bias, void* y, void* yp, int N, int H,
+    int W, int cout, int relu, int pad0, int pad1, float out_clip,
+    float pool_rescale, float pool_shift, float pool_clip,
+    const void* head_w, const void* head_scale, const void* head_bias,
+    int nc, void* labels, int co_t, int warps, int nk, int stages, int smem,
+    void* stream) {
+    const bool head = labels != nullptr;
+    const int rows = warps * MW;
+    const long long blocks = (long long)((H + rows - 1) / rows) *
+                             ((W + COLS - 1) / COLS) *
+                             (co_t > 0 ? cout / co_t : 0);
+    const bool bad =
+        N < 1 || N > 65535 || H < 1 || W < 1 || cin0 < KCH || cin0 % KCH != 0 ||
+        cin1 < 0 || cin1 % KCH != 0 || (cin1 > 0 && x1 == nullptr) ||
+        nk != (cin0 + cin1) / KCH || (co_t != 32 && co_t != 64) ||
+        (warps != 8 && !(warps == 4 && co_t == 32)) ||
+        cout < co_t || cout % co_t != 0 || (stages != 2 && stages != 3) ||
+        pad0 < -128 || pad0 > 127 || pad1 < -128 || pad1 > 127 ||
+        !integral_clip(out_clip) || !integral_clip(pool_clip) ||
+        blocks > 0x7fffffffLL || !aligned16(x0) ||
+        (cin1 > 0 && !aligned16(x1)) || !aligned16(w) ||
+        smem != mma_smem_bytes(co_t, stages, warps) ||
+        (head ? (y != nullptr || yp != nullptr || co_t != 32 || cout != 32 ||
+                 nc < 1 || nc > MAX_NC || head_w == nullptr ||
+                 head_scale == nullptr || head_bias == nullptr)
+              : (y == nullptr || !aligned16(y) ||
+                 (yp != nullptr && (!aligned16(yp) || H % 2 != 0 || W % 2 != 0))));
+    if (bad) return static_cast<int>(cudaErrorInvalidValue);
+    const Epilogue ep{static_cast<const float*>(scale), static_cast<const float*>(bias),
+                      relu, out_clip, pool_rescale, pool_shift, pool_clip,
+                      static_cast<int8_t*>(y), static_cast<int8_t*>(yp),
+                      static_cast<const int32_t*>(head_w),
+                      static_cast<const float*>(head_scale),
+                      static_cast<const float*>(head_bias), nc,
+                      static_cast<int8_t*>(labels)};
+    auto s = static_cast<cudaStream_t>(stream);
+    auto a0 = static_cast<const int8_t*>(x0);
+    auto a1 = static_cast<const int8_t*>(x1);
+    auto wp = static_cast<const int8_t*>(w);
+#define K1_LAUNCH(NT, WARPS, HEAD)                                          \
+    return launch_mma<NT, WARPS, HEAD>(a0, cin0, a1, cin1, wp, ep, pad0, pad1, \
+                                       N, H, W, cout, nk, stages, smem, s)
+    if (head) {
+        if (warps == 4) K1_LAUNCH(4, 4, true);
+        K1_LAUNCH(4, 8, true);
+    }
+    if (co_t == 64) K1_LAUNCH(8, 8, false);
+    if (warps == 4) K1_LAUNCH(4, 4, false);
+    K1_LAUNCH(4, 8, false);
+#undef K1_LAUNCH
 }

@@ -123,7 +123,7 @@ def unet_packed_forward(qparams: dict, x: torch.Tensor, num_classes: int, *,
         if not isinstance(inputs, tuple):
             inputs = (inputs,)
         return k1(inputs, lw["w_k"], lw["scale"], lw["bias"], relu=True,
-                  pool=pool)
+                  pool=pool, w_mma=lw.get("w_m"))
 
     def up(h, k):
         lw = qparams[f"ct{k}"]

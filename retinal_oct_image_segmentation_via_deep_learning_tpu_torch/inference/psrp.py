@@ -62,6 +62,7 @@ from ..ops.conv_int8 import (
     conv3x3_int8_reference,
     ct2x2_int8,
     ct2x2_int8_reference,
+    pack_conv3x3_mma_weights,
     pack_conv3x3_weights,
     pack_ct2x2_weights,
 )
@@ -157,8 +158,9 @@ def _conv_epilogue(name: str, lw: dict, s: dict, a4: bool, n_in: int):
 
 def attach_kernel_params(q: dict, device=None) -> dict:
     """Raw qparams -> serving qparams on ``device``: each layer gains its
-    kernel-ordered weights ``w_k``, its fused-epilogue ``scale`` and
-    ``bias`` (float32, ``(s_in*s_w)/s_out`` and ``b/s_out`` with the w4a4
+    kernel-ordered weights ``w_k`` (every 3x3 conv but the stem also
+    ``w_m``, the order of K1's tensor-core body), its fused-epilogue
+    ``scale`` and ``bias`` (float32, ``(s_in*s_w)/s_out`` and ``b/s_out`` with the w4a4
     mode's folds) and, for K1 and K2, the rest of its epilogue
     (``knobs``: relu, clip, border values, pool rescale). Mode keys
     (``_deep_*``, ``_w8_*``) are kept."""
@@ -191,6 +193,8 @@ def attach_kernel_params(q: dict, device=None) -> dict:
             lw["scale"], lw["bias"] = scale.contiguous(), bias.contiguous()
         else:
             lw["w_k"] = pack_conv3x3_weights(lw["w_q"])
+            if lw["w_q"].shape[1] > 4:  # K1's tensor-core body reads these
+                lw["w_m"] = pack_conv3x3_mma_weights(lw["w_q"])
             n_in = 2 if name in SKIP_KEYS else 1
             scale, bias, lw["knobs"] = _conv_epilogue(name, lw, s, a4, n_in)
             lw["scale"], lw["bias"] = scale.contiguous(), bias.contiguous()
@@ -313,7 +317,8 @@ def unet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int, *,
         if not isinstance(inputs, tuple):
             inputs = (inputs,)
         return k1(inputs, lw["w_k"], lw["scale"], lw["bias"],
-                  pool=name in POOLED_STAGES, head=head, **lw["knobs"])
+                  pool=name in POOLED_STAGES, head=head,
+                  w_mma=lw.get("w_m"), **lw["knobs"])
 
     h = torch.round(x.float() / s["blk0_conv0_in"]).clamp(-127, 127).to(
         torch.int8

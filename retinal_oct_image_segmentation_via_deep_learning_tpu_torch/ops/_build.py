@@ -37,6 +37,10 @@ SIGNATURES = {
     "octseg_conv3x3_int8": [_P, _I, _P, _I, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _P, _P, _P, _I, _P, _P],
+    "octseg_conv3x3_int8_mma": [_P, _I, _P, _I, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I,
+                                _F, _F, _F, _F, _P, _P, _P, _I, _P,
+                                _I, _I, _I, _I, _I, _P],
     "octseg_ct2x2_int8": [_P, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _I,
                           _I, _I, _P],
     "octseg_head_argmax": [_P, _P, _P, _P, _P, _L, _I, _I, _P],

@@ -35,7 +35,8 @@ Weights are packed once, at quantize time, into the order the kernels read
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -101,14 +102,178 @@ def unpack_conv3x3_weights(w: torch.Tensor, cin: int,
     return dense.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
 
 
+# the mma.sync body's fixed sizes (csrc/conv3x3_int8.cu): MW tile rows of
+# COLS pixels a warp (a block of 8 or 4 warps has a tile of 32 or 16 rows),
+# K chunks of KCHUNK bytes a pixel, the head's largest class count, and the
+# shared memory of an H100 SM and the part each resident block reserves
+MW, COLS, KCHUNK = 4, 16, 32
+HEAD_MAX_CLASSES = 32
+SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
+
+
+def pack_conv3x3_mma_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """(cout, cin, 3, 3) int8 -> the mma.sync body's weights (nk, 9, coutp,
+    32) int8, K-contiguous per output channel (the tensor cores' B
+    operand): [j, t, co, b] = w[co, 32j + b, t // 3, t % 3]; cin padded to
+    nk * 32 and cout to coutp (a multiple of 32) with zeros."""
+    cout, cin, kh, kw = w_q.shape
+    assert (kh, kw) == (3, 3) and w_q.dtype == torch.int8, w_q.shape
+    cinp, coutp = _round_up(cin, KCHUNK), _round_up(cout, 32)
+    dense = torch.zeros(9, cinp, coutp, dtype=torch.int8, device=w_q.device)
+    dense[:, :cin, :cout] = w_q.permute(2, 3, 1, 0).reshape(9, cin, cout)
+    return (dense.reshape(9, cinp // KCHUNK, KCHUNK, coutp)
+            .permute(1, 0, 3, 2).contiguous())
+
+
+def unpack_conv3x3_mma_weights(w: torch.Tensor, cin: int,
+                               cout: int) -> torch.Tensor:
+    """Inverse of ``pack_conv3x3_mma_weights``: (cout, cin, 3, 3) int8."""
+    nk, nine, coutp, _ = w.shape
+    dense = w.permute(1, 0, 3, 2).reshape(9, nk * KCHUNK, coutp)
+    return dense[:, :cin, :cout].reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+
+
+def mma_weights_from_dp4a(w: torch.Tensor) -> torch.Tensor:
+    """``pack_conv3x3_weights`` (9, cinp/4, coutp, 4) with cinp a multiple
+    of 32 -> ``pack_conv3x3_mma_weights`` of the same weights, in one
+    copy: chunk j's 32 bytes are the words 8j..8j+7."""
+    nine, cw, coutp, four = w.shape
+    return (w.reshape(9, cw // 8, 8, coutp, 4).permute(1, 0, 3, 2, 4)
+            .reshape(cw // 8, 9, coutp, KCHUNK).contiguous())
+
+
+class Conv3x3Plan(NamedTuple):
+    """K1's launch for one call (``conv3x3_plan``). ``body`` "mma": the
+    output is cut into units of ``rows`` x COLS pixels (rows = MW x
+    ``warps``, the block's warps) by ``co_t`` output channels, one block a
+    unit, numbered u = ((n * tiles_y + ty) * tiles_x + tx) * n_co +
+    channel tile (the grid is (tiles of an image x n_co, N), the channel
+    tile fastest, so the blocks that read one tile's input run side by
+    side and the second read comes from L2); the nk K chunks (32 channels
+    of one input) pass through a ring of ``stages`` shared-memory slots,
+    ``smem`` bytes of dynamic shared memory a block, ``blocks_per_sm``
+    resident blocks (the kernel's ``__launch_bounds__``). ``body`` "dp4a":
+    the first design (16 x 16 tiles, 32 output channels a block, static
+    shared memory); the other fields are 0."""
+
+    N: int
+    H: int
+    W: int
+    cin0: int
+    cin1: int
+    cout: int
+    head: bool
+    body: str
+    co_t: int
+    warps: int
+    nk: int
+    stages: int
+    blocks_per_sm: int
+    smem: int
+
+    @property
+    def rows(self) -> int:
+        return MW * self.warps
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.H // self.rows)
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.W // COLS)
+
+    @property
+    def n_co(self) -> int:
+        return self.cout // self.co_t
+
+    @property
+    def units(self) -> int:
+        return self.N * self.tiles_y * self.tiles_x * self.n_co
+
+
+def mma_smem(co_t: int, stages: int, warps: int) -> int:
+    """Dynamic shared memory of one mma.sync block (the C side computes the
+    same): ``stages`` ring slots of a (rows+2) x (COLS+2) x 32-byte halo
+    chunk and the chunk's 9 x co_t weight rows of 32 bytes. After the
+    products the ring holds the epilogue's int8 tile (rows of co_t + 16
+    bytes) and after it the pooled tile (the same rows) or the head's
+    weights, scales and biases."""
+    rows = MW * warps
+    ring = stages * ((rows + 2) * (COLS + 2) + 9 * co_t) * KCHUNK
+    out = rows * COLS * (co_t + 16)
+    extra = max(rows * COLS // 4 * (co_t + 16),
+                HEAD_MAX_CLASSES * (co_t + 8))
+    return max(ring, out + extra)
+
+
+def plan_for(N: int, H: int, W: int, cins: tuple, cout: int, head: bool,
+             co_t: int, warps: int = 8) -> Conv3x3Plan:
+    """The mma.sync body's plan at ``co_t`` output channels and ``warps``
+    warps a block, admitted or not (``conv3x3_plan`` chooses). Blocks of 8
+    warps: three ring slots where there are two chunks or more; two
+    resident blocks an SM at co_t 32 (64 int32 accumulators a thread), one
+    at co_t 64 (128). Blocks of 4 warps (co_t 32): two slots, four blocks
+    an SM. Fewer where the shared memory would not hold them."""
+    cin0, cin1 = cins[0], (cins[1] if len(cins) > 1 else 0)
+    nk = -(-(cin0 + cin1) // KCHUNK)
+    stages = 3 if nk >= 2 and warps == 8 else 2
+    smem = mma_smem(co_t, stages, warps)
+    by_regs = 4 if warps == 4 else 2 if co_t == 32 else 1
+    return Conv3x3Plan(N, H, W, cin0, cin1, cout, bool(head), "mma", co_t,
+                       warps, nk, stages,
+                       min(by_regs, SM_SMEM // (smem + BLOCK_SMEM_RESERVED)),
+                       smem)
+
+
+@functools.lru_cache(maxsize=256)
+def conv3x3_plan(N: int, H: int, W: int, cins: tuple, cout: int,
+                 head: bool = False, aligned: bool = True) -> Conv3x3Plan:
+    """K1's plan for inputs of ``cins`` channels (one or two), H x W, cout
+    outputs, ending in the head or not. ``aligned``: every input pointer
+    is 16-byte aligned (the weights and the outputs are fresh tensors).
+
+    The mma.sync body takes the call when every input's channel count is a
+    multiple of 32 (a K chunk lies inside one input and is copied 16 bytes
+    at a time), cout is a multiple of 32 (whole channel tiles, 16-byte
+    stores), the inputs are aligned and, with the head, cout is 32 (one
+    channel tile holds a pixel's outputs). That is every call of the served
+    U-Net at f = 32 but the stem. Every other call (the stem, odd channel
+    counts, misaligned inputs) stays on the dp4a body.
+
+    Output channels a block: 64 where cout allows and the tile has 8 or
+    more K chunks, else 32; warps a block: 4 (16 x 16 tiles) at one
+    chunk, else 8 (32 x 16). A tile of 1-2 chunks (the 512^2 and 256^2
+    stages) is too short a loop for a ring inside one block to hide its
+    copies or its epilogue; the overlap comes from other resident blocks,
+    which multiply while one copies or stores: two blocks of 8 warps an SM
+    at 32 channels (64 int32 accumulators a thread), four of 4 warps at
+    one chunk (3-5% faster there, 1-4% slower at two chunks). From 8
+    chunks on the ring hides the copies, and 64 channels a block (one an
+    SM) halve the halo's reads and the ldmatrix traffic per product; at 4
+    chunks 32 channels were as fast or faster. (Device times at the 17
+    calls of the served forward: ``k1_probe.py``, PERF.md section 6.)"""
+    cins = tuple(cins)
+    cin0, cin1 = cins[0], (cins[1] if len(cins) > 1 else 0)
+    if not (len(cins) <= 2 and cin0 >= KCHUNK and cin0 % KCHUNK == 0
+            and cin1 % KCHUNK == 0 and cout >= 32 and cout % 32 == 0
+            and aligned and (not head or cout == 32)):
+        return Conv3x3Plan(N, H, W, cin0, cin1, cout, bool(head), "dp4a",
+                           0, 0, 0, 0, 0, 0)
+    nk = (cin0 + cin1) // KCHUNK
+    co_t = 64 if cout % 64 == 0 and nk >= 8 and not head else 32
+    return plan_for(N, H, W, cins, cout, head, co_t, 4 if nk == 1 else 8)
+
+
 def conv3x3_int8_reference(inputs: Sequence[torch.Tensor], w: torch.Tensor,
                            scale: torch.Tensor, bias: torch.Tensor, *,
                            relu: bool = True, pool: bool = False,
                            out_clip: float = 127.0, pad_vals=None,
                            pool_rescale: float | None = None,
                            pool_shift: float = 0.0, pool_clip=None,
-                           head=None):
-    """Plain version of K1 (any device); the arguments are K1's."""
+                           head=None, w_mma=None):
+    """Plain version of K1 (any device); the arguments are K1's (it reads
+    ``w`` and leaves ``w_mma``, the same weights in another order)."""
     inputs = tuple(inputs) if isinstance(inputs, (tuple, list)) else (inputs,)
     pad_vals = tuple(pad_vals) if pad_vals else (0,) * len(inputs)
     x = torch.cat([F.pad(t.permute(0, 3, 1, 2).double(), (1, 1, 1, 1),
@@ -163,7 +328,6 @@ def _check_vec(t: torch.Tensor, n: int, what: str,
 
 
 HEAD_MAX_COUT = 32  # the head reads one 32-channel block of K1's output
-HEAD_MAX_CLASSES = 32
 
 
 def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
@@ -171,13 +335,18 @@ def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
                  pool: bool = False, out_clip: float = 127.0,
                  pad_vals=None, pool_rescale: float | None = None,
                  pool_shift: float = 0.0, pool_clip: float | None = None,
-                 head=None):
+                 head=None, w_mma: torch.Tensor | None = None):
     """K1: int8 3x3 'same' conv over the channel concat of 1-2 NHWC inputs.
 
     inputs: one (N, H, W, C) int8 tensor or a tuple of two (the concat is
     folded into the kernel: no ``torch.cat`` is made). w:
     ``pack_conv3x3_weights`` of the (cout, sum C, 3, 3) weights. Returns
     (N, H, W, cout) int8; with ``pool=True`` also its 2x2/2 max-pool.
+
+    The body is ``conv3x3_plan``'s: the tensor-core (mma.sync) body reads
+    ``w_mma``, ``pack_conv3x3_mma_weights`` of the same weights, packed
+    once at quantize time; given none, an admitted call packs it from
+    ``w``. The dp4a body (the stem, odd channel counts) reads ``w``.
 
     ``out_clip``: the requant's clip bound (127, or 7 for a 4-bit
     consumer). ``pad_vals``: one border value per input (default 0; -7 for
@@ -231,6 +400,20 @@ def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
     _check(len(pads) == len(inputs) and all(-128 <= p <= 127 for p in pads),
            f"conv3x3_int8: pad_vals {pad_vals} for {len(inputs)} input(s)")
     x1 = inputs[1] if len(inputs) > 1 else None
+    plan = conv3x3_plan(N, H, W, tuple(t.shape[-1] for t in inputs), cout,
+                        head is not None,
+                        all(t.data_ptr() % 16 == 0 for t in inputs))
+    if plan.body == "mma":
+        clips = (out_clip, out_clip if pool_clip is None else pool_clip)
+        _check(all(float(c).is_integer() and 0 <= c <= 127 for c in clips),
+               f"conv3x3_int8: clips {clips}: integers in [0, 127]")
+        if w_mma is None:
+            w_mma = mma_weights_from_dp4a(w)
+        _check_cuda_int8(w_mma, 4, "conv3x3_int8 mma weights", dev)
+        _check(tuple(w_mma.shape) == (plan.nk, 9, cout, KCHUNK)
+               and w_mma.data_ptr() % 16 == 0,
+               f"conv3x3_int8: mma weights {tuple(w_mma.shape)}, expected "
+               f"16-byte aligned {(plan.nk, 9, cout, KCHUNK)}")
     hw = hs = hb = lab = None
     if head is not None:
         hw, hs, hb = head
@@ -250,17 +433,25 @@ def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    epi = (int(relu), pads[0], pads[1] if x1 is not None else 0,
+           float(out_clip),
+           1.0 if pool_rescale is None else float(pool_rescale),
+           float(pool_shift) if pool_rescale is not None else 0.0,
+           float(out_clip if pool_clip is None else pool_clip), ptr(hw),
+           ptr(hs), ptr(hb), nc, ptr(lab))
     with torch.cuda.device(dev):
-        err = _build.lib().octseg_conv3x3_int8(
-            x0.data_ptr(), cin0, ptr(x1), cin1, w.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), ptr(y), ptr(yp), N, H, W,
-            cinp, cout, coutp, int(relu), pads[0],
-            pads[1] if x1 is not None else 0, float(out_clip),
-            1.0 if pool_rescale is None else float(pool_rescale),
-            float(pool_shift) if pool_rescale is not None else 0.0,
-            float(out_clip if pool_clip is None else pool_clip), ptr(hw),
-            ptr(hs), ptr(hb), nc, ptr(lab), _stream(x0))
-    _build.check(err, "conv3x3_int8")
+        if plan.body == "mma":
+            err = _build.lib().octseg_conv3x3_int8_mma(
+                x0.data_ptr(), cin0, ptr(x1), cin1, w_mma.data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), ptr(y), ptr(yp), N, H, W,
+                cout, *epi, plan.co_t, plan.warps, plan.nk, plan.stages,
+                plan.smem, _stream(x0))
+        else:
+            err = _build.lib().octseg_conv3x3_int8(
+                x0.data_ptr(), cin0, ptr(x1), cin1, w.data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), ptr(y), ptr(yp), N, H, W,
+                cinp, cout, coutp, *epi, _stream(x0))
+    _build.check(err, f"conv3x3_int8 ({plan.body})")
     conv3x3_int8.launches += 1
     if head is not None:
         return lab

@@ -777,3 +777,95 @@ def test_w4a4_graph_kernels_match_plain(dev, mode):
         want = unet_psrp_forward(qp, x, 5, reference=True)
         fused = unet_psrp_forward(qp, x, 5, head_fuse=True)
     assert torch.equal(got, want) and torch.equal(fused, want)
+
+
+# K1's tensor-core body: calls that conv3x3_plan puts on it
+
+
+def _k1_mma_case(rng, dev, n, h, w, cins, cout, knobs, nc=0):
+    """Seeded inputs of one K1 call: +-7 values where an input is padded
+    with -7 (w4a4), else the int8 range; a scale that spreads the outputs
+    over the clip range."""
+    four = -7 in (knobs.get("pad_vals") or ())
+    xs = tuple(_i8(rng, (n, h, w, c), dev, *((-7, 8) if four else ()))
+               for c in cins)
+    wq = _i8(rng, (cout, sum(cins), 3, 3), dev, -40, 40)
+    std = (9 * sum(cins)) ** 0.5 * 23 * (4 if four else 73)
+    clip = knobs.get("out_clip", 127.0)
+    sc = _vec(rng, cout, clip / 4 / std, clip / 2 / std, dev)
+    b = _vec(rng, cout, -clip / 20, clip / 20, dev)
+    kw = dict(knobs)
+    if nc:
+        kw["head"] = (
+            k3.pack_head_weights(_i8(rng, (nc, cout, 1, 1), dev, -40, 40)),
+            _vec(rng, nc, 1e-3, 2e-3, dev), _vec(rng, nc, -1, 1, dev))
+    return (xs, k12.pack_conv3x3_weights(wq), sc, b), kw, \
+        k12.pack_conv3x3_mma_weights(wq)
+
+
+K1_MMA_CASES = [  # (n, h, w, cins, cout, knobs, head classes, co_t, warps)
+    (2, 64, 48, (32,), 32, dict(pool=True), 0, 32, 4),
+    (1, 34, 48, (32,), 64, dict(pool=True, relu=False), 0, 32, 4),  # partial
+    (2, 32, 32, (64,), 128, {}, 0, 32, 8),
+    (2, 34, 48, (128,), 64, dict(pool=True), 0, 32, 8),
+    (2, 32, 32, (256,), 128, dict(pool=True), 0, 64, 8),
+    (1, 34, 48, (128, 128), 128, dict(pad_vals=(0, -7), relu=False,
+                                       out_clip=7.0), 0, 64, 8),
+    (1, 34, 48, (32, 32), 32, dict(pad_vals=(0, -7), relu=False,
+                                   out_clip=7.0), 0, 32, 8),
+    (1, 33, 47, (64, 64), 32, dict(pad_vals=(0, -7), relu=False,
+                                   out_clip=7.0), 0, 32, 8),    # odd H, W
+    (2, 32, 48, (32,), 32, dict(pool=True, pool_rescale=14 / 127,
+                                pool_shift=-7.0, pool_clip=7.0), 0, 32, 4),
+    (1, 34, 48, (64,), 64, dict(pool=True, pad_vals=(-7,),
+                                pool_rescale=14 / 127, pool_shift=-7.0,
+                                pool_clip=7.0), 0, 32, 8),
+    (1, 33, 47, (64,), 64, dict(pad_vals=(-7,), relu=False, out_clip=7.0),
+     0, 32, 8),                                                 # odd H, W
+    (2, 8, 8, (512,), 512, {}, 0, 64, 8),
+    (2, 34, 48, (32,), 32, {}, 10, 32, 4),                      # head
+    (1, 32, 32, (64,), 32, dict(pad_vals=(-7,)), 32, 32, 8),    # head
+    (1, 34, 48, (128,), 32, {}, 10, 32, 8),                     # head
+]
+
+
+@pytest.mark.parametrize("n,h,w,cins,cout,knobs,nc,co_t,warps",
+                         K1_MMA_CASES)
+def test_k1_mma_body_matches_plain(dev, n, h, w, cins, cout, knobs, nc,
+                                   co_t, warps):
+    """The plan puts the call on the mma.sync body (at co_t channels and
+    ``warps`` warps a block); its outputs equal the plain version bit for
+    bit, with w_mma given and packed in the call, and a repeated call
+    gives the same bits; one launch a call."""
+    rng = np.random.default_rng(24)
+    args, kw, wm = _k1_mma_case(rng, dev, n, h, w, cins, cout, knobs, nc)
+    plan = k12.conv3x3_plan(n, h, w, cins, cout, nc > 0)
+    assert (plan.body, plan.co_t, plan.warps) == ("mma", co_t, warps)
+    want = k12.conv3x3_int8_reference(*args, **kw)
+    before = k12.conv3x3_int8.launches
+    got = k12.conv3x3_int8(*args, w_mma=wm, **kw)
+    again = k12.conv3x3_int8(*args, w_mma=wm, **kw)
+    packed_here = k12.conv3x3_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert k12.conv3x3_int8.launches == before + 3
+    many = isinstance(want, tuple)
+    for out in (got, again, packed_here):
+        for g_, w_ in zip(out if many else (out,), want if many else (want,)):
+            assert torch.equal(g_, w_)
+    y = want[0] if many else want
+    if not nc:  # the outputs are spread, not all clipped
+        assert len(torch.unique(y)) > 8
+
+
+def test_k1_mma_rejects_bad_weights(dev):
+    """Admitted calls check w_mma's shape; the plan admits by the inputs'
+    channel counts and alignment alone."""
+    rng = np.random.default_rng(25)
+    args, kw, wm = _k1_mma_case(rng, dev, 1, 16, 16, (64,), 32, {})
+    with pytest.raises(ValueError, match="mma weights"):
+        k12.conv3x3_int8(*args, w_mma=wm[:1])
+    x = torch.empty(1 * 16 * 16 * 64 + 4, dtype=torch.int8, device=dev)
+    xs = (x[4:].view(1, 16, 16, 64).copy_(args[0][0]),)
+    assert k12.conv3x3_plan(1, 16, 16, (64,), 32, False, False).body == "dp4a"
+    assert torch.equal(k12.conv3x3_int8(xs, *args[1:], w_mma=wm),
+                       k12.conv3x3_int8_reference(xs, *args[1:]))
