@@ -13,7 +13,9 @@ Phases (any failure raises; the exit code is then non-zero):
 2. kernels: every stage of the served graph (f=32, 512x512, batch 2) on
    its kernel and on the kernel's plain PyTorch version, bit for bit; K1's
    plan at each stage (the 17 non-stem stages must be on its mma.sync
-   body);
+   body) and K2's; K2 called twice at ct0 and ct3 (the same bits), at
+   +-127 inputs and weights (ct0) and where the pixels are not a multiple
+   of its tile, bit for bit;
 3. graph: the U-Net (f=32, 10 classes, seeded random weights), folded,
    calibrated and quantized; labels of the kernel graph identical to the
    plain graph's at batch 8, and agreeing with the all-int8 oracle
@@ -21,9 +23,10 @@ Phases (any failure raises; the exit code is then non-zero):
 4. serve: the ServingLoop and HTTP server built as the CLI builds them,
    12 requests from 3 client threads; every response equals the direct
    forward, and every forward launched K1 18 times, K2 4 times, K3 once;
-5. times on the card (CUDA events; K1 also device time): each kernel
-   against its plain version at batch 32, K1's 17 non-stem stages also
-   against its dp4a body through that body's own entry point (bit-equal),
+5. times on the card (CUDA events; K1 and K2 also device time): each
+   kernel against its plain version at batch 32, K1's 17 non-stem stages
+   also against its dp4a body through that body's own entry point
+   (bit-equal), K2's four calls with their bound's share, GB/s and TOPS,
    the served forward at batch 32 and 128 with a profile at 32, serve
    latency;
 6. training kernels: K4 (forward and dgrad) and K5 at the 17 non-stem 3x3
@@ -142,7 +145,8 @@ Phases (any failure raises; the exit code is then non-zero):
     --quantize int4`` builds it: 5 HTTP requests, each equal to the direct
     forward, launches as phase 4's;
 30. times at batch 32: K1 and K2 per w4a4 stage (events and device time)
-    against the plain versions and the bound, summed per TPU kernel; K1
+    against the plain versions and the bound, summed per TPU kernel, K2
+    beside its int8 call at the same stage; K1
     with the fused head against K1 then K3; P3's counterpart, K1 at the
     deep widths (128, 256, 512 channels) on +-7 against int8 values and
     with clip 7 against 127; the served forward int8, w4a4 and with the
@@ -2701,9 +2705,17 @@ def int4_phases(dev, card, time_ms, model, calib):
                                [0, 0.0, 0.0, 0.0, 0.0])
         for i, v in enumerate((1, ms, dms, pms, b_ms)):
             tr[i] += v
+        beside = ""
+        if kernel == "ct2x2_int8":  # the int8 graph's call at this stage
+            _, a8, kw8 = stage_call(q8, name, kernel, shape, 32)
+            with torch.inference_mode():
+                ms8 = time_ms(lambda: wrappers[kernel](*a8, **kw8))
+                dms8 = device_ms(lambda: wrappers[kernel](*a8, **kw8))
+            beside = f", int8 {ms8:.4f} ms (device {dms8:.4f})"
+            del a8
         print(f"time b32 w4a4 {name:16s} {kernel:13s} kernel {ms:.4f} ms "
-              f"(device {dms:.4f}), plain {pms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})", flush=True)
+              f"(device {dms:.4f}){beside}, plain {pms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
         del args
         torch.cuda.empty_cache()
     name, kernel, shape = blk8
@@ -2917,6 +2929,17 @@ def main() -> int:
                                 scale.shape[0], False,
                                 all(x.data_ptr() % 16 == 0 for x in xs))
 
+    def k2_plan_text(args):
+        """K2's launch for these arguments: tile pixels x channels, the
+        grid and the loader."""
+        x, _, scale, _ = args
+        plan = k12.ct2x2_plan(*x.shape, scale.shape[0],
+                              x.data_ptr() % 16 == 0,
+                              torch.cuda.get_device_properties(
+                                  x.device).multi_processor_count)
+        return (f"{plan.tm}x{plan.co_t} grid {plan.grid}x{plan.n_co} "
+                f"{plan.loader}")
+
     def k1_dp4a(args, kw):
         """One launch of K1's dp4a body through its own C entry point, with
         the int8 graph's knobs (relu, zero borders, no head)."""
@@ -2965,9 +2988,51 @@ def main() -> int:
                      f"warps, stages {plan.stages})")
             if not name.startswith("stem") and plan.body != "mma":
                 off_mma.append(name)
+        if kernel == "ct2x2_int8":
+            extra = f", plan {k2_plan_text(args)}"
+            if name in ("ct0", "ct3"):  # a second call: the same bits
+                again = wrappers[kernel](*args, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(again, got[0]):
+                    raise RuntimeError(f"K2's second call differs at {name}")
+                extra += ", second call identical"
         print(f"{name:16s} {kernel:13s} {str(shape):28s} outputs "
               f"{[tuple(g.shape) for g in got]} mismatches {mism}{extra}",
               flush=True)
+        bad += mism
+    # K2 at +-127 inputs and weights (ct0: |acc| up to 512 * 127^2 =
+    # 8,258,048), and where the pixels are not a multiple of the tile
+    h0, c0, o0 = next(s for n_, k, s in stages() if n_ == "ct0")
+    k2_odd = {"ct0 +-127": (2, h0, h0, c0, o0, True),
+              "ct3 edge": (1, 5, 250, 64, 32, False)}
+    for label, (n, hh, ww, cin, cout, ext) in k2_odd.items():
+        vals = np.array([-127, 127])
+        x = (torch.tensor(gen.choice(vals, (n, hh, ww, cin)),
+                          dtype=torch.int8, device=dev) if ext
+             else i8((n, hh, ww, cin)))
+        wq = (torch.tensor(gen.choice(vals, (cin, cout, 2, 2)),
+                           dtype=torch.int8, device=dev) if ext
+              else i8((cin, cout, 2, 2)))
+        if ext:
+            x[0, 0, 0] = 127
+            wq[:, 0] = 127  # that pixel's columns 0: 512 * 127^2
+        std = cin ** 0.5 * (127 ** 2 if ext else 73 ** 2)
+        args = (x, k12.pack_ct2x2_weights(wq),
+                torch.tensor(gen.uniform(30, 60, cout) / std,
+                             dtype=torch.float32, device=dev),
+                torch.tensor(gen.uniform(-5, 5, cout), dtype=torch.float32,
+                             device=dev))
+        got = k12.ct2x2_int8(*args)
+        want = k12.ct2x2_int8_reference(*args)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        tm = k12.ct2x2_plan(n, hh, ww, cin, cout).tm
+        print(f"K2 {label:10s} {(n, hh, ww, cin, cout)} plan "
+              f"{k2_plan_text(args)} ({n * hh * ww} pixels, tiles of {tm}), "
+              f"max |out| {int(got.abs().max())}, "
+              f"mismatches {mism}", flush=True)
+        max_err["ct2x2_int8"] = max(max_err["ct2x2_int8"], int(
+            (got.int() - want.int()).abs().max()))
         bad += mism
     if bad:
         raise RuntimeError(f"{bad} kernel outputs differ from plain")
@@ -3112,6 +3177,9 @@ def main() -> int:
     k1_slower = []
     k1_dev = 0.0  # K1's device time over every stage
     k1_plans = {}
+    # K2's four calls: event and device time, bound, operations, bytes
+    k2 = {"ms": 0.0, "dev": 0.0, "bound": 0.0, "ops": 0.0, "bytes": 0.0}
+    k2_plans = {}
     for name, kernel, shape in stages():
         args, kw = stage_args(kernel, shape, 32)
         with torch.inference_mode():
@@ -3155,6 +3223,17 @@ def main() -> int:
                         k1_slower.append(name)
                     extra += (f", dp4a body {d_ms:.4f} ms (device "
                               f"{d_dms:.4f}; bit-equal)")
+        if kernel == "ct2x2_int8":
+            with torch.inference_mode():
+                dms = device_ms(lambda: wrappers[kernel](*args, **kw))
+            ops, nbytes = serving_work(kernel, shape, 32)
+            for key, v in (("ms", ms), ("dev", dms), ("bound", b_ms),
+                           ("ops", ops), ("bytes", nbytes)):
+                k2[key] += v
+            k2_plans[name] = k2_plan_text(args)
+            extra = (f" (device {dms:.4f}; {100 * b_ms / dms:.2f}% of the "
+                     f"bound's rate, {nbytes / dms / 1e6:.1f} GB/s, "
+                     f"{ops / dms / 1e9:.1f} TOPS; plan {k2_plans[name]})")
         print(f"time b32 {name:16s} {kernel:13s} kernel {ms:.4f} ms"
               f"{extra}, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
               flush=True)
@@ -3177,6 +3256,11 @@ def main() -> int:
           f"{100 * k1['bound'] / k1['dev']:.2f}% of the bound's rate; "
           f"stages not faster than the dp4a body: {k1_slower or 'none'}",
           flush=True)
+    print(f"time b32 K2's four calls (ct0-ct3): event {k2['ms']:.4f} ms, "
+          f"device {k2['dev']:.4f} ms, bound {k2['bound']:.4f} ms, "
+          f"{100 * k2['bound'] / k2['dev']:.2f}% of the bound's rate, "
+          f"{k2['bytes'] / k2['dev'] / 1e6:.1f} GB/s, "
+          f"{k2['ops'] / k2['dev'] / 1e9:.1f} TOPS", flush=True)
     for n in (32, 128):
         xb = torch.tensor(
             np.random.default_rng(n).uniform(0, 255, (n, HW, HW, 1)),
@@ -3208,6 +3292,8 @@ def main() -> int:
         "bound_by": max(bounds[k], key=bounds[k].get),
         **({"device_ms": k1_dev, "plan": k1_plans}
            if k == "conv3x3_int8" else {}),
+        **({"device_ms": k2["dev"], "plan": k2_plans}
+           if k == "ct2x2_int8" else {}),
         # no single PyTorch call computes an int8 conv with requant (K1),
         # an int8 transposed conv with requant (K2) or head + argmax on
         # int8 (K3)

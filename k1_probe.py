@@ -7,9 +7,9 @@ body's other launches.
 
     python3 k1_probe.py        # from the repository root; needs one card
 
-Builds (each by its own nvcc, into a temporary directory; the unmodified
-one with ``-Xptxas -v``, whose register and spill lines for the mma.sync
-body are printed):
+Builds (each by its own nvcc, into a temporary directory with its own copy
+of ``csrc/mma_int8.cuh``; the unmodified one with ``-Xptxas -v``, whose
+register and spill lines for the mma.sync body are printed):
 - ``kernel``: the source as it is (checked bit-equal to the plain version
   at each call, batch 2, before anything is timed);
 - ``no_copies``: every cp.async reads no byte and zero-fills its unit (the
@@ -62,17 +62,19 @@ def calls(f=F, hw=512, n=32):
     return out
 
 
-def builds(src: str) -> dict[str, str]:
-    for line in (COPY, PRODUCTS, EPILOGUE):
-        if src.count(line) != 1:
-            raise RuntimeError("k1_probe: the K1 source no longer has the "
+def builds(src: str, header: str) -> dict[str, tuple[str, str]]:
+    """name -> (K1's source, the shared header csrc/mma_int8.cuh)."""
+    for text, line in ((header, COPY), (src, PRODUCTS), (src, EPILOGUE)):
+        if text.count(line) != 1:
+            raise RuntimeError("k1_probe: the K1 sources no longer have the "
                                f"line this probe edits: {line!r}")
     # a run-time condition that never holds: the code stays compiled
-    return {"kernel": src, "no_copies": src.replace(COPY, '"r"(0)'),
-            "no_products": src.replace(PRODUCTS, "        if (cout < 0) "
-                                       + PRODUCTS.lstrip()),
-            "no_epilogue": src.replace(EPILOGUE, "    if (cout < 0) "
-                                       + EPILOGUE.lstrip())}
+    return {"kernel": (src, header),
+            "no_copies": (src, header.replace(COPY, '"r"(0)')),
+            "no_products": (src.replace(PRODUCTS, "        if (cout < 0) "
+                                        + PRODUCTS.lstrip()), header),
+            "no_epilogue": (src.replace(EPILOGUE, "    if (cout < 0) "
+                                        + EPILOGUE.lstrip()), header)}
 
 
 def ptxas_lines(out: str) -> list[str]:
@@ -109,11 +111,15 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     src = (_build.CSRC / "conv3x3_int8.cu").read_text()
+    header = (_build.CSRC / "mma_int8.cuh").read_text()
     libs = {}
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {}
-        for name, text in builds(src).items():
-            cu, so = Path(tmp) / f"{name}.cu", Path(tmp) / f"{name}.so"
+        for name, (text, hdr) in builds(src, header).items():
+            d = Path(tmp) / name
+            d.mkdir()
+            (d / "mma_int8.cuh").write_text(hdr)
+            cu, so = d / "conv3x3_int8.cu", d / "k1.so"
             cu.write_text(text)
             verbose = ["-Xptxas", "-v"] if name == "kernel" else []
             jobs[name] = (so, subprocess.Popen(

@@ -6,7 +6,8 @@ batch 32).
 
     python3 k7_probe.py        # from the repository root; needs one card
 
-Builds (each by its own nvcc, into a temporary directory):
+Builds (each by its own nvcc, into a temporary directory with its own copy
+of ``csrc/mma_int8.cuh``):
 - ``kernel``: the source as it is (checked bit-equal to the plain version at
   each stage, batch 2);
 - ``no_copies``: every cp.async reads no byte and zero-fills its chunk (the
@@ -33,7 +34,8 @@ STAGES = [  # (name, H, cins, pool) at f=64, as chip_smoke.relaynet_stages
     ("b2", 128, (64,), True), ("b3", 64, (64,), False),
     ("b4", 128, (64, 64), False), ("b5", 256, (64, 64), False),
     ("b6", 512, (64, 64), False)]
-COPIES = ['"r"(ok ? 16 : 0)', '"r"(ok ? 4 : 0)']
+COPY16 = '"r"(ok ? 16 : 0)'  # csrc/mma_int8.cuh: cp_async16
+COPY4 = '"r"(ok ? 4 : 0)'    # K7's cp_async4
 PRODUCTS = {"        mma_chunk<MW, KH, 3, NT, PITCH>(":
             "        if (cout < 0) mma_chunk<MW, KH, 3, NT, PITCH>(",
             "        for (int kc = 0; kc < NK; ++kc) {":
@@ -41,22 +43,26 @@ PRODUCTS = {"        mma_chunk<MW, KH, 3, NT, PITCH>(":
 EPILOGUES = ["    epilogue<MW, NT>(", "    epilogue<SMW, NT>("]
 
 
-def builds(src: str) -> dict[str, str]:
-    for line in COPIES + list(PRODUCTS) + EPILOGUES:
-        if src.count(line) != 1:
-            raise RuntimeError("k7_probe: the K7 source no longer has the "
+def builds(src: str, header: str) -> dict[str, tuple[str, str]]:
+    """name -> (K7's source, the shared header csrc/mma_int8.cuh)."""
+    edits = [(header, COPY16), (src, COPY4)] + [
+        (src, line) for line in list(PRODUCTS) + EPILOGUES]
+    for text, line in edits:
+        if text.count(line) != 1:
+            raise RuntimeError("k7_probe: the K7 sources no longer have the "
                                f"line this probe edits: {line!r}")
-    no_copies, no_products, no_epilogue = src, src, src
-    for line in COPIES:
-        no_copies = no_copies.replace(line, '"r"(0)')
+    no_products, no_epilogue = src, src
     # a run-time condition that never holds: the code stays compiled
     for line, skipped in PRODUCTS.items():
         no_products = no_products.replace(line, skipped)
     for line in EPILOGUES:
         no_epilogue = no_epilogue.replace(
             line, line.replace("epilogue", "if (cout < 0) epilogue"))
-    return {"kernel": src, "no_copies": no_copies,
-            "no_products": no_products, "no_epilogue": no_epilogue}
+    return {"kernel": (src, header),
+            "no_copies": (src.replace(COPY4, '"r"(0)'),
+                          header.replace(COPY16, '"r"(0)')),
+            "no_products": (no_products, header),
+            "no_epilogue": (no_epilogue, header)}
 
 
 def main() -> int:
@@ -80,11 +86,15 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     src = (_build.CSRC / "conv7x3_int8.cu").read_text()
+    header = (_build.CSRC / "mma_int8.cuh").read_text()
     fns = {}
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {}
-        for name, text in builds(src).items():
-            cu, so = Path(tmp) / f"{name}.cu", Path(tmp) / f"{name}.so"
+        for name, (text, hdr) in builds(src, header).items():
+            d = Path(tmp) / name
+            d.mkdir()
+            (d / "mma_int8.cuh").write_text(hdr)
+            cu, so = d / "conv7x3_int8.cu", d / "k7.so"
             cu.write_text(text)
             jobs[name] = (so, subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),

@@ -72,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_int8.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;
@@ -95,58 +97,11 @@ __device__ __forceinline__ int8_t requant_prelu(int acc, float s, float b,
     return static_cast<int8_t>(__float2int_rn(v));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; ok == false reads nothing and
-// writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
 // 4 bytes, likewise
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool ok) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(dst), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices (8 rows of 16 bytes each); lane l gives the row
-// address of matrix l / 8, row l % 8, and receives 4 bytes of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
-        : "memory");
-}
-
-// d += a (16x32, row) * b (32x8, col), s8 in, s32 accumulate.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-    asm(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Byte offset of 16-byte unit u (0 or 1) of 32-byte row p within a run of
-// rows: the unit index 2p + u with its low bit XORed with bit 2 of p, so
-// that 8 consecutive rows at one u fill 8 different bank groups.
-__device__ __forceinline__ uint32_t swz(int p, int u) {
-    return static_cast<uint32_t>((2 * p + u) ^ ((p >> 2) & 1)) * 16u;
 }
 
 // The products of one K chunk: for each of the KY x KX taps, the warp's NT

@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
 ``sm_90a`` (all started together), and the objects are linked into one
-shared library with a plain C interface, named by a hash of the sources and
-flags, under ``_build/`` in the package. The first call builds; later calls
-(and later processes) reuse the library. Importing the package never builds.
+shared library with a plain C interface, named by a hash of the sources,
+the headers they share (``csrc/*.cuh``) and the flags, under ``_build/`` in
+the package. The first call builds; later calls (and later processes)
+reuse the library. Importing the package never builds.
 
 The library is bound with ``ctypes``: every pointer and the stream are
 passed as ``c_void_p`` (a bare Python int would be cut to 32 bits).
@@ -41,8 +42,7 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _F, _F, _P, _P, _P, _I, _P,
                                 _I, _I, _I, _I, _I, _P],
-    "octseg_ct2x2_int8": [_P, _P, _P, _P, _I, _F, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _P],
+    "octseg_ct2x2_int8": [_P, _P, _P, _P, _I, _F, _P] + [_I] * 12 + [_P],
     "octseg_head_argmax": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     "octseg_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "octseg_conv3x3_bf16_mma": [_P, _P, _P] + [_I] * 10 + [_P],
@@ -83,7 +83,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liboctseg_kernels_{h.hexdigest()[:16]}.so"

@@ -467,16 +467,128 @@ conv3x3_int8.launches = 0
 
 
 def pack_ct2x2_weights(w_q: torch.Tensor) -> torch.Tensor:
-    """(cin, cout, 2, 2) int8 (ConvTranspose2d layout) -> (cinp/4, colp, 4)
-    int8: int32 word [j, col] holds w[4j..4j+3, co, dy, dx] for column
-    col = (2*dy + dx)*cout + co; cinp = cin padded to 32, colp = 4*cout
-    padded to 64, zero padding."""
+    """(cin, cout, 2, 2) int8 (ConvTranspose2d layout) -> K2's weights (nk,
+    4*cout, 32) int8, K-contiguous per column (the tensor cores' B
+    operand): [j, col, b] = w[32j + b, co, dy, dx] for column col = (2*dy +
+    dx)*cout + co; cin zero-padded to nk * 32."""
     cin, cout, kh, kw = w_q.shape
     assert (kh, kw) == (2, 2) and w_q.dtype == torch.int8, w_q.shape
-    cinp, colp = _round_up(cin, 32), _round_up(4 * cout, 64)
-    dense = torch.zeros(cinp, colp, dtype=torch.int8, device=w_q.device)
-    dense[:cin, :4 * cout] = w_q.permute(0, 2, 3, 1).reshape(cin, 4 * cout)
-    return dense.reshape(cinp // 4, 4, colp).permute(0, 2, 1).contiguous()
+    nk = -(-cin // KCHUNK)
+    dense = torch.zeros(nk * KCHUNK, 4 * cout, dtype=torch.int8,
+                        device=w_q.device)
+    dense[:cin] = w_q.permute(0, 2, 3, 1).reshape(cin, 4 * cout)
+    return dense.reshape(nk, KCHUNK, 4 * cout).permute(0, 2, 1).contiguous()
+
+
+def _ct2x2_dense(w: torch.Tensor, cin: int) -> torch.Tensor:
+    """``pack_ct2x2_weights`` -> the (cin, 4*cout) GEMM operand."""
+    nk, ncol, _ = w.shape
+    return w.permute(0, 2, 1).reshape(nk * KCHUNK, ncol)[:cin]
+
+
+def unpack_ct2x2_weights(w: torch.Tensor, cin: int) -> torch.Tensor:
+    """Inverse of ``pack_ct2x2_weights``: (cin, cout, 2, 2) int8."""
+    return _ct2x2_dense(w, cin).reshape(cin, 2, 2, -1).permute(0, 3, 1, 2)
+
+
+# K2's fixed sizes (csrc/ct2x2_int8.cu): 8 warps a block, each 32 pixels by
+# 64 columns (2 m16 by 8 n8 tiles), so a tile of TM pixels and CO_T output
+# channels (4*CO_T columns) has TM * CO_T = 32 * 128; ring slots of A chunks
+CT_TILES = ((256, 16), (128, 32), (64, 64), (32, 128))
+CT_STAGES = 4
+H100_SMS = 132
+
+
+def ct2x2_smem(tm: int, co_t: int, nk: int) -> int:
+    """Dynamic shared memory of one K2 block (the C side computes the
+    same): the block's weights (nk x 4*co_t rows of 32 bytes), the ring
+    (CT_STAGES x tm rows of 32 bytes), the output tile (2 x tm rows of
+    2*co_t + 16 bytes) and the (scale, bias) pairs of its 4*co_t
+    columns."""
+    return (nk * 4 * co_t * KCHUNK + CT_STAGES * tm * KCHUNK
+            + 2 * tm * (2 * co_t + 16) + 4 * co_t * 8)
+
+
+class Ct2x2Plan(NamedTuple):
+    """K2's launch for one call (``ct2x2_plan``). A block of ``warps``
+    warps owns ``co_t`` output channels (all four taps: 4*co_t GEMM
+    columns; ``n_co`` channel tiles) and walks the tiles of ``tm``
+    consecutive input pixels u = x, x + grid, ... (the grid is
+    (``grid``, ``n_co``)); the ``nk`` K chunks (32 channels) of its tiles
+    pass through a ring of ``stages`` slots, ``smem`` bytes of dynamic
+    shared memory a block, ``blocks_per_sm`` resident. ``loader``:
+    "async" (cp.async; cin % 16 == 0, an aligned input) or "gather"
+    (byte loads). A refused call (its weights do not fit one block's
+    shared memory) has tm = 0."""
+
+    N: int
+    H: int
+    W: int
+    cin: int
+    cout: int
+    tm: int
+    co_t: int
+    warps: int
+    nk: int
+    stages: int
+    grid: int
+    n_co: int
+    loader: str
+    blocks_per_sm: int
+    smem: int
+
+    @property
+    def units(self) -> int:
+        return -(-self.N * self.H * self.W // self.tm) if self.tm else 0
+
+
+def ct2x2_plan_for(N: int, H: int, W: int, cin: int, cout: int, co_t: int,
+                   aligned: bool = True, sms: int = H100_SMS,
+                   persistent: bool = True) -> Ct2x2Plan:
+    """K2's plan at ``co_t`` output channels a block (16, 32, 64 or 128),
+    admitted or not (``ct2x2_plan`` chooses). Two resident blocks an SM
+    where their shared memory fits (the kernel's __launch_bounds__ holds
+    its registers to two: 64 int32 accumulators a thread), else one; a
+    persistent grid of that many blocks an SM over the channel tiles, or
+    (``persistent=False``) one block a tile."""
+    tm = dict((c, t) for t, c in CT_TILES)[co_t]
+    nk = -(-cin // KCHUNK)
+    smem = ct2x2_smem(tm, co_t, nk)
+    per_sm = SM_SMEM // (smem + BLOCK_SMEM_RESERVED)
+    loader = "async" if cin % 16 == 0 and aligned else "gather"
+    n_co = -(-cout // co_t)
+    if per_sm < 1:
+        return Ct2x2Plan(N, H, W, cin, cout, 0, co_t, 8, nk, CT_STAGES, 0,
+                         n_co, loader, 0, smem)
+    per_sm = min(per_sm, 2)
+    units = -(-N * H * W // tm)
+    grid = units if not persistent else min(
+        units, max(1, per_sm * sms // n_co))
+    return Ct2x2Plan(N, H, W, cin, cout, tm, co_t, 8, nk, CT_STAGES, grid,
+                     n_co, loader, per_sm, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def ct2x2_plan(N: int, H: int, W: int, cin: int, cout: int,
+               aligned: bool = True, sms: int = H100_SMS) -> Ct2x2Plan:
+    """K2's plan for (N, H, W, cin) -> (N, 2H, 2W, cout). ``aligned``: the
+    input pointer is 16-byte aligned; ``sms``: the card's SM count.
+
+    Output channels a block: the widest of 128, 64, 32, 16 that is not
+    above cout (rounded up to 16) and lets two blocks share an SM (the
+    block keeps cin x 4*co_t weight bytes resident), else the widest for
+    one block. At f = 32 that is co_t = cout at ct3 (32: 128-pixel tiles)
+    and ct2 (64: 64-pixel tiles), 64 at ct1 and 32 at ct0. The grid is
+    persistent: the next tile's chunks are copied while a tile's epilogue
+    runs."""
+    wide = _round_up(cout, 16)
+    fits = [ct2x2_plan_for(N, H, W, cin, cout, c, aligned, sms)
+            for t, c in CT_TILES[::-1] if c <= wide]
+    for need in (2, 1):
+        for plan in fits:
+            if plan.blocks_per_sm >= need:
+                return plan
+    return fits[-1]  # refused (tm = 0)
 
 
 def ct2x2_int8_reference(x: torch.Tensor, w: torch.Tensor,
@@ -485,8 +597,7 @@ def ct2x2_int8_reference(x: torch.Tensor, w: torch.Tensor,
     """Plain version of K2 (any device)."""
     N, H, W, cin = x.shape
     cout = scale.shape[0]
-    dense = w.permute(0, 2, 1).reshape(-1, w.shape[1])[:cin, :4 * cout]
-    acc = x.reshape(-1, cin).double() @ dense.double()
+    acc = x.reshape(-1, cin).double() @ _ct2x2_dense(w, cin).double()
     acc = acc.reshape(N, H, W, 2, 2, cout)
     if bias.numel() == 4 * cout:  # per column (2*dy + dx)*cout + co
         bias = bias.reshape(2, 2, cout)
@@ -494,13 +605,19 @@ def ct2x2_int8_reference(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 1, 3, 2, 4, 5).reshape(N, 2 * H, 2 * W, cout)
 
 
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def ct2x2_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, *, out_clip: float = 127.0) -> torch.Tensor:
     """K2: (N, H, W, cin) int8 -> (N, 2H, 2W, cout) int8 with
     out[n, 2i+dy, 2j+dx, co] = requant(x[n, i, j, :] . w[:, co, dy, dx]),
-    no relu, clip +-``out_clip``. w: ``pack_ct2x2_weights``; cin must be a
-    multiple of 4. bias: ``cout`` values, or ``4*cout`` indexed by the
-    column ``(2*dy + dx)*cout + co`` (a per-tap bias)."""
+    no relu, clip +-``out_clip`` (an integer in [0, 127]). w:
+    ``pack_ct2x2_weights``; cin must be a multiple of 4. bias: ``cout``
+    values, or ``4*cout`` indexed by the column ``(2*dy + dx)*cout + co``
+    (a per-tap bias). The launch is ``ct2x2_plan``'s."""
     if x.device.type == "cpu":
         return ct2x2_int8_reference(x, w, scale, bias, out_clip=out_clip)
     dev = x.device
@@ -510,19 +627,28 @@ def ct2x2_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     cout = scale.shape[0]
     _check(cin % 4 == 0, f"ct2x2_int8: cin {cin} not a multiple of 4")
     _check_cuda_int8(w, 3, "ct2x2_int8 weights", dev)
-    cinp, colp = _round_up(cin, 32), _round_up(4 * cout, 64)
-    _check(tuple(w.shape) == (cinp // 4, colp, 4),
-           f"ct2x2_int8: weights {tuple(w.shape)}, expected "
-           f"{(cinp // 4, colp, 4)}")
+    nk = -(-cin // KCHUNK)
+    _check(tuple(w.shape) == (nk, 4 * cout, KCHUNK)
+           and w.data_ptr() % 16 == 0,
+           f"ct2x2_int8: weights {tuple(w.shape)}, expected 16-byte aligned "
+           f"{(nk, 4 * cout, KCHUNK)}")
     _check_vec(scale, cout, "ct2x2_int8 scale", dev)
     per_col = bias.numel() == 4 * cout
     _check_vec(bias, 4 * cout if per_col else cout, "ct2x2_int8 bias", dev)
+    _check(float(out_clip).is_integer() and 0 <= out_clip <= 127,
+           f"ct2x2_int8: out_clip {out_clip}: an integer in [0, 127]")
+    plan = ct2x2_plan(N, H, W, cin, cout, x.data_ptr() % 16 == 0,
+                      _sm_count(dev.index if dev.index is not None
+                                else torch.cuda.current_device()))
+    _check(plan.tm > 0, f"ct2x2_int8: no launch for cin {cin}, cout "
+           f"{cout}: the weights need {plan.smem} bytes of shared memory")
     y = torch.empty((N, 2 * H, 2 * W, cout), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().octseg_ct2x2_int8(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            int(per_col), float(out_clip), y.data_ptr(), N, H, W, cin, cinp,
-            cout, colp, _stream(x))
+            int(per_col), float(out_clip), y.data_ptr(), N, H, W, cin, cout,
+            plan.tm, plan.co_t, plan.nk, plan.stages, plan.grid,
+            int(plan.loader == "gather"), plan.smem, _stream(x))
     _build.check(err, "ct2x2_int8")
     ct2x2_int8.launches += 1
     return y

@@ -101,6 +101,99 @@ def test_k2_matches_plain(dev, n, h, w, cin, cout):
                        k12.ct2x2_int8_reference(x, wk, sc, b))
 
 
+# K2's tensor-core body at the served forward's four calls (f=32, batch 2)
+# and at odd shapes: (n, h, w, cin, cout, mode, misaligned input)
+K2_CASES = [
+    (2, 32, 32, 512, 256, "int8", False), (2, 64, 64, 256, 128, "int8", False),
+    (2, 128, 128, 128, 64, "int8", False), (2, 256, 256, 64, 32, "int8", False),
+    (2, 32, 32, 512, 256, "w4a4", False), (2, 64, 64, 256, 128, "w4a4", False),
+    (2, 5, 7, 96, 40, "int8", False),     # edge tile, cout % 16 != 0
+    (1, 3, 10, 48, 40, "w4a4", False),    # cin % 32 = 16
+    (2, 9, 9, 64, 32, "int8", True),      # the byte gatherer
+    (1, 4, 4, 12, 5, "w4a4", False),
+]
+
+
+def _k2_args(rng, dev, n, h, w, cin, cout, mode, misaligned=False):
+    four = mode == "w4a4"
+    lo, hi = (-7, 8) if four else (-127, 128)
+    x = _i8(rng, (n * h * w * cin + 4,), dev, lo, hi)
+    x = (x[4:] if misaligned else x[:-4]).view(n, h, w, cin)
+    wk = k12.pack_ct2x2_weights(_i8(rng, (cin, cout, 2, 2), dev, lo, hi))
+    std = cin ** 0.5 * (16 if four else 73 ** 2)
+    sc = _vec(rng, cout, (3 if four else 30) / std, (6 if four else 60) / std,
+              dev)
+    b = _vec(rng, 4 * cout if four else cout, -3, 3, dev)
+    return x, wk, sc, b, 7.0 if four else 127.0
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,mode,misaligned", K2_CASES)
+def test_k2_mma_matches_plain(dev, n, h, w, cin, cout, mode, misaligned):
+    """The tensor-core body bit for bit against the plain version, one
+    launch a call; the w4a4 knobs (per-column bias, clip 7)."""
+    rng = np.random.default_rng(30)
+    x, wk, sc, b, clip = _k2_args(rng, dev, n, h, w, cin, cout, mode,
+                                  misaligned)
+    assert (x.data_ptr() % 16 != 0) == misaligned
+    before = k12.ct2x2_int8.launches
+    got = k12.ct2x2_int8(x, wk, sc, b, out_clip=clip)
+    torch.cuda.synchronize()
+    assert k12.ct2x2_int8.launches == before + 1
+    want = k12.ct2x2_int8_reference(x, wk, sc, b, out_clip=clip)
+    assert torch.equal(got, want)
+    assert len(torch.unique(want)) > 3
+    if clip == 7.0:
+        assert int(got.abs().max()) == 7
+
+
+@pytest.mark.parametrize("h,cin,cout", [(32, 512, 256), (256, 64, 32)])
+def test_k2_repeat_calls_identical(dev, h, cin, cout):
+    """Two calls on the same inputs give the same bits (ct0 and ct3)."""
+    rng = np.random.default_rng(31)
+    x, wk, sc, b, _ = _k2_args(rng, dev, 2, h, h, cin, cout, "int8")
+    first = k12.ct2x2_int8(x, wk, sc, b)
+    assert torch.equal(first, k12.ct2x2_int8(x, wk, sc, b))
+
+
+def test_k2_extremes(dev):
+    """+-127 inputs and weights at ct0 (|acc| up to 512 * 127^2 =
+    8,258,048, exact in float32), bit for bit."""
+    rng = np.random.default_rng(32)
+    x = torch.tensor(rng.choice([-127, 127], (2, 32, 32, 512)),
+                     dtype=torch.int8, device=dev)
+    wq = torch.tensor(rng.choice([-127, 127], (512, 256, 2, 2)),
+                      dtype=torch.int8, device=dev)
+    wq[:, 0] = 127  # column 0 of every tap: |acc| = 512 * 127^2 at x = +-127
+    x[0, 0, 0] = 127
+    wk = k12.pack_ct2x2_weights(wq)
+    sc = _vec(rng, 256, 1e-5, 2e-5, dev)
+    b = _vec(rng, 256, -5, 5, dev)
+    got = k12.ct2x2_int8(x, wk, sc, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k12.ct2x2_int8_reference(x, wk, sc, b))
+    assert int(got.abs().max()) == 127
+
+
+def test_k2_refuses_what_it_cannot_take(dev):
+    """Weights of the old layout or the wrong width, a clip that is not an
+    integer, and cin too deep for the block's shared memory raise; nothing
+    is launched."""
+    rng = np.random.default_rng(33)
+    x, wk, sc, b, _ = _k2_args(rng, dev, 1, 4, 4, 64, 32, "int8")
+    before = k12.ct2x2_int8.launches
+    with pytest.raises(ValueError, match="weights"):
+        k12.ct2x2_int8(x, wk.reshape(16, 128, 4), sc, b)
+    with pytest.raises(ValueError, match="weights"):
+        k12.ct2x2_int8(x, wk[:, :64].contiguous(), sc, b)
+    with pytest.raises(ValueError, match="out_clip"):
+        k12.ct2x2_int8(x, wk, sc, b, out_clip=7.5)
+    deep = _i8(rng, (1, 2, 2, 4096), dev)
+    wd = k12.pack_ct2x2_weights(_i8(rng, (4096, 8, 2, 2), dev))
+    with pytest.raises(ValueError, match="no launch"):
+        k12.ct2x2_int8(deep, wd, sc[:8].contiguous(), b[:8].contiguous())
+    assert k12.ct2x2_int8.launches == before
+
+
 def test_k3_matches_plain_with_tie(dev):
     rng = np.random.default_rng(2)
     x = _i8(rng, (2, 8, 8, 32), dev)
