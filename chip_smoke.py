@@ -12,10 +12,12 @@ Phases (any failure raises; the exit code is then non-zero):
    and the build of the CUDA kernels from ``csrc/``;
 2. kernels: every stage of the served graph (f=32, 512x512, batch 2) on
    its kernel and on the kernel's plain PyTorch version, bit for bit; K1's
-   plan at each stage (the 17 non-stem stages must be on its mma.sync
-   body) and K2's; K2 called twice at ct0 and ct3 (the same bits), at
-   +-127 inputs and weights (ct0) and where the pixels are not a multiple
-   of its tile, bit for bit;
+   plan at each stage (the stem must be on its stem body, the 17 other
+   stages on its mma.sync body) and K2's; K2 called twice at ct0 and ct3
+   (the same bits), at +-127 inputs and weights (ct0) and where the pixels
+   are not a multiple of its tile, bit for bit; K1's stem body at +-127
+   inputs and weights, at f=16, at an edge shape (80 x 48), with border
+   values a wrong halo would change, and called twice, bit for bit;
 3. graph: the U-Net (f=32, 10 classes, seeded random weights), folded,
    calibrated and quantized; labels of the kernel graph identical to the
    plain graph's at batch 8, and agreeing with the all-int8 oracle
@@ -24,9 +26,11 @@ Phases (any failure raises; the exit code is then non-zero):
    12 requests from 3 client threads; every response equals the direct
    forward, and every forward launched K1 18 times, K2 4 times, K3 once;
 5. times on the card (CUDA events; K1 and K2 also device time): each
-   kernel against its plain version at batch 32, K1's 17 non-stem stages
-   also against its dp4a body through that body's own entry point
-   (bit-equal), K2's four calls with their bound's share, GB/s and TOPS,
+   kernel against its plain version at batch 32, every K1 stage also
+   against its dp4a body through that body's own entry point
+   (bit-equal), the stem with its bound's share, GB/s and the device time
+   of ``zero_()`` on a tensor of its output's shape (a write-rate
+   yardstick), K2's four calls with their bound's share, GB/s and TOPS,
    the served forward at batch 32 and 128 with a profile at 32, serve
    latency;
 6. training kernels: K4 (forward and dgrad) and K5 at the 17 non-stem 3x3
@@ -1874,7 +1878,8 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
                 l1["scale"], l1["bias"])
 
     def two_launches():
-        mid = k12.conv3x3_int8((xq,), l0["w_k"], l0["scale"], l0["bias"])
+        mid = k12.conv3x3_int8((xq,), l0["w_k"], l0["scale"], l0["bias"],
+                               w_mma=l0["w_m"])
         return k12.conv3x3_int8((mid,), l1["w_k"], l1["scale"], l1["bias"],
                                 pool=True, w_mma=l1["w_m"])
 
@@ -2895,8 +2900,9 @@ def main() -> int:
             wq = i8((cout, sum(cins), 3, 3))
             std = (9 * sum(cins)) ** 0.5 * 64 * 73
             kw = {"relu": True, "pool": pool}
-            if sum(cins) > 4:  # packed once, as the graph's w_m
-                kw["w_mma"] = k12.pack_conv3x3_mma_weights(wq)
+            # packed once, as the graph's w_m
+            kw["w_mma"] = (k12.pack_stem_mma_weights(wq) if cins == (1,)
+                           else k12.pack_conv3x3_mma_weights(wq))
             args = (xs, k12.pack_conv3x3_weights(wq))
         elif kernel == "ct2x2_int8":
             h, cin, cout = shape
@@ -2928,6 +2934,14 @@ def main() -> int:
         return k12.conv3x3_plan(N, H, W, tuple(x.shape[-1] for x in xs),
                                 scale.shape[0], False,
                                 all(x.data_ptr() % 16 == 0 for x in xs))
+
+    def k1_plan_text(plan):
+        """K1's launch: the stem body's grid, the mma.sync body's tile."""
+        if plan.body == "stem":
+            return (f"N {plan.co_t}, {plan.warps}-row tiles, grid "
+                    f"{plan.grid}, {plan.blocks_per_sm} blocks an SM")
+        return (f"N {plan.co_t}, {plan.warps} warps, stages "
+                f"{plan.stages}")
 
     def k2_plan_text(args):
         """K2's launch for these arguments: tile pixels x channels, the
@@ -2964,7 +2978,7 @@ def main() -> int:
     phase("2 kernels vs plain versions (batch 2, every stage)")
     max_err = {k: 0 for k in wrappers}
     bad = 0
-    off_mma = []  # non-stem K1 stages the plan leaves on the dp4a body
+    off_mma = []  # K1 stages the plan leaves off their tensor-core body
     for name, kernel, shape in stages():
         args, kw = stage_args(kernel, shape, 2)
         got = wrappers[kernel](*args, **kw)
@@ -2984,9 +2998,8 @@ def main() -> int:
                 raise RuntimeError("head tie did not go to the lowest class")
         if kernel == "conv3x3_int8":
             plan = k1_plan(args)
-            extra = (f", body {plan.body} (N {plan.co_t}, {plan.warps} "
-                     f"warps, stages {plan.stages})")
-            if not name.startswith("stem") and plan.body != "mma":
+            extra = f", body {plan.body} ({k1_plan_text(plan)})"
+            if plan.body != ("stem" if name.startswith("stem") else "mma"):
                 off_mma.append(name)
         if kernel == "ct2x2_int8":
             extra = f", plan {k2_plan_text(args)}"
@@ -3034,10 +3047,72 @@ def main() -> int:
         max_err["ct2x2_int8"] = max(max_err["ct2x2_int8"], int(
             (got.int() - want.int()).abs().max()))
         bad += mism
+    # K1's stem body at +-127 inputs and weights (|acc| up to 9 * 127^2),
+    # at f=16, at an edge shape, with positive inputs and weights whose
+    # border pixels (fewer taps) lie below their inner neighbours, and
+    # called twice on the same inputs
+    for label, (n, hh, ww, cout, case) in {
+            "stem +-127": (2, HW, HW, F, "ext"),
+            "stem f=16": (2, HW, HW, 16, "rand"),
+            "stem edge": (2, 80, 48, F, "rand"),
+            "stem borders": (2, HW, HW, F, "borders")}.items():
+        if case == "ext":
+            vals = np.array([-127, 127])
+            x = torch.tensor(gen.choice(vals, (n, hh, ww, 1)),
+                             dtype=torch.int8, device=dev)
+            wq = torch.tensor(gen.choice(vals, (cout, 1, 3, 3)),
+                              dtype=torch.int8, device=dev)
+            x[0, :3, :3] = 127
+            wq[0] = 127  # pixel (0, 1, 1), channel 0: 9 * 127^2
+            std = 3 * 127 ** 2
+        elif case == "borders":
+            # the biases small against the sums, few outputs clipped: a
+            # border pixel (6 or 4 taps) lies below its inner neighbour
+            # (9 taps), and a halo that is not zero would show
+            x, wq = i8((n, hh, ww, 1), 100, 128), i8((cout, 1, 3, 3), 1, 128)
+            std = 9 * 127 ** 2 / 4
+        else:
+            x, wq = i8((n, hh, ww, 1)), i8((cout, 1, 3, 3))
+            std = 3 * 73 * 73
+        args = ((x,), k12.pack_conv3x3_weights(wq),
+                torch.tensor(gen.uniform(30, 60, cout) / std,
+                             dtype=torch.float32, device=dev),
+                torch.tensor(gen.uniform(-5, 5, cout), dtype=torch.float32,
+                             device=dev))
+        plan = k1_plan(args)
+        wm = k12.pack_stem_mma_weights(wq)
+        got = k12.conv3x3_int8(*args, w_mma=wm)
+        again = k12.conv3x3_int8(*args, w_mma=wm)
+        want = k12.conv3x3_int8_reference(*args)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        repeat = int((again != got).sum())
+        note = ""
+        if case == "borders":  # rows 0 and H-1, columns 0 and W-1
+            inner = want[:, 1:-1, 1:-1].int()
+            lower = [float((edge.int() < nb).float().mean()) for edge, nb in
+                     ((want[:, 0, 1:-1], inner[:, 0]),
+                      (want[:, -1, 1:-1], inner[:, -1]),
+                      (want[:, 1:-1, 0], inner[:, :, 0]),
+                      (want[:, 1:-1, -1], inner[:, :, -1]))]
+            note = (f", border outputs below their inner neighbours "
+                    f"{[round(v, 3) for v in lower]}")
+            if min(lower) < 0.5:
+                raise RuntimeError("the border case does not show the borders")
+        print(f"K1 {label:12s} {(n, hh, ww, 1, cout)} body {plan.body} "
+              f"({k1_plan_text(plan)}), max |out| {int(got.abs().max())}, "
+              f"mismatches {mism}, second call differs at {repeat}{note}",
+              flush=True)
+        if plan.body != "stem":
+            off_mma.append(label)
+        max_err["conv3x3_int8"] = max(max_err["conv3x3_int8"], int(
+            (got.int() - want.int()).abs().max()))
+        bad += mism + repeat
+        del x, wq, args, got, again, want
     if bad:
         raise RuntimeError(f"{bad} kernel outputs differ from plain")
     if off_mma:
-        raise RuntimeError(f"K1 stages off the mma.sync body: {off_mma}")
+        raise RuntimeError(f"K1 stages off their tensor-core body: {off_mma}")
 
     # ------------------------------------------------------------------ 3
     phase("3 graph: f=32, 10 classes, 512x512")
@@ -3170,9 +3245,10 @@ def main() -> int:
     totals = {k: [0.0, 0.0] for k in wrappers}
     bounds = {k: {"operations": 0.0, "bytes": 0.0} for k in wrappers}
     by_row = {}  # TPU kernel id -> [stages, kernel ms, plain ms, bound ms]
-    # K1's 17 non-stem stages: the new body (event, device) against the
-    # dp4a body at the same shape (event, device), and the bound
+    # K1's 17 non-stem stages: the mma.sync body (event, device) against
+    # the dp4a body at the same shape (event, device), and the bound
     k1 = {"ms": 0.0, "dev": 0.0, "dp4a": 0.0, "dp4a_dev": 0.0, "bound": 0.0}
+    stem = {}  # the stem: the same, and the write-rate yardstick
     k1_rows = {}  # TPU kernel id -> [event ms, device ms]
     k1_slower = []
     k1_dev = 0.0  # K1's device time over every stage
@@ -3199,30 +3275,43 @@ def main() -> int:
             with torch.inference_mode():
                 dms = device_ms(lambda: wrappers[kernel](*args, **kw))
                 k1_dev += dms
-                extra = (f" (device {dms:.4f}; body {plan.body}, N "
-                         f"{plan.co_t}, {plan.warps} warps, stages "
-                         f"{plan.stages})")
-                if not name.startswith("stem"):
-                    d_ms = time_ms(lambda: k1_dp4a(args, kw))
-                    d_dms = device_ms(lambda: k1_dp4a(args, kw))
-                    same = all(torch.equal(a, b) for a, b in zip(
-                        as_tuple(k1_dp4a(args, kw)),
-                        as_tuple(wrappers[kernel](*args, **kw))))
-                    if not same:
-                        raise RuntimeError(f"K1's bodies differ at {name}")
+                extra = (f" (device {dms:.4f}; body {plan.body}, "
+                         f"{k1_plan_text(plan)})")
+                d_ms = time_ms(lambda: k1_dp4a(args, kw))
+                d_dms = device_ms(lambda: k1_dp4a(args, kw))
+                same = all(torch.equal(a, b) for a, b in zip(
+                    as_tuple(k1_dp4a(args, kw)),
+                    as_tuple(wrappers[kernel](*args, **kw))))
+                if not same:
+                    raise RuntimeError(f"K1's bodies differ at {name}")
+                r = k1_rows.setdefault(tpu_row(name, kernel, shape),
+                                       [0.0, 0.0])
+                r[0] += ms
+                r[1] += dms
+                k1_plans[name.split()[-1]] = (
+                    f"stem N{plan.co_t} grid {plan.grid}"
+                    if plan.body == "stem" else
+                    f"{plan.body} N{plan.co_t} w{plan.warps} s{plan.stages}")
+                if dms >= d_dms:
+                    k1_slower.append(name)
+                extra += (f", dp4a body {d_ms:.4f} ms (device "
+                          f"{d_dms:.4f}; bit-equal)")
+                if name.startswith("stem"):
+                    zero = torch.empty_like(as_tuple(
+                        wrappers[kernel](*args, **kw))[0])
+                    z_dms = device_ms(lambda: zero.zero_())
+                    nbytes = serving_work(kernel, shape, 32)[1]
+                    stem.update(ms=ms, dev=dms, dp4a=d_ms, dp4a_dev=d_dms,
+                                bound=b_ms, zero=z_dms, bytes=nbytes)
+                    extra += (f"; {100 * b_ms / dms:.2f}% of the bound's "
+                              f"rate, {nbytes / dms / 1e6:.1f} GB/s; "
+                              f"zero_() of the output's shape (write-rate "
+                              f"yardstick) device {z_dms:.4f} ms")
+                    del zero
+                else:
                     for key, v in (("ms", ms), ("dev", dms), ("dp4a", d_ms),
                                    ("dp4a_dev", d_dms), ("bound", b_ms)):
                         k1[key] += v
-                    r = k1_rows.setdefault(tpu_row(name, kernel, shape),
-                                           [0.0, 0.0])
-                    r[0] += ms
-                    r[1] += dms
-                    k1_plans[name] = (f"{plan.body} N{plan.co_t} "
-                                      f"w{plan.warps} s{plan.stages}")
-                    if dms >= d_dms:
-                        k1_slower.append(name)
-                    extra += (f", dp4a body {d_ms:.4f} ms (device "
-                              f"{d_dms:.4f}; bit-equal)")
         if kernel == "ct2x2_int8":
             with torch.inference_mode():
                 dms = device_ms(lambda: wrappers[kernel](*args, **kw))
@@ -3256,6 +3345,15 @@ def main() -> int:
           f"{100 * k1['bound'] / k1['dev']:.2f}% of the bound's rate; "
           f"stages not faster than the dp4a body: {k1_slower or 'none'}",
           flush=True)
+    print(f"time b32 K1's stem (stem body): event {stem['ms']:.4f} ms, "
+          f"device {stem['dev']:.4f} ms (must <= 0.40, aim <= 0.165), "
+          f"dp4a body event {stem['dp4a']:.4f} ms, device "
+          f"{stem['dp4a_dev']:.4f} ms, {stem['dp4a_dev'] / stem['dev']:.2f}x "
+          f"(must >= 8), bound {stem['bound']:.4f} ms, "
+          f"{100 * stem['bound'] / stem['dev']:.2f}% of the bound's rate, "
+          f"{stem['bytes'] / stem['dev'] / 1e6:.1f} GB/s; write-rate "
+          f"yardstick zero_() {stem['zero']:.4f} ms "
+          f"({stem['bytes'] / stem['zero'] / 1e6:.1f} GB/s)", flush=True)
     print(f"time b32 K2's four calls (ct0-ct3): event {k2['ms']:.4f} ms, "
           f"device {k2['dev']:.4f} ms, bound {k2['bound']:.4f} ms, "
           f"{100 * k2['bound'] / k2['dev']:.2f}% of the bound's rate, "
@@ -3275,7 +3373,8 @@ def main() -> int:
                 profile_breakdown(
                     lambda: forward(xb), 3, f"the served forward, batch {n}",
                     {"K1 mma.sync body": "conv3x3_int8_mma",
-                     "K1 dp4a body (stem)": "conv3x3_int8_kernel",
+                     "K1 stem body": "conv3x3_int8_stem",
+                     "K1 dp4a body": "conv3x3_int8_kernel",
                      "K2 ct2x2_int8": "ct2x2_int8",
                      "K3 head_argmax": "head_argmax"})
         del xb

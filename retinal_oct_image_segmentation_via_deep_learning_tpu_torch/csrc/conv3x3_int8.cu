@@ -44,7 +44,31 @@
 // others (blk7_conv0's 128 channels in, and every stage from 128^2 down)
 // are bound by operations.
 //
-// K1 has two bodies; ops/conv_int8.py:conv3x3_plan chooses one per call.
+// The stem (Cin = 1) is bound by bytes everywhere: 18 multiply-adds a
+// pixel and output channel against one byte written for each, so at 512^2
+// x 32 channels its 268 MB of int8 output (batch 32) set the bound.
+//
+// K1 has three bodies; ops/conv_int8.py:conv3x3_plan chooses one per call
+// by shape.
+// - conv3x3_int8_stem (one input of one channel, cout 16, 32 or 64, W a
+//   multiple of 16, an aligned input; no pool, no head): the stem of the
+//   served graphs. The 9 taps are folded into K of one mma.sync m16n8k32
+//   s8: K byte 4*ky + kx holds tap (ky, kx), so lane l (t = l % 4) holds in
+//   its A register a0 the 4 input bytes of halo row ky = t, columns x-1 ..
+//   x+2, of its pixel x (the fourth byte meets a zero weight; lanes t = 3
+//   meet only zero weights), one funnel shift of two 32-bit words of the
+//   byte halo in shared memory; a2, a3 and b1 (K bytes 16-31) are 0. One
+//   product a n8 tile covers 16 pixels. The weights stay in registers (b0
+//   of each n8 tile), and the output channels are permuted in the weight
+//   pack so that the C fragment gives each lane cout/4 consecutive
+//   channels of one pixel: column 2q+e of n8 tile j is channel (cout/4)q +
+//   2j + e. The requant (K1's: the FMA, then rounded_bits) runs in
+//   registers, and each lane stores its cout/4 bytes of a pixel in one
+//   4-, 8- or 16-byte store: a warp's store is 8 pixels x cout bytes,
+//   contiguous. A persistent grid walks tiles of 8 whole image rows (one a
+//   warp); the next tile's 10 halo rows arrive by cp.async into the other
+//   half of a double buffer while this tile multiplies and stores.
+//   Halo rows and columns outside the image hold the pad value.
 // - conv3x3_int8_mma (every input's channels a multiple of 32, cout a
 //   multiple of 32, 16-byte aligned inputs; with the head cout = 32):
 //   K7's implicit GEMM (csrc/conv7x3_int8.cu:conv7x3_mma) with KH = 3 on
@@ -76,7 +100,7 @@
 //   pooled int8 tile leaves as 16-byte stores too. The head reads the
 //   int8 tile and the head's weights (in the freed ring) from shared
 //   memory, one thread per pixel.
-// - conv3x3_int8_kernel (the stem, cin <= 4; odd channel counts;
+// - conv3x3_int8_kernel (odd channel counts, stems of other widths,
 //   misaligned inputs): the first design, on __dp4a. A block stages an
 //   18 x 18-pixel input tile and the matching weight slice per 32-channel
 //   chunk; each thread reuses every input word of its 4x4 window across 8
@@ -85,6 +109,9 @@
 //
 // Weights: the mma.sync body reads ops/conv_int8.py:pack_conv3x3_mma_weights,
 // int8 (nk, 9, cout, 32), byte [j, t, co, b] = w[t/3, t%3, 32j+b, co]. The
+// stem body reads pack_stem_mma_weights, int8 (cout, 16): row n = 8j + c
+// (GEMM column c of n8 tile j) holds channel (cout/4)(c/2) + 2j + c%2,
+// byte 4*ky + kx its tap (ky, kx), bytes 4*ky + 3 and 12-15 zero. The
 // dp4a body reads pack_conv3x3_weights, int32 words (9, cinp/4, coutp):
 // word [t, j, co] holds w[t//3, t%3, 4j..4j+3, co], cinp = cin padded to
 // the chunk width, coutp = cout padded to 32; padding is zero. Head
@@ -633,6 +660,142 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // a clip bound the epilogue's rounding takes: an integer in [0, 127]
 bool integral_clip(float c) { return c >= 0.0f && c <= 127.0f && c == floorf(c); }
 
+// --------------------------------------------------------------- stem body
+// A block is STEM_WARPS warps on a tile of STEM_WARPS whole image rows, one
+// a warp. A halo row is the image row with STEM_PAD bytes of pad value on
+// either side (column c at byte STEM_PAD + c); a buffer holds the tile's
+// STEM_WARPS + 2 halo rows, and there are two buffers.
+constexpr int STEM_WARPS = 8;
+constexpr int STEM_PAD = 16;
+constexpr int STEM_K = 16;  // bytes of a weight row: tap (ky, kx) at 4ky + kx
+
+int stem_smem_bytes(int W) { return 2 * (STEM_WARPS + 2) * (W + 2 * STEM_PAD); }
+
+// The low bytes of r[0..3] as one word, r[0] lowest.
+__device__ __forceinline__ uint32_t pack4(const uint32_t* r) {
+    return __byte_perm(__byte_perm(r[0], r[1], 0x0040),
+                       __byte_perm(r[2], r[3], 0x0040), 0x5410);
+}
+
+// NT n8 tiles: cout = 8 * NT output channels, cout / 4 of them a lane.
+template <int NT>
+__global__ void __launch_bounds__(32 * STEM_WARPS, NT == 8 ? 2 : 4) conv3x3_int8_stem(
+    const int8_t* __restrict__ x, const uint32_t* __restrict__ w,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    int8_t* __restrict__ y, int H, int W, int relu, int pad, float out_clip,
+    int tiles_y, int n_tiles) {
+    constexpr int COUT = 8 * NT, CPL = COUT / 4, THREADS_B = 32 * STEM_WARPS;
+    extern __shared__ __align__(16) uint8_t stem_smem[];
+    const uint32_t base = smem_addr(stem_smem);
+    const int pitch = W + 2 * STEM_PAD, units = pitch / 16;
+    const int buf = (STEM_WARPS + 2) * pitch;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+
+    // b0 of n8 tile j: taps (t, 0..2) of GEMM column g (zero for t = 3)
+    uint32_t b[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) b[j] = w[(8 * j + g) * (STEM_K / 4) + t];
+    // this lane's channels CPL * t .. CPL * t + CPL - 1
+    float sc[CPL], bi[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+        sc[i] = scale[CPL * t + i];
+        bi[i] = bias[CPL * t + i];
+    }
+    const float lo = relu ? 0.0f : -out_clip;  // relu, then the clip
+    const uint32_t f = splat(pad);
+
+    // tile u's halo (image rows y0 - 1 .. y0 + STEM_WARPS) into buffer s
+    auto issue = [&](int u, int s) {
+        if (u < n_tiles) {
+            const int n = u / tiles_y, y0 = (u - n * tiles_y) * STEM_WARPS;
+            for (int e = tid; e < (STEM_WARPS + 2) * units; e += THREADS_B) {
+                const int hr = e / units, c = e - hr * units;
+                const int iy = y0 - 1 + hr;
+                const uint32_t dst = s * buf + hr * pitch + 16 * c;
+                if (iy >= 0 && iy < H && c >= 1 && c < units - 1)
+                    cp_async16(base + dst, x + ((size_t)n * H + iy) * W + 16 * (c - 1),
+                               true);
+                else
+                    *reinterpret_cast<uint4*>(stem_smem + dst) = make_uint4(f, f, f, f);
+            }
+        }
+        cp_async_commit();
+    };
+
+    // this lane's A words: halo row warp + ky (ky = t; lanes t = 3 read
+    // row 2, their K bytes meet zero weights), from the word that holds
+    // column x - 1 of its pixel x = x0 + g, shifted by that column's byte
+    const int word = (STEM_PAD - 1 + g) >> 2;
+    const uint32_t shift = 8 * ((STEM_PAD - 1 + g) & 3);
+    const int row_off = (warp + min(t, 2)) * pitch;
+
+    issue(blockIdx.x, 0);
+    int s = 0;
+    for (int u = blockIdx.x; u < n_tiles; u += gridDim.x, s ^= 1) {
+        cp_async_wait<0>();
+        __syncthreads();  // tile u's halo landed; the other buffer is free
+        issue(u + gridDim.x, s ^ 1);
+        const int n = u / tiles_y, oy = (u - n * tiles_y) * STEM_WARPS + warp;
+        if (oy >= H) continue;
+        const uint32_t* a_row =
+            reinterpret_cast<const uint32_t*>(stem_smem + s * buf + row_off) + word;
+        int8_t* out = y + (((size_t)n * H + oy) * W + g) * COUT + CPL * t;
+        // two 16-pixel tiles an iteration: 5% faster than one (k1_stem_probe.py)
+#pragma unroll 2
+        for (int x0 = 0; x0 < W; x0 += 16) {
+            const uint32_t* p = a_row + x0 / 4;
+            const uint32_t a[4] = {__funnelshift_r(p[0], p[1], shift),
+                                   __funnelshift_r(p[2], p[3], shift), 0u, 0u};
+            int acc[NT][4];
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+                mma_s8(acc[j], a, b[j], 0u);
+            }
+            // pixel x0 + g (h = 0) and x0 + g + 8 (h = 1): byte 2j + e is
+            // column 2t + e of n8 tile j, channel CPL * t + 2j + e
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                uint32_t r[CPL];
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int i = 2 * j + e;
+                        r[i] = rounded_bits(
+                            __fmaf_rn(__int2float_rn(acc[j][2 * h + e]), sc[i], bi[i]),
+                            lo, out_clip);
+                    }
+                int8_t* o = out + (size_t)(x0 + 8 * h) * COUT;
+                if constexpr (CPL == 4) {
+                    *reinterpret_cast<uint32_t*>(o) = pack4(r);
+                } else if constexpr (CPL == 8) {
+                    *reinterpret_cast<uint2*>(o) = make_uint2(pack4(r), pack4(r + 4));
+                } else {
+                    *reinterpret_cast<uint4*>(o) = make_uint4(
+                        pack4(r), pack4(r + 4), pack4(r + 8), pack4(r + 12));
+                }
+            }
+        }
+    }
+    cp_async_wait<0>();
+}
+
+template <int NT>
+int launch_stem(const int8_t* x, const uint32_t* w, const float* scale,
+                const float* bias, int8_t* y, int N, int H, int W, int relu,
+                int pad, float out_clip, int grid, int smem, cudaStream_t s) {
+    const int tiles_y = (H + STEM_WARPS - 1) / STEM_WARPS;
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_int8_stem<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv3x3_int8_stem<NT><<<grid, 32 * STEM_WARPS, smem, s>>>(
+        x, w, scale, bias, y, H, W, relu, pad, out_clip, tiles_y, N * tiles_y);
+    return static_cast<int>(cudaGetLastError());
+}
+
 
 }  // namespace
 
@@ -744,4 +907,39 @@ extern "C" int octseg_conv3x3_int8_mma(
     if (warps == 4) K1_LAUNCH(4, 4, false);
     K1_LAUNCH(4, 8, false);
 #undef K1_LAUNCH
+}
+
+// K1's stem body. x (N, H, W, 1) int8, 16-byte aligned, W a multiple of
+// 16; w: (cout, 16) int8 (ops/conv_int8.py:pack_stem_mma_weights), 16-byte
+// aligned; cout 16, 32 or 64; out_clip an integer in [0, 127]; pad the
+// border value; y (N, H, W, cout) int8, 16-byte aligned. The plan
+// (ops/conv_int8.py:conv3x3_plan) gives grid (persistent blocks; any
+// positive count covers the tiles) and smem (dynamic shared memory
+// bytes). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the plan would not give.
+extern "C" int octseg_conv3x3_int8_stem(
+    const void* x, const void* w, const void* scale, const void* bias,
+    void* y, int N, int H, int W, int cout, int relu, int pad,
+    float out_clip, int grid, int smem, void* stream) {
+    const long long tiles = (long long)N * ((H + STEM_WARPS - 1) / STEM_WARPS);
+    const bool bad =
+        N < 1 || H < 1 || W < 16 || W % 16 != 0 ||
+        (cout != 16 && cout != 32 && cout != 64) || pad < -128 || pad > 127 ||
+        !integral_clip(out_clip) || tiles > 0x7fffffffLL || grid < 1 ||
+        smem != stem_smem_bytes(W) || x == nullptr || !aligned16(x) ||
+        w == nullptr || !aligned16(w) || y == nullptr || !aligned16(y) ||
+        scale == nullptr || bias == nullptr;
+    if (bad) return static_cast<int>(cudaErrorInvalidValue);
+    auto s = static_cast<cudaStream_t>(stream);
+    auto xi = static_cast<const int8_t*>(x);
+    auto wi = static_cast<const uint32_t*>(w);
+    auto sc = static_cast<const float*>(scale);
+    auto bi = static_cast<const float*>(bias);
+    auto yo = static_cast<int8_t*>(y);
+#define K1_STEM(NT) \
+    return launch_stem<NT>(xi, wi, sc, bi, yo, N, H, W, relu, pad, out_clip, grid, smem, s)
+    if (cout == 16) K1_STEM(2);
+    if (cout == 32) K1_STEM(4);
+    K1_STEM(8);
+#undef K1_STEM
 }

@@ -8,6 +8,7 @@ its TPU kernels map onto the port's:
 
     stage                        TPU kernel                  here
     stem (Cin=1)                 stem_conv3x3_int8_packed    K1 conv3x3_int8
+                                                               (stem body)
     blk0_conv1 .. blk1_conv1,    conv3x3_int8_packed         K1 (pool=True
       blk7_*, blk8_*               (+ finish_pool_w)           where it pools)
     blk2 .. blk6 (deep)          conv3x3_int8 (XLA on CPU)   K1

@@ -6,7 +6,8 @@ part of the function; here every activation is plain NHWC int8 and the
 seven TPU kernels of that graph map onto three:
 
     stage                        TPU kernel            here
-    stem (blk0_conv0, Cin=1)     stem_psrp             K1 conv3x3_int8
+    stem (blk0_conv0, Cin=1)     stem_psrp             K1 conv3x3_int8 (its
+                                                         stem body)
     blk0_conv1 .. blk1_conv1,    conv3x3_psrp          K1 (pool=True for
       blk7_*, blk8_*                                     the pooled stages)
     blk2 .. blk6 (deep)          conv3x3_int8          K1 (the two deep
@@ -65,6 +66,7 @@ from ..ops.conv_int8 import (
     pack_conv3x3_mma_weights,
     pack_conv3x3_weights,
     pack_ct2x2_weights,
+    pack_stem_mma_weights,
 )
 from ..ops.head_argmax import (
     head_argmax,
@@ -158,8 +160,10 @@ def _conv_epilogue(name: str, lw: dict, s: dict, a4: bool, n_in: int):
 
 def attach_kernel_params(q: dict, device=None) -> dict:
     """Raw qparams -> serving qparams on ``device``: each layer gains its
-    kernel-ordered weights ``w_k`` (every 3x3 conv but the stem also
-    ``w_m``, the order of K1's tensor-core body), its fused-epilogue
+    kernel-ordered weights ``w_k`` (and ``w_m``, the order of K1's
+    tensor-core bodies: ``pack_stem_mma_weights`` for the stem,
+    ``pack_conv3x3_mma_weights`` for every 3x3 conv of more than 4 input
+    channels), its fused-epilogue
     ``scale`` and ``bias`` (float32, ``(s_in*s_w)/s_out`` and ``b/s_out`` with the w4a4
     mode's folds) and, for K1 and K2, the rest of its epilogue
     (``knobs``: relu, clip, border values, pool rescale). Mode keys
@@ -193,7 +197,10 @@ def attach_kernel_params(q: dict, device=None) -> dict:
             lw["scale"], lw["bias"] = scale.contiguous(), bias.contiguous()
         else:
             lw["w_k"] = pack_conv3x3_weights(lw["w_q"])
-            if lw["w_q"].shape[1] > 4:  # K1's tensor-core body reads these
+            # the orders of K1's tensor-core bodies
+            if name == "blk0_conv0":
+                lw["w_m"] = pack_stem_mma_weights(lw["w_q"])
+            elif lw["w_q"].shape[1] > 4:
                 lw["w_m"] = pack_conv3x3_mma_weights(lw["w_q"])
             n_in = 2 if name in SKIP_KEYS else 1
             scale, bias, lw["knobs"] = _conv_epilogue(name, lw, s, a4, n_in)

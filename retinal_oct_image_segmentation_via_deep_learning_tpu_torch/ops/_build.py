@@ -42,6 +42,7 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _F, _F, _P, _P, _P, _I, _P,
                                 _I, _I, _I, _I, _I, _P],
+    "octseg_conv3x3_int8_stem": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "octseg_ct2x2_int8": [_P, _P, _P, _P, _I, _F, _P] + [_I] * 12 + [_P],
     "octseg_head_argmax": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     "octseg_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -109,6 +109,12 @@ def unpack_conv3x3_weights(w: torch.Tensor, cin: int,
 MW, COLS, KCHUNK = 4, 16, 32
 HEAD_MAX_CLASSES = 32
 SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
+H100_SMS = 132
+# the stem body's fixed sizes: tiles of STEM_WARPS whole image rows (one a
+# warp), halo rows padded by STEM_PAD bytes on either side, weight rows of
+# STEM_K bytes (tap (ky, kx) at byte 4*ky + kx), and the widths it takes
+STEM_WARPS, STEM_PAD, STEM_K = 8, 16, 16
+STEM_COUTS = (16, 32, 64)
 
 
 def pack_conv3x3_mma_weights(w_q: torch.Tensor) -> torch.Tensor:
@@ -142,6 +148,52 @@ def mma_weights_from_dp4a(w: torch.Tensor) -> torch.Tensor:
             .reshape(cw // 8, 9, coutp, KCHUNK).contiguous())
 
 
+def stem_channel_order(cout: int) -> torch.Tensor:
+    """The stem body's output channel of each GEMM column n = 8j + c (column
+    c of n8 tile j): (cout/4)(c // 2) + 2j + c % 2, so the C fragment's
+    columns 2t, 2t+1 of every n8 tile give lane t cout/4 consecutive
+    channels. cout a multiple of 8."""
+    n = torch.arange(cout)
+    j, c = n // 8, n % 8
+    return (cout // 4) * (c // 2) + 2 * j + c % 2
+
+
+def pack_stem_mma_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """(cout, 1, 3, 3) int8 -> the stem body's weights (coutp, STEM_K) int8:
+    row n holds output channel ``stem_channel_order(coutp)[n]``, byte 4*ky
+    + kx its tap (ky, kx); bytes 4*ky + 3 and 12-15 are zero, and so are
+    the rows of channels >= cout (coutp: cout rounded up to 8)."""
+    cout, cin, kh, kw = w_q.shape
+    assert (cin, kh, kw) == (1, 3, 3) and w_q.dtype == torch.int8, w_q.shape
+    coutp = _round_up(cout, 8)
+    rows = torch.zeros(coutp, 4, 4, dtype=torch.int8, device=w_q.device)
+    rows[:cout, :3, :3] = w_q[:, 0]
+    order = stem_channel_order(coutp).to(w_q.device)
+    return rows.reshape(coutp, STEM_K)[order].contiguous()
+
+
+def unpack_stem_mma_weights(w: torch.Tensor, cout: int) -> torch.Tensor:
+    """Inverse of ``pack_stem_mma_weights``: (cout, 1, 3, 3) int8."""
+    coutp = w.shape[0]
+    order = stem_channel_order(coutp).to(w.device)
+    rows = torch.empty_like(w)
+    rows[order] = w
+    return rows.reshape(coutp, 4, 4)[:cout, None, :3, :3].contiguous()
+
+
+def stem_weights_from_dp4a(w: torch.Tensor, cout: int) -> torch.Tensor:
+    """``pack_conv3x3_weights`` of (cout, 1, 3, 3) weights -> their
+    ``pack_stem_mma_weights``."""
+    return pack_stem_mma_weights(unpack_conv3x3_weights(w, 1, cout))
+
+
+def stem_smem(W: int) -> int:
+    """Dynamic shared memory of one stem block (the C side computes the
+    same): two buffers of STEM_WARPS + 2 halo rows of W + 2*STEM_PAD
+    bytes."""
+    return 2 * (STEM_WARPS + 2) * (W + 2 * STEM_PAD)
+
+
 class Conv3x3Plan(NamedTuple):
     """K1's launch for one call (``conv3x3_plan``). ``body`` "mma": the
     output is cut into units of ``rows`` x COLS pixels (rows = MW x
@@ -152,9 +204,13 @@ class Conv3x3Plan(NamedTuple):
     side and the second read comes from L2); the nk K chunks (32 channels
     of one input) pass through a ring of ``stages`` shared-memory slots,
     ``smem`` bytes of dynamic shared memory a block, ``blocks_per_sm``
-    resident blocks (the kernel's ``__launch_bounds__``). ``body`` "dp4a":
-    the first design (16 x 16 tiles, 32 output channels a block, static
-    shared memory); the other fields are 0."""
+    resident blocks (the kernel's ``__launch_bounds__``). ``body`` "stem":
+    tiles of ``warps`` (STEM_WARPS) whole image rows by all ``co_t`` =
+    cout channels, numbered u = n * tiles_y + ty, walked by a persistent
+    grid of ``grid`` blocks (block b takes u = b, b + grid, ...); the
+    halo passes through ``stages`` = 2 buffers. ``body`` "dp4a": the first
+    design (16 x 16 tiles, 32 output channels a block, static shared
+    memory); the other fields are 0."""
 
     N: int
     H: int
@@ -170,10 +226,11 @@ class Conv3x3Plan(NamedTuple):
     stages: int
     blocks_per_sm: int
     smem: int
+    grid: int = 0
 
     @property
     def rows(self) -> int:
-        return MW * self.warps
+        return self.warps if self.body == "stem" else MW * self.warps
 
     @property
     def tiles_y(self) -> int:
@@ -181,7 +238,7 @@ class Conv3x3Plan(NamedTuple):
 
     @property
     def tiles_x(self) -> int:
-        return -(-self.W // COLS)
+        return 1 if self.body == "stem" else -(-self.W // COLS)
 
     @property
     def n_co(self) -> int:
@@ -228,18 +285,31 @@ def plan_for(N: int, H: int, W: int, cins: tuple, cout: int, head: bool,
 
 @functools.lru_cache(maxsize=256)
 def conv3x3_plan(N: int, H: int, W: int, cins: tuple, cout: int,
-                 head: bool = False, aligned: bool = True) -> Conv3x3Plan:
+                 head: bool = False, aligned: bool = True,
+                 pool: bool = False, sms: int = H100_SMS) -> Conv3x3Plan:
     """K1's plan for inputs of ``cins`` channels (one or two), H x W, cout
-    outputs, ending in the head or not. ``aligned``: every input pointer
-    is 16-byte aligned (the weights and the outputs are fresh tensors).
+    outputs, pooled or not, ending in the head or not. ``aligned``: every
+    input pointer is 16-byte aligned (the weights and the outputs are fresh
+    tensors); ``sms``: the card's SM count.
+
+    The stem body takes one input of one channel, cout 16, 32 or 64 (a
+    lane's cout/4 bytes of a pixel leave in one 4-, 8- or 16-byte store), W
+    a multiple of 16 (whole m16 tiles a row, 16-byte copies of the halo
+    rows), an aligned input, no pool and no head, where the shared memory
+    holds a block's two halo buffers: every stem of the served PSRP and
+    packed graphs at f = 16 and 32. Resident blocks an SM: four at cout 16
+    and 32 (the kernel's ``__launch_bounds__``), two at 64, fewer where the
+    shared memory would not hold them; the grid is persistent, that many
+    blocks an SM, or one a tile where there are fewer tiles.
 
     The mma.sync body takes the call when every input's channel count is a
     multiple of 32 (a K chunk lies inside one input and is copied 16 bytes
     at a time), cout is a multiple of 32 (whole channel tiles, 16-byte
     stores), the inputs are aligned and, with the head, cout is 32 (one
     channel tile holds a pixel's outputs). That is every call of the served
-    U-Net at f = 32 but the stem. Every other call (the stem, odd channel
-    counts, misaligned inputs) stays on the dp4a body.
+    U-Net at f = 32 but the stem. Every other call (odd channel counts,
+    stems of other widths or shapes, misaligned inputs) stays on the dp4a
+    body.
 
     Output channels a block: 64 where cout allows and the tile has 8 or
     more K chunks, else 32; warps a block: 4 (16 x 16 tiles) at one
@@ -255,6 +325,14 @@ def conv3x3_plan(N: int, H: int, W: int, cins: tuple, cout: int,
     calls of the served forward: ``k1_probe.py``, PERF.md section 6.)"""
     cins = tuple(cins)
     cin0, cin1 = cins[0], (cins[1] if len(cins) > 1 else 0)
+    stem_per_sm = min(4 if cout <= 32 else 2,
+                      SM_SMEM // (stem_smem(W) + BLOCK_SMEM_RESERVED))
+    if (cins == (1,) and cout in STEM_COUTS and W % 16 == 0 and aligned
+            and not head and not pool and stem_per_sm >= 1):
+        tiles = N * -(-H // STEM_WARPS)
+        return Conv3x3Plan(N, H, W, 1, 0, cout, False, "stem", cout,
+                           STEM_WARPS, 1, 2, stem_per_sm, stem_smem(W),
+                           min(tiles, stem_per_sm * sms))
     if not (len(cins) <= 2 and cin0 >= KCHUNK and cin0 % KCHUNK == 0
             and cin1 % KCHUNK == 0 and cout >= 32 and cout % 32 == 0
             and aligned and (not head or cout == 32)):
@@ -344,9 +422,10 @@ def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
     (N, H, W, cout) int8; with ``pool=True`` also its 2x2/2 max-pool.
 
     The body is ``conv3x3_plan``'s: the tensor-core (mma.sync) body reads
-    ``w_mma``, ``pack_conv3x3_mma_weights`` of the same weights, packed
-    once at quantize time; given none, an admitted call packs it from
-    ``w``. The dp4a body (the stem, odd channel counts) reads ``w``.
+    ``w_mma``, ``pack_conv3x3_mma_weights`` of the same weights, and the
+    stem body ``pack_stem_mma_weights``, both packed once at quantize time;
+    given none, an admitted call packs them from ``w``. The dp4a body (odd
+    channel counts, other stems) reads ``w``.
 
     ``out_clip``: the requant's clip bound (127, or 7 for a 4-bit
     consumer). ``pad_vals``: one border value per input (default 0; -7 for
@@ -402,11 +481,22 @@ def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
     x1 = inputs[1] if len(inputs) > 1 else None
     plan = conv3x3_plan(N, H, W, tuple(t.shape[-1] for t in inputs), cout,
                         head is not None,
-                        all(t.data_ptr() % 16 == 0 for t in inputs))
-    if plan.body == "mma":
+                        all(t.data_ptr() % 16 == 0 for t in inputs), pool,
+                        _sm_count(dev.index if dev.index is not None
+                                  else torch.cuda.current_device()))
+    if plan.body != "dp4a":
         clips = (out_clip, out_clip if pool_clip is None else pool_clip)
         _check(all(float(c).is_integer() and 0 <= c <= 127 for c in clips),
                f"conv3x3_int8: clips {clips}: integers in [0, 127]")
+    if plan.body == "stem":
+        if w_mma is None:
+            w_mma = stem_weights_from_dp4a(w, cout)
+        _check_cuda_int8(w_mma, 2, "conv3x3_int8 stem weights", dev)
+        _check(tuple(w_mma.shape) == (cout, STEM_K)
+               and w_mma.data_ptr() % 16 == 0,
+               f"conv3x3_int8: stem weights {tuple(w_mma.shape)}, expected "
+               f"16-byte aligned {(cout, STEM_K)}")
+    elif plan.body == "mma":
         if w_mma is None:
             w_mma = mma_weights_from_dp4a(w)
         _check_cuda_int8(w_mma, 4, "conv3x3_int8 mma weights", dev)
@@ -440,7 +530,12 @@ def conv3x3_int8(inputs, w: torch.Tensor, scale: torch.Tensor,
            float(out_clip if pool_clip is None else pool_clip), ptr(hw),
            ptr(hs), ptr(hb), nc, ptr(lab))
     with torch.cuda.device(dev):
-        if plan.body == "mma":
+        if plan.body == "stem":
+            err = _build.lib().octseg_conv3x3_int8_stem(
+                x0.data_ptr(), w_mma.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), y.data_ptr(), N, H, W, cout, int(relu),
+                pads[0], float(out_clip), plan.grid, plan.smem, _stream(x0))
+        elif plan.body == "mma":
             err = _build.lib().octseg_conv3x3_int8_mma(
                 x0.data_ptr(), cin0, ptr(x1), cin1, w_mma.data_ptr(),
                 scale.data_ptr(), bias.data_ptr(), ptr(y), ptr(yp), N, H, W,
@@ -496,7 +591,6 @@ def unpack_ct2x2_weights(w: torch.Tensor, cin: int) -> torch.Tensor:
 # channels (4*CO_T columns) has TM * CO_T = 32 * 128; ring slots of A chunks
 CT_TILES = ((256, 16), (128, 32), (64, 64), (32, 128))
 CT_STAGES = 4
-H100_SMS = 132
 
 
 def ct2x2_smem(tm: int, co_t: int, nk: int) -> int:

@@ -100,8 +100,8 @@ def served_qparams():
 @pytest.mark.parametrize("mode", ["int8", "w4a4"])
 def test_attach_gives_mma_weights(served_qparams, mode):
     """Every 3x3 conv but the stem carries ``w_m``, the tensor-core pack of
-    its ``w_q``; ``w_k`` stays the dp4a body's pack; the stem has no
-    ``w_m``."""
+    its ``w_q``; ``w_k`` stays the dp4a body's pack; the stem's ``w_m`` is
+    the stem body's pack."""
     qp = served_qparams[mode]
     convs = [k for k in qp if k.startswith("blk")]
     assert len(convs) == 18
@@ -109,7 +109,8 @@ def test_attach_gives_mma_weights(served_qparams, mode):
         lw = qp[name]
         assert torch.equal(lw["w_k"], k12.pack_conv3x3_weights(lw["w_q"]))
         if name == "blk0_conv0":
-            assert "w_m" not in lw
+            assert torch.equal(lw["w_m"],
+                               k12.pack_stem_mma_weights(lw["w_q"]))
             continue
         assert torch.equal(lw["w_m"],
                            k12.pack_conv3x3_mma_weights(lw["w_q"])), name
@@ -148,7 +149,7 @@ def test_plan_admits_the_fused_head():
 
 
 @pytest.mark.parametrize("cins,cout,head,aligned", [
-    ((1,), 32, False, True),     # the stem
+    ((2,), 32, False, True),     # two channels (the stem: its own body)
     ((4,), 32, False, True),
     ((5,), 3, False, True),      # odd channel counts
     ((8, 8), 40, False, True),

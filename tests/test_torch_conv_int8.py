@@ -102,13 +102,14 @@ def test_k1_cat_and_pool_vs_conv3x3_psrp(by, nph, cins, cout):
     np.testing.assert_array_equal(got_pool.numpy(), want_pool)
 
 
-def test_k1_as_stem_vs_stem_psrp():
+@pytest.mark.parametrize("cout", [8, 32])  # 32: the served width
+def test_k1_as_stem_vs_stem_psrp(cout):
     BY, by_out, nph = 8, 4, 4
     H = W = 32
     x = RNG.normal(0, 1, (2, H, W, 1)).astype(np.float32)
-    w = rand_int8(RNG, (3, 3, 1, 8), -20, 20)
+    w = rand_int8(RNG, (3, 3, 1, cout), -20, 20)
     s_in = np.float32(0.01)
-    scale, bias = _scales(8)
+    scale, bias = _scales(cout)
     xp = jp.prep_stem_input(jnp.asarray(x), s_in, BY=BY, nph=nph)
     mats, _ = jp.pack_stem_psrp_weights(w, BY, nph)
     want = jp.stem_psrp(

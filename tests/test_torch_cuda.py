@@ -962,3 +962,101 @@ def test_k1_mma_rejects_bad_weights(dev):
     assert k12.conv3x3_plan(1, 16, 16, (64,), 32, False, False).body == "dp4a"
     assert torch.equal(k12.conv3x3_int8(xs, *args[1:], w_mma=wm),
                        k12.conv3x3_int8_reference(xs, *args[1:]))
+
+
+# K1's stem body: the Cin=1 calls that conv3x3_plan puts on it
+
+
+def _k1_stem_case(rng, dev, n, h, w, cout, extremes=False):
+    """Seeded inputs of one stem call (+-127 inputs and weights with
+    ``extremes``) and its packed stem weights."""
+    if extremes:
+        vals = np.array([-127, 127])
+        x = torch.tensor(rng.choice(vals, (n, h, w, 1)), dtype=torch.int8,
+                         device=dev)
+        wq = torch.tensor(rng.choice(vals, (cout, 1, 3, 3)), dtype=torch.int8,
+                          device=dev)
+        x[0, :3, :3] = 127
+        wq[0] = 127  # pixel (0, 1, 1), channel 0: 9 * 127^2
+        std = 3 * 127 ** 2
+    else:
+        x, wq = _i8(rng, (n, h, w, 1), dev), _i8(rng, (cout, 1, 3, 3), dev)
+        std = 3 * 73 ** 2
+    sc, b = _vec(rng, cout, 30 / std, 60 / std, dev), _vec(rng, cout, -5, 5,
+                                                          dev)
+    return ((x,), k12.pack_conv3x3_weights(wq), sc, b), \
+        k12.pack_stem_mma_weights(wq)
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 64, 64), (2, 80, 48), (1, 512, 512)])
+@pytest.mark.parametrize("cout", [16, 32])
+def test_k1_stem_body_matches_plain(dev, n, h, w, cout):
+    """The plan puts the stem on the stem body; its output equals the
+    plain version bit for bit, with w_mma given and packed in the call,
+    and a repeated call gives the same bits; one launch a call."""
+    rng = np.random.default_rng(26)
+    args, wm = _k1_stem_case(rng, dev, n, h, w, cout)
+    plan = k12.conv3x3_plan(n, h, w, (1,), cout)
+    assert (plan.body, plan.co_t, plan.warps) == ("stem", cout, 8)
+    want = k12.conv3x3_int8_reference(*args)
+    before = k12.conv3x3_int8.launches
+    got = k12.conv3x3_int8(*args, w_mma=wm)
+    again = k12.conv3x3_int8(*args, w_mma=wm)
+    packed_here = k12.conv3x3_int8(*args)
+    torch.cuda.synchronize()
+    assert k12.conv3x3_int8.launches == before + 3
+    for out in (got, again, packed_here):
+        assert torch.equal(out, want)
+    assert len(torch.unique(want)) > 8
+
+
+@pytest.mark.parametrize("cout", [16, 32, 64])
+def test_k1_stem_body_extremes(dev, cout):
+    """+-127 inputs and weights (|acc| up to 9 * 127^2) bit for bit."""
+    rng = np.random.default_rng(27)
+    args, wm = _k1_stem_case(rng, dev, 2, 64, 64, cout, extremes=True)
+    got = k12.conv3x3_int8(*args, w_mma=wm)
+    want = k12.conv3x3_int8_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got.max()) == 127
+
+
+@pytest.mark.parametrize("grid", [1, 3, 40])
+def test_k1_stem_body_knobs_and_grids(dev, grid):
+    """Border value -7, no relu and clip 7 through the wrapper; and the C
+    entry point at persistent grids of 1, 3 and 40 blocks (each walks
+    several tiles through both halo buffers), bit for bit."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        _build,
+    )
+
+    rng = np.random.default_rng(28)
+    n, h, w, cout = 2, 80, 48, 32
+    args, wm = _k1_stem_case(rng, dev, n, h, w, cout)
+    knobs = dict(pad_vals=(-7,), relu=False, out_clip=7.0)
+    assert torch.equal(k12.conv3x3_int8(*args, w_mma=wm, **knobs),
+                       k12.conv3x3_int8_reference(*args, **knobs))
+    plan = k12.conv3x3_plan(n, h, w, (1,), cout)
+    y = torch.empty((n, h, w, cout), dtype=torch.int8, device=dev)
+    (x,), _, sc, b = args
+    _build.check(_build.lib().octseg_conv3x3_int8_stem(
+        x.data_ptr(), wm.data_ptr(), sc.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, h, w, cout, 1, 0, 127.0, grid, plan.smem,
+        torch.cuda.current_stream().cuda_stream), "stem")
+    torch.cuda.synchronize()
+    assert torch.equal(y, k12.conv3x3_int8_reference(*args))
+
+
+def test_k1_stem_rejects_bad_weights(dev):
+    """The stem body checks w_mma's shape; a misaligned input goes to the
+    dp4a body and gives the same bits."""
+    rng = np.random.default_rng(29)
+    args, wm = _k1_stem_case(rng, dev, 1, 32, 32, 32)
+    with pytest.raises(ValueError, match="stem weights"):
+        k12.conv3x3_int8(*args, w_mma=wm[:16])
+    x = torch.empty(32 * 32 + 4, dtype=torch.int8, device=dev)
+    xs = (x[4:].view(1, 32, 32, 1).copy_(args[0][0]),)
+    assert k12.conv3x3_plan(1, 32, 32, (1,), 32, False, False).body == "dp4a"
+    assert torch.equal(k12.conv3x3_int8(xs, *args[1:], w_mma=wm),
+                       k12.conv3x3_int8_reference(xs, *args[1:]))
