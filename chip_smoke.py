@@ -89,12 +89,17 @@ Phases (any failure raises; the exit code is then non-zero):
     device time, TOPS), against its plain version and its bound, and the
     served forward with a ``torch.profiler`` breakdown;
 16. K10 (the fused stem) and K11 (the int8 pool) bit for bit against their
-    plain versions: K10 at (2, 512, 512) with f=32 and f=16 and at the
-    non-square (2, 80, 48), K11 at the packed graph's deep pool shapes
-    (batch 2) and a C=24 shape;
+    plain versions: K10 on its mma.sync body at (2, 512, 512) with f=32
+    (the graph's tensor-core packs given, and a second call that must
+    give the same bits), at the non-square (2, 80, 48), at +-127 inputs
+    and weights, and on a border case (stem biases up to 40) where a halo
+    holding the stem of a zero-padded image must change outputs; on its
+    dp4a body at (2, 512, 512) with f=16; each call's body as the plan
+    chose it; K11 at the packed graph's deep pool shapes (batch 2) and a
+    C=24 shape;
 17. the PSRP graph of phase 3 with the fused stem: labels identical to the
-    unfused graph's at batch 8, launches per forward K10 1, K1 16, K2 4,
-    K3 1;
+    unfused graph's and to its plain graph's at batch 8, launches per
+    forward K10 1, K1 16, K2 4, K3 1, and K10's plan there;
 18. the row-packed graph (``infer --quantize packed``) of the same model at
     batch 8: labels identical to its plain graph's, agreement with the
     all-int8 oracle > 0.995 and the float graph > 0.95, launches per
@@ -105,10 +110,12 @@ Phases (any failure raises; the exit code is then non-zero):
 20. ``cli eval --quantize psrp`` at 512x512, ``--num-val 8``: the confusion
     counts sum to the pixel count, and the metrics equal the same masks
     scored on the CPU within 1e-4;
-21. times at batch 32: K10 against K1 (stem) + K1 (blk0_conv1, pool), K11
-    against its bound and one PyTorch call (``amax``), the packed forward
-    and the PSRP forward with the fused stem off and on at batch 32 and 128,
-    and ``Trainer.evaluate`` per batch of 8;
+21. times at batch 32: K10's mma.sync body, its dp4a body (its own entry
+    point) and K1 (stem) + K1 (blk0_conv1, pool), in turns, each with its
+    event and device times, K10's plan, bound and share of the bound's
+    rate; K11 against its bound and one PyTorch call (``amax``), the
+    packed forward and the PSRP forward with the fused stem off and on at
+    batch 32 and 128 (in turns), and ``Trainer.evaluate`` per batch of 8;
 22. K12 (SDNet's column softmax, position and std) against its plain
     version at (8, 3, 512, 512), (8, 11, 512, 512) and (2, 5, 100, 200): sm
     within 1e-6, pos and std within 1e-5 * H, its backward within 1e-5 of
@@ -1630,6 +1637,9 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
         unet_psrp_forward,
     )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        _build,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
         conv7x3_int8 as k7,
     )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
@@ -1675,16 +1685,60 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
         return torch.tensor(gen.uniform(lo, hi, n), dtype=torch.float32,
                             device=dev)
 
-    def stem_args(n, h, w, c1, cout):
-        """A seeded int8 image, weights, and epilogues that spread both
-        requants over the int8 range; the stem biases reach 40, so a halo
-        holding the stem of a zero-padded image would show."""
-        x = i8((n, h, w, 1))
-        w0 = k12.pack_conv3x3_weights(i8((c1, 1, 3, 3)))
-        w1 = k12.pack_conv3x3_weights(i8((cout, c1, 3, 3)))
-        std0, std1 = 3 * 73 * 73, (9 * c1) ** 0.5 * 64 * 73
-        return (x, w0, vec(c1, 30, 60) / std0, vec(c1, -5, 40), w1,
-                vec(cout, 30, 60) / std1, vec(cout, -5, 5))
+    def stem_args(n, h, w, c1, cout, extremes=False):
+        """A seeded int8 image, weights (K1's packs), and epilogues that
+        spread both requants over the int8 range, then the tensor-core
+        packs (w0_m, w1_m) as the graph's qparams carry them; the stem
+        biases reach 40, so a halo holding the stem of a zero-padded image
+        would show. ``extremes``: +-127 images and conv1 weights, the stem
+        weights all 127 and a block of 127s whose stem clips in every
+        channel, conv1's channel 0 all 127 (288 * 127^2 there)."""
+        if extremes:
+            vals = np.array([-127, 127])
+            x = torch.tensor(gen.choice(vals, (n, h, w, 1)),
+                             dtype=torch.int8, device=dev)
+            x[0, 4:11, 4:11] = 127
+            wq0 = torch.full((c1, 1, 3, 3), 127, dtype=torch.int8,
+                             device=dev)
+            wq1 = torch.tensor(gen.choice(vals, (cout, c1, 3, 3)),
+                               dtype=torch.int8, device=dev)
+            wq1[0] = 127
+            s0 = vec(c1, 1.0, 1.5) / (9 * 127)
+            s1 = vec(cout, 30, 60) / ((9 * c1) ** 0.5 * 64 * 127)
+        else:
+            x, wq0, wq1 = i8((n, h, w, 1)), i8((c1, 1, 3, 3)), \
+                i8((cout, c1, 3, 3))
+            std0, std1 = 3 * 73 * 73, (9 * c1) ** 0.5 * 64 * 73
+            s0, s1 = vec(c1, 30, 60) / std0, vec(cout, 30, 60) / std1
+        args = (x, k12.pack_conv3x3_weights(wq0), s0, vec(c1, -5, 40),
+                k12.pack_conv3x3_weights(wq1), s1, vec(cout, -5, 5))
+        w_mma = (k12.pack_stem_mma_weights(wq0),
+                 k12.pack_conv3x3_mma_weights(wq1))
+        return args, w_mma
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k10_plan(args):
+        """The plan K10's wrapper takes for these arguments."""
+        x, _, s0, _, _, s1, _ = args
+        return k10.stem_conv_plan(*x.shape[:3], s0.shape[0], s1.shape[0],
+                                  x.data_ptr() % 16 == 0, sms)
+
+    def k10_dp4a(args):
+        """One launch of K10's dp4a body through its own C entry point."""
+        x, w0, s0, b0, w1, s1, b1 = args
+        N, H, W, _ = x.shape
+        c1, cout = s0.shape[0], s1.shape[0]
+        y = torch.empty((N, H, W, cout), dtype=torch.int8, device=dev)
+        yp = torch.empty((N, H // 2, W // 2, cout), dtype=torch.int8,
+                         device=dev)
+        _build.check(_build.lib().octseg_stem_conv_int8(
+            x.data_ptr(), w0.data_ptr(), s0.data_ptr(), b0.data_ptr(),
+            w1.data_ptr(), s1.data_ptr(), b1.data_ptr(), y.data_ptr(),
+            yp.data_ptr(), N, H, W, c1, w0.shape[2], 4 * w1.shape[1], cout,
+            w1.shape[2], torch.cuda.current_stream().cuda_stream),
+            "stem_conv_int8 (dp4a)")
+        return y, yp
 
     pool_shapes = [(HW // 4, 4 * F), (HW // 8, 8 * F)]  # the deep pools
 
@@ -1692,9 +1746,18 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
     phase("16 K10 (fused stem) and K11 (int8 pool) vs plain versions")
     max_err = {"stem_conv_int8": 0, "pool2x2_int8": 0}
     bad = 0
-    for n, h, w, c1 in ((2, HW, HW, F), (2, HW, HW, F // 2), (2, 80, 48, F)):
-        args = stem_args(n, h, w, c1, c1)
-        got = k10.stem_conv_int8(*args)
+    k10_plans = {}
+    off_body = []  # calls the plan did not put on the expected body
+    for label, (n, h, w, c1, body, case) in {
+            "f=32": (2, HW, HW, F, "mma", "rand"),
+            "f=32 80x48": (2, 80, 48, F, "mma", "rand"),
+            "f=32 +-127": (2, HW, HW, F, "mma", "ext"),
+            "f=32 borders": (2, HW, HW, F, "mma", "borders"),
+            "f=16": (2, HW, HW, F // 2, "dp4a", "rand")}.items():
+        args, w_mma = stem_args(n, h, w, c1, c1, extremes=case == "ext")
+        plan = k10_plan(args)
+        k10_plans[label] = plan.text()
+        got = k10.stem_conv_int8(*args, w_mma)
         want = k10.stem_conv_int8_reference(*args)
         torch.cuda.synchronize()
         mism = sum(int((a != b).sum()) for a, b in zip(got, want))
@@ -1702,11 +1765,43 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
             [max_err["stem_conv_int8"]] + [int((a.int() - b.int()).abs().max())
                                            for a, b in zip(got, want)])
         zero = float((got[0] == 0).float().mean())
-        print(f"K10 ({n}, {h}, {w}) c1 {c1} -> {c1}: outputs "
-              f"{[tuple(a.shape) for a in got]} mismatches {mism} "
-              f"(zeros {zero:.3f})", flush=True)
+        note = ""
+        if label == "f=32":  # a second call: the same bits
+            again = k10.stem_conv_int8(*args, w_mma)
+            torch.cuda.synchronize()
+            repeat = sum(int((a != b).sum()) for a, b in zip(again, got))
+            note = f", second call differs at {repeat}"
+            bad += repeat
+            del again
+        if case == "ext":
+            note = (f", max out {int(got[0].max())}, block centre channel 0 "
+                    f"{int(got[0][0, 7, 7, 0])} (conv1 sum 288 * 127^2)")
+        if case == "borders":
+            # the planted fault: a halo holding the stem of a zero-padded
+            # image (the stem evaluated one pixel beyond the image) instead
+            # of conv1's zero padding must change border outputs
+            x, w0, s0, b0, w1, s1, b1 = args
+            xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2),
+                                         (1, 1, 1, 1)).permute(0, 2, 3, 1)
+            mid = k12.conv3x3_int8_reference((xp.contiguous(),), w0, s0, b0)
+            wrong = k12.conv3x3_int8_reference((mid,), w1, s1, b1)[
+                :, 1:-1, 1:-1]
+            caught = int((wrong != want[0]).sum())
+            note = (f", a zero-padded-image halo would change {caught} "
+                    f"border outputs")
+            if not caught:
+                raise RuntimeError("the K10 border case does not show the "
+                                   "halo's padding")
+            del xp, mid, wrong
+        if plan.body != body:
+            off_body.append(label)
+        print(f"K10 {label:12s} ({n}, {h}, {w}) c1 {c1} -> {c1}: body "
+              f"{plan.text()}, outputs {[tuple(a.shape) for a in got]} "
+              f"mismatches {mism} (zeros {zero:.3f}){note}", flush=True)
         bad += mism
         del args, got, want
+    if off_body:
+        raise RuntimeError(f"K10 calls off their planned body: {off_body}")
     for n, h, c in [(2, h, c) for h, c in pool_shapes] + [(2, 32, 24)]:
         x = i8((n, h, h, c), -128, 128)
         got, want = k12.pool2x2_int8(x), k12.pool2x2_int8_reference(x)
@@ -1737,9 +1832,11 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
     torch.cuda.synchronize()
     mism = int((fused != unfused).sum())
     mism_plain = int((fused != fused_plain).sum())
+    graph_plan = k10.stem_conv_plan(*x.shape[:3], F, F, True, sms)
+    k10_plans[f"graph b{x.shape[0]}"] = graph_plan.text()
     print(f"fused-stem labels vs unfused: {mism} mismatches; vs its plain "
           f"graph: {mism_plain}; launches {stem_launches}, expected "
-          f"{FUSED_STEM_LAUNCHES}", flush=True)
+          f"{FUSED_STEM_LAUNCHES}; K10 body {graph_plan.text()}", flush=True)
     if mism or mism_plain or stem_launches != FUSED_STEM_LAUNCHES:
         raise RuntimeError("fused-stem graph check failed")
     del fused_plain
@@ -1876,6 +1973,9 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
     xq = i8((n, HW, HW, 1))
     k10_args = (xq, l0["w_k"], l0["scale"], l0["bias"], l1["w_k"],
                 l1["scale"], l1["bias"])
+    k10_w_mma = (l0["w_m"], l1["w_m"])
+    k10_run = k10_plan(k10_args)
+    k10_plans[f"b{n}"] = k10_run.text()
 
     def two_launches():
         mid = k12.conv3x3_int8((xq,), l0["w_k"], l0["scale"], l0["bias"],
@@ -1883,24 +1983,41 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
         return k12.conv3x3_int8((mid,), l1["w_k"], l1["scale"], l1["bias"],
                                 pool=True, w_mma=l1["w_m"])
 
+    k10_runs = {"K1 + K1": two_launches,
+                "K10": lambda: k10.stem_conv_int8(*k10_args, k10_w_mma),
+                "K10 dp4a": lambda: k10_dp4a(k10_args)}
     with torch.inference_mode():
-        rows = {}
-        for turn in ("K1 + K1", "K10", "K10", "K1 + K1"):
-            fn = two_launches if turn == "K1 + K1" else \
-                (lambda: k10.stem_conv_int8(*k10_args))
-            rows.setdefault(turn, []).append(time_ms(fn))
-        k10_ms = statistics.median(rows["K10"])
+        outs = {k: fn() for k, fn in k10_runs.items()}
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for k in ("K10", "K10 dp4a")
+                   for a, b in zip(outs[k], outs["K1 + K1"]))
+        del outs
+        if not same:
+            raise RuntimeError(f"K10's bodies differ from K1 + K1 at batch "
+                               f"{n}")
+        ev, dv = {}, {}
+        for turn in ("K1 + K1", "K10", "K10 dp4a", "K10 dp4a", "K10",
+                     "K1 + K1"):
+            ev.setdefault(turn, []).append(time_ms(k10_runs[turn]))
+            dv.setdefault(turn, []).append(device_ms(k10_runs[turn]))
         k10_plain = time_ms(lambda: k10.stem_conv_int8_reference(*k10_args),
                             3)
-        dev_k10 = device_ms(lambda: k10.stem_conv_int8(*k10_args))
-        dev_two = device_ms(two_launches)
+    k10_ms, dev_k10 = statistics.median(ev["K10"]), statistics.median(
+        dv["K10"])
+    dev_two, dev_dp4a = statistics.median(dv["K1 + K1"]), statistics.median(
+        dv["K10 dp4a"])
     k10_bound, k10_by = bound(*stem_work(HW, F, F, n), PEAK["int8"])
-    print(f"time b{n} K10 stem+blk0_conv1+pool: kernel {rows['K10']} ms "
-          f"(median {k10_ms:.4f}), K1 stem + K1 blk0_conv1 "
-          f"{rows['K1 + K1']} ms, plain {k10_plain:.4f} ms, bound "
-          f"{k10_bound:.4f} ms ({k10_by}); device time (profiler) K10 "
-          f"{dev_k10:.4f} ms, K1 + K1 {dev_two:.4f} ms", flush=True)
-    del xq, k10_args
+    print(f"time b{n} K10 stem+blk0_conv1+pool (plan {k10_run.text()}), in "
+          f"turns K1+K1, K10, dp4a, dp4a, K10, K1+K1 (outputs bit-equal): "
+          f"mma.sync body event {ev['K10']} ms, device {dv['K10']} ms; dp4a "
+          f"body event {ev['K10 dp4a']} ms, device {dv['K10 dp4a']} ms; K1 "
+          f"stem + K1 blk0_conv1 event {ev['K1 + K1']} ms, device "
+          f"{dv['K1 + K1']} ms; plain {k10_plain:.4f} ms; bound "
+          f"{k10_bound:.4f} ms ({k10_by}), {100 * k10_bound / dev_k10:.2f}% "
+          f"of the bound's rate; device K10 / (K1 + K1) "
+          f"{dev_k10 / dev_two:.4f} (must < 1), dp4a / K10 "
+          f"{dev_dp4a / dev_k10:.2f}x", flush=True)
+    del xq, k10_args, k10_runs
     k11 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "operations": 0.0, "bytes": 0.0}
     for h, c in pool_shapes:
@@ -1944,12 +2061,19 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
         xb = torch.tensor(
             np.random.default_rng(nb).uniform(0, 255, (nb, HW, HW, 1)),
             dtype=torch.float32, device=dev)
+        fwd = {}
         # in turns: packed, off, on, on, off, packed
         for label, fn in graphs + graphs[::-1]:
             with torch.inference_mode():
                 ms = time_ms(lambda: fn(xb))
+            fwd.setdefault(label, []).append(ms)
             print(f"forward ({label}, z-score + graph) batch {nb}: "
                   f"{ms:.3f} ms, {nb / ms * 1e3:.1f} B-scans/s", flush=True)
+        on, off = (statistics.mean(fwd[f"psrp, fused stem {k}"])
+                   for k in ("on", "off"))
+        print(f"forward batch {nb}: fused stem on {on:.3f} ms, off "
+              f"{off:.3f} ms (means of two turns), on / off {on / off:.4f} "
+              f"(must <= 1)", flush=True)
         del xb
         torch.cuda.empty_cache()
     args = cli.parser().parse_args(
@@ -1984,6 +2108,7 @@ def infer_eval_phases(dev, card, time_ms, model, calib, by_row):
         "launches": stem_launches["stem_conv_int8"],
         "max_abs_err": max_err["stem_conv_int8"], "ms": k10_ms,
         "plain_ms": k10_plain, "bound_ms": k10_bound, "bound_by": k10_by,
+        "device_ms": dev_k10, "plan": k10_plans,
         # no single PyTorch call computes two int8 convs with requants
         "library_ms": None,
     }, {

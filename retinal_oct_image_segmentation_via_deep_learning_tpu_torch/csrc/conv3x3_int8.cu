@@ -671,12 +671,6 @@ constexpr int STEM_K = 16;  // bytes of a weight row: tap (ky, kx) at 4ky + kx
 
 int stem_smem_bytes(int W) { return 2 * (STEM_WARPS + 2) * (W + 2 * STEM_PAD); }
 
-// The low bytes of r[0..3] as one word, r[0] lowest.
-__device__ __forceinline__ uint32_t pack4(const uint32_t* r) {
-    return __byte_perm(__byte_perm(r[0], r[1], 0x0040),
-                       __byte_perm(r[2], r[3], 0x0040), 0x5410);
-}
-
 // NT n8 tiles: cout = 8 * NT output channels, cout / 4 of them a lane.
 template <int NT>
 __global__ void __launch_bounds__(32 * STEM_WARPS, NT == 8 ? 2 : 4) conv3x3_int8_stem(

@@ -1,8 +1,9 @@
-// The int8 tensor-core helpers that K1 (conv3x3_int8.cu), K2 (ct2x2_int8.cu)
-// and K7 (conv7x3_int8.cu) share: cp.async copies into shared memory, the
-// ldmatrix reads, mma.sync m16n8k32 s8 * s8 -> s32, the 32-byte-row swizzle
-// and the requant's rounding by an add. Every function is inline (each
-// source is compiled on its own, without relocatable device code).
+// The int8 tensor-core helpers that K1 (conv3x3_int8.cu), K2 (ct2x2_int8.cu),
+// K7 (conv7x3_int8.cu) and K10 (stem_conv_int8.cu) share: cp.async copies
+// into shared memory, the ldmatrix reads, mma.sync m16n8k32 s8 * s8 -> s32,
+// the 32-byte-row swizzle, the requant's rounding by an add and the
+// packing of four rounded bytes into a word. Every function is inline
+// (each source is compiled on its own, without relocatable device code).
 
 #pragma once
 
@@ -65,4 +66,10 @@ __device__ __forceinline__ uint32_t swz(int p, int u) {
 // where rintf and __float2int_rn are two at a quarter of the FMA rate.
 __device__ __forceinline__ uint32_t rounded_bits(float v, float lo, float hi) {
     return __float_as_uint(__fadd_rn(fminf(fmaxf(v, lo), hi), 12582912.0f));
+}
+
+// The low bytes of r[0..3] as one word, r[0] lowest.
+__device__ __forceinline__ uint32_t pack4(const uint32_t* r) {
+    return __byte_perm(__byte_perm(r[0], r[1], 0x0040),
+                       __byte_perm(r[2], r[3], 0x0040), 0x5410);
 }

@@ -335,7 +335,7 @@ def unet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int, *,
         k10 = stem_conv_int8_reference if reference else stem_conv_int8
         l0, l1 = qparams["blk0_conv0"], qparams["blk0_conv1"]
         skip, h = k10(h, l0["w_k"], l0["scale"], l0["bias"], l1["w_k"],
-                      l1["scale"], l1["bias"])
+                      l1["scale"], l1["bias"], (l0.get("w_m"), l1.get("w_m")))
         skips.append(skip)
     for i in range(len(skips), 4):
         h = conv(h, f"blk{i}_conv0")

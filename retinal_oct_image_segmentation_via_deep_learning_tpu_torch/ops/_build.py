@@ -56,6 +56,7 @@ SIGNATURES = {
     "octseg_conv7x3_int8": [_P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _P]
                            + [_I] * 12 + [_P],
     "octseg_stem_conv_int8": [_P] * 9 + [_I] * 8 + [_P],
+    "octseg_stem_conv_int8_mma": [_P] * 9 + [_I] * 6 + [_P],
     "octseg_pool2x2_int8": [_P, _P, _I, _I, _I, _I, _I, _P],
     "octseg_column_softargmax": [_P, _P, _P, _P, _I, _I, _I, _P],
 }

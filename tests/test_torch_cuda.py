@@ -1060,3 +1060,158 @@ def test_k1_stem_rejects_bad_weights(dev):
     assert k12.conv3x3_plan(1, 32, 32, (1,), 32, False, False).body == "dp4a"
     assert torch.equal(k12.conv3x3_int8(xs, *args[1:], w_mma=wm),
                        k12.conv3x3_int8_reference(xs, *args[1:]))
+
+
+# K10's mma.sync body: the c1 = cout = 32 calls that stem_conv_plan puts on it
+
+
+def _k10_mma_case(rng, dev, n, h, w, extremes=False):
+    """Seeded inputs of one f=32 fused-stem call (K1's packs, then the
+    scales and biases) and its tensor-core packs ``(w0_m, w1_m)``; with
+    ``extremes`` +-127 inputs and weights, a block of 127s whose stem
+    clips in every channel and conv1's channel 0 all 127 (288 * 127^2
+    there). Stem biases up to 40: a halo that held the stem of a
+    zero-padded image would show at the border."""
+    if extremes:
+        vals = np.array([-127, 127])
+        x = torch.tensor(rng.choice(vals, (n, h, w, 1)), dtype=torch.int8,
+                         device=dev)
+        x[0, 4:11, 4:11] = 127
+        w0 = torch.full((32, 1, 3, 3), 127, dtype=torch.int8, device=dev)
+        w1 = torch.tensor(rng.choice(vals, (32, 32, 3, 3)), dtype=torch.int8,
+                          device=dev)
+        w1[0] = 127
+        s0 = _vec(rng, 32, 1.0 / (9 * 127), 1.5 / (9 * 127), dev)
+        b0 = _vec(rng, 32, -5, 40, dev)
+        s1 = _vec(rng, 32, 30 / (17 * 64 * 127), 60 / (17 * 64 * 127), dev)
+    else:
+        x = _i8(rng, (n, h, w, 1), dev)
+        w0, w1 = _i8(rng, (32, 1, 3, 3), dev), _i8(rng, (32, 32, 3, 3), dev)
+        s0 = _vec(rng, 32, 30 / (3 * 73 ** 2), 60 / (3 * 73 ** 2), dev)
+        b0 = _vec(rng, 32, -5, 40, dev)
+        s1 = _vec(rng, 32, 30 / (17 * 64 * 73), 60 / (17 * 64 * 73), dev)
+    b1 = _vec(rng, 32, -5, 5, dev)
+    args = (x, k12.pack_conv3x3_weights(w0), s0, b0,
+            k12.pack_conv3x3_weights(w1), s1, b1)
+    return args, (k12.pack_stem_mma_weights(w0),
+                  k12.pack_conv3x3_mma_weights(w1))
+
+
+@pytest.mark.parametrize("n,h,w", [(2, 512, 512), (3, 14, 48), (1, 80, 16)])
+def test_k10_mma_body_matches_plain(dev, n, h, w):
+    """The plan puts the f=32 fused stem on the mma.sync body (the served
+    shape, a ragged one with H % 4 == 2 and three warp tiles a row, one
+    warp tile a row); both outputs equal the plain version bit for bit,
+    with w_mma given and packed in the call; one launch a call."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+
+    rng = np.random.default_rng(30)
+    args, wm = _k10_mma_case(rng, dev, n, h, w)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert k10.stem_conv_plan(n, h, w, 32, 32, sms=sms).body == "mma"
+    want = k10.stem_conv_int8_reference(*args)
+    before = k10.stem_conv_int8.launches
+    got = k10.stem_conv_int8(*args, wm)
+    packed_here = k10.stem_conv_int8(*args)
+    torch.cuda.synchronize()
+    assert k10.stem_conv_int8.launches == before + 2
+    for out in (got, packed_here):
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert len(torch.unique(want[0])) > 8
+
+
+def test_k10_mma_body_extremes(dev):
+    """+-127 inputs and weights, the stem's clip and conv1's largest sum
+    (288 * 127^2, beyond 2^22) bit for bit."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+
+    rng = np.random.default_rng(31)
+    args, wm = _k10_mma_case(rng, dev, 2, 64, 64, extremes=True)
+    got = k10.stem_conv_int8(*args, wm)
+    want = k10.stem_conv_int8_reference(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[0][0, 7, 7, 0]) == 127
+
+
+def test_k10_mma_body_repeats_bit_for_bit(dev):
+    """Three calls on the same inputs give the same bits (int32 sums, no
+    atomics), and the C entry point at persistent grids of 1 and 7 blocks
+    (each walks several bands) gives them too."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        _build,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+
+    rng = np.random.default_rng(32)
+    n, h, w = 2, 64, 96
+    args, wm = _k10_mma_case(rng, dev, n, h, w)
+    first = k10.stem_conv_int8(*args, wm)
+    for _ in range(2):
+        again = k10.stem_conv_int8(*args, wm)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    plan = k10.stem_conv_plan(n, h, w, 32, 32)
+    x, _, s0, b0, _, s1, b1 = args
+    for grid, band in ((1, 16), (7, 8)):
+        y = torch.empty_like(first[0])
+        yp = torch.empty_like(first[1])
+        _build.check(_build.lib().octseg_stem_conv_int8_mma(
+            x.data_ptr(), wm[0].data_ptr(), s0.data_ptr(), b0.data_ptr(),
+            wm[1].data_ptr(), s1.data_ptr(), b1.data_ptr(), y.data_ptr(),
+            yp.data_ptr(), n, h, w, band, grid, plan.smem,
+            torch.cuda.current_stream().cuda_stream), "K10 mma")
+        torch.cuda.synchronize()
+        assert torch.equal(y, first[0]) and torch.equal(yp, first[1])
+
+
+def test_k10_plan_choice_on_the_card(dev):
+    """At this card's SM count: the f=32 stem on the mma.sync body, f=16
+    on the dp4a body, both equal to the plain version."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert k10.stem_conv_plan(32, 512, 512, 32, 32, sms=sms).body == "mma"
+    assert k10.stem_conv_plan(32, 512, 512, 16, 16, sms=sms).body == "dp4a"
+    rng = np.random.default_rng(33)
+    x = _i8(rng, (2, 64, 64, 1), dev)
+    w0 = k12.pack_conv3x3_weights(_i8(rng, (16, 1, 3, 3), dev, -40, 40))
+    w1 = k12.pack_conv3x3_weights(_i8(rng, (16, 16, 3, 3), dev, -40, 40))
+    s0, b0 = _vec(rng, 16, 0.05, 0.1, dev), _vec(rng, 16, 10, 40, dev)
+    s1, b1 = _vec(rng, 16, 1e-3, 3e-3, dev), _vec(rng, 16, -5, 5, dev)
+    got = k10.stem_conv_int8(x, w0, s0, b0, w1, s1, b1)
+    want = k10.stem_conv_int8_reference(x, w0, s0, b0, w1, s1, b1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k10_mma_rejects_bad_weights(dev):
+    """The mma.sync body checks both tensor-core packs' shapes and
+    alignment; a misaligned image goes to the dp4a body and gives the
+    same bits."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+
+    rng = np.random.default_rng(34)
+    args, (w0m, w1m) = _k10_mma_case(rng, dev, 1, 32, 32)
+    with pytest.raises(ValueError, match="stem mma weights"):
+        k10.stem_conv_int8(*args, (w0m[:16], w1m))
+    with pytest.raises(ValueError, match="conv1 mma weights"):
+        k10.stem_conv_int8(*args, (w0m, w1m[:, :8]))
+    with pytest.raises(ValueError, match="conv1 mma weights"):
+        k10.stem_conv_int8(*args, (w0m, w1m.reshape(9, 32, 32)))
+    buf = torch.empty(32 * 32 + 4, dtype=torch.int8, device=dev)
+    x = buf[4:].view(1, 32, 32, 1).copy_(args[0])
+    assert k10.stem_conv_plan(1, 32, 32, 32, 32, aligned=False).body == "dp4a"
+    got = k10.stem_conv_int8(x, *args[1:], (w0m, w1m))
+    want = k10.stem_conv_int8_reference(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
