@@ -37,7 +37,10 @@ Phases (any failure raises; the exit code is then non-zero):
    conv shapes of the f=32 U-Net at 512x512, batch 8 (the train step's),
    on integer inputs, bit-equal to the plain versions; K6 in both modes at
    the 18 BatchNorm shapes, batch 8, within rtol 1e-6 of the float64 plain
-   version (N(1, 1) inputs); K5 twice on the same random inputs at the
+   version (N(1, 1) inputs), a second call bit-identical, its plan printed,
+   and at 512^2 x 32 and 32^2 x 512 (batch 2, both modes) bit-equal to the
+   numpy emulation of its order of additions
+   (``tests/test_torch_k6_order.py``); K5 twice on the same random inputs at the
    default step's three K5 shapes, bit-identical (its fixed-order sums);
    K4 at the default step's six calls on random inputs, within one bf16
    ulp plus 2^-16 of the sum of |products| of the float64 plain version,
@@ -48,9 +51,9 @@ Phases (any failure raises; the exit code is then non-zero):
    step; from the state those steps reached, one step on the kernels
    against the same step with the plain versions patched in (``GATE``:
    loss, and per gradient tensor above a norm of 1e-3 the cosine and the
-   norm), and three planted kernel faults that this gate must reject (K4
+   norm), and four planted kernel faults that this gate must reject (K4
    leaving out every 64th of its tiles, K5 every 64th of its bands, K6
-   sums 0.5% high);
+   sums 0.5% high, K6 leaving out the rows of one block of its plan);
    launches per step with ``mid=deep="kernel"`` 34/17/36;
 8. times on the card: each training kernel summed over the step's calls at
    batch 8 against its plain version and one library call; K4's device
@@ -59,9 +62,13 @@ Phases (any failure raises; the exit code is then non-zero):
    library's and over all 17 convs; K5's device
    time (both passes) per call, summed over the default
    step's three calls and over all 17 convs, beside ``conv2d_weight``'s,
-   the bound and the GB/s achieved on the bound's bytes; the train step
-   at batch 8 and 16 in both conv settings (and the library-conv step),
-   peak memory, and a ``torch.profiler`` breakdown of the step;
+   the bound and the GB/s achieved on the bound's bytes; K6's and the
+   library's device time per BatchNorm shape beside their event times;
+   the train step at batch 8 and 16 in both conv settings (and the
+   library-conv step), peak memory, and a ``torch.profiler`` breakdown of
+   the step (kernels a step per kernel group; the rest split by the port
+   function that launched it, through ``record_function`` wrappers put in
+   by this script);
 9. fused-loss kernels: K8 and K9 at the train step's logits (8, 512, 512,
    10) bf16 with int64 labels, uniform and class weights: K8 within rtol
    1e-5 of the float64 plain version, K9 within one bf16 ulp of the
@@ -455,10 +462,77 @@ def reading(agree):
             f"{agree[2][0]:.2e} ({agree[2][1]})")
 
 
-def profile_breakdown(fn, runs, what, groups):
+PORT = "port: "
+ENGINE = "autograd::engine::evaluate_function: "
+
+
+def labelled(fn, label):
+    """``fn`` inside ``torch.profiler.record_function("port: " + label)``,
+    for ``profile_breakdown``'s split by port function."""
+    import functools
+
+    from torch.profiler import record_function
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with record_function(PORT + label):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def split_by_function(prof, runs, skip):
+    """Device ms a call of the kernels whose names hold none of ``skip``,
+    by the port function that launched them (``labelled``): in the forward
+    the innermost ``port:`` range around the op, in the backward the range
+    around the forward op that made the autograd node (its sequence
+    number). -> {label: (ms, {op: ms})}."""
+    from torch.autograd import DeviceType
+
+    def port(e):
+        while e is not None:
+            if e.name.startswith(PORT):
+                return e.name[len(PORT):]
+            e = e.cpu_parent
+        return None
+
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    of_seq = {}
+    for e in cpu:
+        if e.sequence_nr >= 0 and not e.name.startswith(ENGINE):
+            label = port(e)
+            if label is not None:
+                of_seq.setdefault(e.sequence_nr, label)
+    out = {}
+    for e in cpu:
+        if not e.kernels:
+            continue
+        label = port(e)
+        if label is None:
+            node = e
+            while node is not None and not node.name.startswith(ENGINE):
+                node = node.cpu_parent
+            if node is None:
+                label = "unlabelled"
+            elif node.sequence_nr in of_seq:
+                label = of_seq[node.sequence_nr] + " [backward]"
+            else:
+                label = node.name[len(ENGINE):] + " [backward]"
+        for k in e.kernels:
+            if any(key in k.name for key in skip):
+                continue
+            total, ops = out.setdefault(label, [0.0, {}])
+            out[label][0] = total + k.duration / runs / 1e3
+            ops[e.name] = ops.get(e.name, 0.0) + k.duration / runs / 1e3
+    return out
+
+
+def profile_breakdown(fn, runs, what, groups, split=False):
     """``torch.profiler`` over ``runs`` calls of ``fn``: wall and device
-    busy time per call, device time by kernel group (name substring) and
-    the 15 largest kernels."""
+    busy time per call, device time and kernel launches by kernel group
+    (name substring) and the 15 largest kernels; with ``split``, the
+    device time outside the groups by port function
+    (``split_by_function``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -471,8 +545,11 @@ def profile_breakdown(fn, runs, what, groups):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the device side of record_function ranges (``labelled``'s, the
+    # optimizer's step) are annotations, not kernels
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and not e.key.startswith(PORT)
+            and not getattr(e, "is_user_annotation", False)]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -488,12 +565,25 @@ def profile_breakdown(fn, runs, what, groups):
 
     by_group = {gname: sum(dev_us(e) for e in kern if in_group(e, keys)) / 1e3
                 for gname, keys in groups.items()}
+    calls = {gname: sum(e.count for e in kern if in_group(e, keys)) / runs
+             for gname, keys in groups.items()}
     by_group["everything else"] = total - sum(by_group.values())
     print(f"profile, {runs} x {what}: wall {wall_ms / runs:.3f} ms each, "
           f"device busy {total / runs:.3f} ms ({100 * total / wall_ms:.2f}%), "
           f"idle {100 * (1 - total / wall_ms):.2f}%")
     for gname, t in by_group.items():
-        print(f"  {gname:24s} {t / runs:8.3f} ms {100 * t / total:6.2f}%")
+        n = f", {calls[gname]:g} kernels a call" if gname in calls else ""
+        print(f"  {gname:24s} {t / runs:8.3f} ms {100 * t / total:6.2f}%{n}")
+    if split:
+        skip = [k for keys in groups.values()
+                for k in ((keys,) if isinstance(keys, str) else keys)]
+        parts = split_by_function(prof, runs, skip)
+        print(f"  everything else by port function (device ms a call; "
+              f"{sum(v[0] for v in parts.values()):.3f} ms recorded):")
+        for label, (t, ops) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
+            top = ", ".join(f"{op} {v:.3f}" for op, v in
+                            sorted(ops.items(), key=lambda kv: -kv[1])[:3])
+            print(f"    {t:8.3f} ms  {label} ({top})")
     for e in sorted(kern, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(e) / runs / 1e3:8.3f} ms "
               f"{100 * dev_us(e) / 1e3 / total:6.2f}%  {e.key[:100]}")
@@ -507,6 +597,21 @@ def http_post(url, arr):
                                  method="POST")
     with urllib.request.urlopen(req, timeout=300) as r:
         return np.load(io.BytesIO(r.read()), allow_pickle=False)
+
+
+def k6_emulation():
+    """``emulate`` of ``tests/test_torch_k6_order.py``: K6's order of
+    additions in numpy float32 (that module imports JAX only inside the
+    test that compares with it)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "tests" / \
+        "test_torch_k6_order.py"
+    spec = importlib.util.spec_from_file_location("k6_order", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.emulate
 
 
 def phase(name):
@@ -552,6 +657,7 @@ def train_phases(dev, card, time_ms):
         dice_ce_loss,
     )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.train_state import (
+        TrainState,
         create_train_state,
     )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
@@ -560,6 +666,7 @@ def train_phases(dev, card, time_ms):
 
     bf16 = torch.bfloat16
     names = ("conv3x3_bf16", "conv3x3_bf16_wgrad", "bn_pair_sums")
+    k6_plans = {}
 
     def wrappers():
         return {"conv3x3_bf16": k45.conv3x3_bf16_fwd,
@@ -614,12 +721,12 @@ def train_phases(dev, card, time_ms):
               f"(K4 bodies fwd {bodies[0]}, dgrad {bodies[1]})", flush=True)
         bad += sum(mism)
         del x, w, dy, got, want
-    worst_rel = 0.0
+    worst_rel, repeats = 0.0, 0
     for h, c in bn_shapes():
         for two in (False, True):
             a = normal((nb, h, h, c), 1.0)
             b = normal((nb, h, h, c), 1.0) if two else None
-            got = k6.pair_sums(a, b)
+            got, again = k6.pair_sums(a, b), k6.pair_sums(a, b)
             want = k6.pair_sums_reference(a, b)
             torch.cuda.synchronize()
             err = (got - want).abs()
@@ -627,11 +734,35 @@ def train_phases(dev, card, time_ms):
             max_err["bn_pair_sums"] = max(max_err["bn_pair_sums"],
                                           float(err.max()))
             worst_rel = max(worst_rel, rel)
-            if rel > 1e-6:
-                print(f"K6 {h}^2 x {c} two={two}: relative error {rel:.3e}")
+            repeats += torch.equal(got, again)
+            k6_plans[f"{h}^2x{c} {'bwd' if two else 'fwd'}"] = \
+                k6.launch_plan(a, b).text()
+            if rel > 1e-6 or not torch.equal(got, again):
+                print(f"K6 {h}^2 x {c} two={two}: relative error {rel:.3e}, "
+                      f"a second call {'the same' if torch.equal(got, again) else 'DIFFERENT'}")
                 bad += 1
     print(f"K6 at the 18 BN shapes, both modes: worst relative error "
-          f"{worst_rel:.3e} (limit 1e-6), max abs {max_err['bn_pair_sums']:.3e}")
+          f"{worst_rel:.3e} (limit 1e-6), max abs {max_err['bn_pair_sums']:.3e}; "
+          f"a second call on the same inputs bit-identical at {repeats} of 36")
+    for key in ("512^2x32 fwd", "32^2x512 fwd"):
+        print(f"K6 plan {key}: {k6_plans[key]}")
+    # K6 bit for bit against the numpy emulation of its order of additions
+    # (tests/test_torch_k6_order.py) on the plan it launched, batch 2
+    emulate = k6_emulation()
+    for h, c in ((HW, F), (HW // 16, 16 * F)):
+        for two in (False, True):
+            a = normal((2, h, h, c), 1.0)
+            b = normal((2, h, h, c), 1.0) if two else None
+            got = k6.pair_sums(a, b)
+            plan = k6.launch_plan(a, b)
+            want = emulate(a.float().cpu().numpy(),
+                           None if b is None else b.float().cpu().numpy(),
+                           plan)
+            same = np.array_equal(got.cpu().numpy(), want)
+            print(f"K6 (2, {h}, {h}, {c}) two={two} against its emulation: "
+                  f"{'bit-equal' if same else 'DIFFERENT'} (plan {plan.text()})",
+                  flush=True)
+            bad += not same
     # K5 sums in a fixed order: two calls on the same random inputs at the
     # default step's three K5 shapes give the same bits. K4 at the step's
     # six calls on random data: within one bf16 ulp of the float64 plain
@@ -769,10 +900,22 @@ def train_phases(dev, card, time_ms):
         """K6 with its sums 0.5% high."""
         return sums(a, b) * 1.005
 
+    def k6_drops_block(a, b=None):
+        """K6 with the rows of one block of its plan (its unit of work, from
+        ``launch_plan``) left out: the block that holds the centre pixel of
+        the first image (the retina)."""
+        n, h, w, c = a.shape
+        plan = k6.launch_plan(a.contiguous(),
+                              None if b is None else b.contiguous())
+        rows = plan.rows(((h // 2) * w + w // 2) // plan.rows_block)
+        kept = a.reshape(-1, c).clone()
+        kept[rows.start:rows.stop] = 0
+        return sums(kept.view(a.shape), b)
+
     # the real wrappers count their launches under their module names,
     # which point at the faults while these run
     k4_drops_tiles.launches = k5_drops_tiles.launches = 0
-    k6_sums_high.launches = 0
+    k6_sums_high.launches = k6_drops_block.launches = 0
     faults = {}
     for label, fault in (
         ("K4 leaves out 1/64 of its tiles",
@@ -780,6 +923,8 @@ def train_phases(dev, card, time_ms):
         ("K5 leaves out 1/64 of its bands",
          swapped(k45, conv3x3_bf16_wgrad=k5_drops_tiles)),
         ("K6 sums 0.5% high", swapped(k6, pair_sums=k6_sums_high)),
+        ("K6 leaves out the rows of one block",
+         swapped(k6, pair_sums=k6_drops_block)),
     ):
         with fault:
             faults[label] = agreement(kern, loss_and_grads(trained))
@@ -945,6 +1090,8 @@ def train_phases(dev, card, time_ms):
           f"{k5['bytes'] / k5['device'] / 1e6:.0f} GB/s of {HBM / 1e9:.0f}",
           flush=True)
     dims = (0, 1, 2)
+    # K6's device time (torch.profiler) per call beside its event time
+    k6_dev = {"fwd": 0.0, "bwd": 0.0, "fwd library": 0.0, "bwd library": 0.0}
     for h, c in bn_shapes():
         a, b = normal((nb, h, h, c), 1.0), normal((nb, h, h, c), 1.0)
         m = nb * h * h
@@ -958,12 +1105,23 @@ def train_phases(dev, card, time_ms):
             ms = time_ms(lambda: k6.pair_sums(*args))
             pms = time_ms(lambda: k6.pair_sums_reference(*args), 3)
             lms = time_ms(lib)
+            dms, dlms = device_ms(lambda: k6.pair_sums(*args)), device_ms(lib)
+            k6_dev[label] += dms
+            k6_dev[label + " library"] += dlms
             b_ms, b_by = add("bn_pair_sums", True, ms, pms, lms,
                              (3 * m * c, nbytes), PEAK["fp32"])
-            print(f"time b{nb} K6 {h:4d}^2 x {c:4d} {label}: kernel {ms:.4f} "
-                  f"ms ({nbytes / ms / 1e6:.0f} GB/s), plain {pms:.4f}, "
-                  f"library {lms:.4f}, bound {b_ms:.4f} ({b_by})", flush=True)
+            print(f"time b{nb} K6 {h:4d}^2 x {c:4d} {label}: kernel device "
+                  f"{dms:.4f} ms ({nbytes / dms / 1e6:.0f} GB/s, "
+                  f"{100 * b_ms / dms:.1f}% of the bound's rate), event "
+                  f"{ms:.4f}; library device {dlms:.4f}, event {lms:.4f}; "
+                  f"plain {pms:.4f}; bound {b_ms:.4f} ({b_by})", flush=True)
         del a, b, a2, b2
+    print(f"time b{nb} K6 summed over the default step's 36 calls, device: "
+          f"kernel {k6_dev['fwd'] + k6_dev['bwd']:.4f} ms (fwd "
+          f"{k6_dev['fwd']:.4f}, bwd {k6_dev['bwd']:.4f}), library "
+          f"{k6_dev['fwd library'] + k6_dev['bwd library']:.4f} ms (fwd "
+          f"{k6_dev['fwd library']:.4f}, bwd {k6_dev['bwd library']:.4f})",
+          flush=True)
     for k, r in rows.items():
         print(f"time b{nb} {k} summed over the default step's calls: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
@@ -1000,15 +1158,39 @@ def train_phases(dev, card, time_ms):
             del state, step, xs, ys, loss
             torch.cuda.empty_cache()
 
-    state, step = step_for("torch", TRAIN_BATCH)
+    # the default step, its "everything else" split by the port function
+    # that launched it (record_function around each, in this script only)
+    state = create_train_state(unet(), OptimConfig())
+    step = packed_unet.make_packed_train_step(
+        labelled(dice_ce_loss, "the loss (dice_ce_loss)"))
     for _ in range(2):
         step(state, x8, y8)
-    profile_breakdown(lambda: step(state, x8, y8), 3,
-                      f"default steps at batch {TRAIN_BATCH}",
-                      {"K4 conv3x3_bf16": ("conv3x3_bf16_fwd",
-                                           "conv3x3_bf16_mma"),
-                       "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
-                       "K6 bn_pair_sums": "pair_sums"})
+    convs = packed_unet._CONVS
+    with swapped(packed_unet,
+                 packed_unet_apply=labelled(
+                     packed_unet.packed_unet_apply,
+                     "the rest of the forward (skip concats, head, "
+                     "running-stat updates)"),
+                 bn_train=labelled(packed_unet.bn_train,
+                                   "bn_train: normalize (dx in the backward)"),
+                 _CONVS={"torch": labelled(convs["torch"],
+                                           "library conv and its casts"),
+                         "kernel": labelled(convs["kernel"],
+                                            "K4 conv's casts and permutes")},
+                 _pool=labelled(packed_unet._pool, "pool"),
+                 _ct=labelled(packed_unet._ct,
+                              "transposed conv (library) and bias"),
+                 apply_batch_stats=labelled(packed_unet.apply_batch_stats,
+                                            "running stats written")), \
+            swapped(torch, relu=labelled(torch.relu, "relu")), \
+            swapped(TrainState, apply_gradients=labelled(
+                TrainState.apply_gradients, "Adam (apply_gradients)")):
+        profile_breakdown(lambda: step(state, x8, y8), 3,
+                          f"default steps at batch {TRAIN_BATCH}",
+                          {"K4 conv3x3_bf16": ("conv3x3_bf16_fwd",
+                                               "conv3x3_bf16_mma"),
+                           "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
+                           "K6 bn_pair_sums": "pair_sums"}, split=True)
     del state, step
 
     out = [{
@@ -1022,6 +1204,8 @@ def train_phases(dev, card, time_ms):
         "library_ms": rows[k]["library_ms"],
     } for k in names]
     out[0].update(device_ms=k4["device"], plan=k4_plans)
+    out[2].update(body="pair_sums_kernel (one cooperative launch a call)",
+                  device_ms=k6_dev["fwd"] + k6_dev["bwd"], plan=k6_plans)
     return out
 
 

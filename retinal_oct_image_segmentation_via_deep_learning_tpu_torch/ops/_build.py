@@ -49,7 +49,9 @@ SIGNATURES = {
     "octseg_conv3x3_bf16_mma": [_P, _P, _P] + [_I] * 10 + [_P],
     "octseg_conv3x3_bf16_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _P],
-    "octseg_bn_pair_sums": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P],
+    "octseg_bn_pair_sums": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _L,
+                            _I, _P],
+    "octseg_bn_pair_sums_resident": [_I, _I, _I, _P],
     "octseg_dice_ce_stats": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I,
                              _P],
     "octseg_dice_ce_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _P],

@@ -19,9 +19,15 @@ elementwise ops, as they are XLA in JAX.
 
 ``pair_sums`` runs K6 (``csrc/bn_pair_sums.cu``) for a CUDA tensor and its
 plain version (float64 sums, rounded to float32) only for a CPU tensor.
+K6 is one cooperative launch a call; ``pair_sums_plan`` cuts its rows and
+channels, and fixes the order of its additions.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,13 +46,103 @@ def pair_sums_reference(a: torch.Tensor,
     return torch.stack([a64.sum(0), (a64 * b64).sum(0)]).float()
 
 
-def pair_sums_groups(M: int, C: int) -> tuple[int, int]:
-    """K6's (G, rows per block): about 2048 blocks in all, at least 64 rows
-    a block."""
-    channel_tiles = -(-C // 32)
-    G = max(1, min(-(-M // 64), 2048 // channel_tiles))
-    rows = -(-M // G)
-    return -(-M // rows), rows
+THREADS = 256  # a K6 block's threads (csrc/bn_pair_sums.cu: THREADS)
+VEC = 8  # channels a lane owns where C % 8 == 0: 16 bytes of a bf16 row
+# block steps a block takes at least (each lane adds this many rows or
+# more), so that its tree, partial and share of the barrier are small
+# beside its loads
+MIN_STEPS = 32
+
+
+class PairSumsPlan(NamedTuple):
+    """K6's launch for one call (``pair_sums_plan``). A lane owns ``vec``
+    consecutive channels (a channel group; 16-byte loads where vec = 8) and
+    the block's ``THREADS`` threads are ``rows_step`` rows x ``lanes``
+    lanes, thread t = ry * lanes + lane (threads past rows_step * lanes
+    idle). Block g of the ``grid`` takes rows [g * rows_block, min(M, (g +
+    1) * rows_block)); its thread (ry, lane) adds, for channel groups lane,
+    lane + lanes, ..., the rows ry, ry + rows_step, ... of that range in
+    order into one Kahan pair (s, e) a channel and product; the block's
+    rows_step pairs of a channel are then joined by a fixed tree (n items:
+    item i += item i + ceil(n/2) for i < floor(n/2), until one is left),
+    and the block writes its partial for slot g. After a grid-wide barrier
+    output i (of 2C: [sum a | sum a*b]) is taken by a warp of block i mod
+    grid: lane l joins the partials g = l, l + 32, ... in order, then the
+    warp's shuffle-down tree (16, 8, 4, 2, 1) joins the lanes. So the
+    order of every addition is a function of the plan alone."""
+
+    M: int
+    C: int
+    vec: int
+    lanes: int
+    rows_step: int
+    grid: int
+    rows_block: int
+
+    def rows(self, g: int) -> range:
+        """Block ``g``'s rows."""
+        return range(g * self.rows_block,
+                     min(self.M, (g + 1) * self.rows_block))
+
+    def text(self) -> str:
+        return (f"vec {self.vec} lanes {self.lanes} rows/step "
+                f"{self.rows_step} grid {self.grid} rows/block "
+                f"{self.rows_block}")
+
+
+@functools.lru_cache(maxsize=256)
+def pair_sums_plan(M: int, C: int, dtype: torch.dtype, *, co_resident: int,
+                   aligned: bool = True) -> PairSumsPlan:
+    """K6's plan over (M, C) rows of ``dtype`` (float32 or bfloat16).
+    ``co_resident``: the blocks the card holds at once (the launch is
+    cooperative: every block must be resident); ``aligned``: the inputs are
+    16-byte aligned.
+
+    A lane owns 8 channels where C % 8 == 0 (and aligned), else one. A
+    block covers up to THREADS channel groups at once, in as many rows as
+    its threads allow. The grid is the lesser of the blocks that hold work
+    (each at least MIN_STEPS block steps) and ``co_resident``; the rows are
+    then dealt in whole block steps. ``dtype`` is checked, not used: a
+    lane's 8 channels are one 16-byte load of bf16 and two of fp32."""
+    _check(dtype in (torch.float32, torch.bfloat16),
+           f"pair_sums_plan: dtype {dtype}, expected float32 or bfloat16")
+    vec = VEC if C % VEC == 0 and aligned else 1
+    lanes = min(C // vec, THREADS)
+    rows_step = THREADS // lanes
+    steps = max(1, -(-M // rows_step))
+    grid = max(1, min(-(-steps // MIN_STEPS), co_resident))
+    rows_block = -(-steps // grid) * rows_step
+    grid = max(1, -(-M // rows_block))
+    return PairSumsPlan(M, C, vec, lanes, rows_step, grid, rows_block)
+
+
+@functools.lru_cache(maxsize=64)
+def _co_resident(index: int, bf16: bool, two: bool, vec: int) -> int:
+    """Blocks of this K6 instance the card holds at once (the occupancy
+    API's blocks an SM times the SMs)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.lib().octseg_bn_pair_sums_resident(
+            int(bf16), int(two), vec, ctypes.addressof(n))
+    _build.check(err, "pair_sums occupancy")
+    return n.value
+
+
+def launch_plan(a: torch.Tensor, b: torch.Tensor | None = None
+                ) -> PairSumsPlan:
+    """The plan ``pair_sums`` launches for contiguous CUDA tensors ``a``
+    (and ``b``) of one dtype."""
+    C = a.shape[-1]
+    M = a.numel() // C
+    aligned = a.data_ptr() % 16 == 0 and (b is None
+                                          or b.data_ptr() % 16 == 0)
+    vec = VEC if C % VEC == 0 and aligned else 1
+    bf16 = a.dtype == torch.bfloat16
+    index = a.device.index if a.device.index is not None \
+        else torch.cuda.current_device()
+    return pair_sums_plan(M, C, a.dtype, aligned=aligned,
+                          co_resident=_co_resident(index, bf16,
+                                                   b is not None, vec))
 
 
 def pair_sums(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
@@ -67,14 +163,15 @@ def pair_sums(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     _check(a.dtype in (torch.float32, torch.bfloat16),
            f"pair_sums: dtype {a.dtype}, expected float32 or bfloat16")
     a = a.contiguous()
-    M = a.numel() // C
-    G, rows = pair_sums_groups(M, C)
-    partial = torch.empty((G, 2, C), dtype=torch.float32, device=dev)
-    out = torch.empty((2, C), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        plan = launch_plan(a, b)
+        part = torch.empty((2, 2 * C, plan.grid), dtype=torch.float32,
+                           device=dev)
+        out = torch.empty((2, C), dtype=torch.float32, device=dev)
         err = _build.lib().octseg_bn_pair_sums(
             a.data_ptr(), None if b is None else b.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), M, C, G, rows,
+            part.data_ptr(), out.data_ptr(), plan.M, C, plan.vec,
+            plan.lanes, plan.rows_step, plan.grid, plan.rows_block,
             int(a.dtype == torch.bfloat16), _stream(a))
     _build.check(err, "pair_sums")
     pair_sums.launches += 1

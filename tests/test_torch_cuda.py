@@ -46,6 +46,8 @@ from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
     preprocess,
 )
+from test_torch_k6_order import SHAPES as K6_ORDER_SHAPES
+from test_torch_k6_order import emulate as k6_emulate
 
 pytestmark = pytest.mark.cuda
 
@@ -349,6 +351,52 @@ def test_k6_matches_float64(dev, shape, dtype, two):
     assert k6.pair_sums.launches == before + 1
     want = k6.pair_sums_reference(a, b)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("shape", K6_ORDER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("two", [False, True])
+def test_k6_matches_its_emulation(dev, shape, dtype, two):
+    """K6 bit for bit equal to the numpy emulation of its order of
+    additions on the plan it launched (``tests/test_torch_k6_order.py``),
+    and a second call on the same inputs bit-identical."""
+    rng = np.random.default_rng(9)
+    a = torch.tensor(rng.normal(1, 1, shape), dtype=dtype, device=dev)
+    b = torch.tensor(rng.normal(1, 1, shape), dtype=dtype, device=dev) \
+        if two else None
+    plan = k6.launch_plan(a, b)
+    first, second = k6.pair_sums(a, b), k6.pair_sums(a, b)
+    torch.cuda.synchronize()
+    want = k6_emulate(a.float().cpu().numpy(),
+                      None if b is None else b.float().cpu().numpy(), plan)
+    assert torch.equal(first, second)
+    assert np.array_equal(first.cpu().numpy(), want), plan.text()
+
+
+def test_k6_calls_back_to_back(dev):
+    """Calls of other (M, C), modes and dtypes back to back on one stream,
+    with no synchronisation between them, each equal to the same call made
+    alone: nothing carries over from one call to the next."""
+    rng = np.random.default_rng(10)
+    calls = []
+    for shape, dtype, two in (((8, 64, 64, 32), torch.bfloat16, True),
+                              ((3, 5), torch.float32, False),
+                              ((4, 33, 130), torch.bfloat16, False),
+                              ((2, 32, 32, 512), torch.bfloat16, True),
+                              ((2, 16, 16, 1), torch.float32, True),
+                              ((8, 64, 64, 32), torch.bfloat16, False)):
+        a = torch.tensor(rng.normal(1, 1, shape), dtype=dtype, device=dev)
+        b = torch.tensor(rng.normal(1, 1, shape), dtype=dtype,
+                         device=dev) if two else None
+        calls.append((a, b))
+    alone = []
+    for a, b in calls:
+        alone.append(k6.pair_sums(a, b))
+        torch.cuda.synchronize()
+    together = [k6.pair_sums(a, b) for a, b in calls]
+    torch.cuda.synchronize()
+    for got, want in zip(together, alone):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

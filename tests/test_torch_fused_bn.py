@@ -97,9 +97,52 @@ def test_pair_sums_plain_matches_pallas(two, dtype):
 
 
 def test_pair_sums_groups_cover_the_rows():
-    for m, c in ((1, 5), (100, 32), (2 * 512 * 512, 32), (2048, 512)):
-        g, rows = tbn.pair_sums_groups(m, c)
-        assert g >= 1 and rows >= 1 and (g - 1) * rows < m <= g * rows
+    """``pair_sums_plan``: the blocks' row ranges cover [0, M) once, in
+    whole block steps; the grid stays within the co-resident bound passed
+    in (the launch is cooperative); a lane owns 8 channels exactly where C
+    % 8 == 0 (and the inputs are aligned); the lanes and rows of a block
+    fit its threads."""
+    cases = [(1, 5), (100, 32), (2 * 512 * 512, 32), (2048, 512), (0, 8),
+             (6, 5), (132, 130), (8 * 512 * 512, 32), (8 * 32 * 32, 512),
+             (4 * 512 * 512, 1), (4, 32), (7, 8192), (1000, 300)]
+    for m, c in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            for co_resident in (1, 5, 396, 1056):
+                plan = tbn.pair_sums_plan(m, c, dtype,
+                                          co_resident=co_resident)
+                assert 1 <= plan.grid <= co_resident
+                assert plan.rows_block % plan.rows_step == 0
+                rows = [r for g in range(plan.grid) for r in plan.rows(g)]
+                assert rows == list(range(m))
+                assert all(len(plan.rows(g)) for g in range(plan.grid)) \
+                    or m == 0
+                assert plan.vec == (8 if c % 8 == 0 else 1)
+                assert plan.lanes == min(c // plan.vec, tbn.THREADS)
+                assert plan.lanes * plan.rows_step <= tbn.THREADS
+        assert tbn.pair_sums_plan(m, c, torch.float32, co_resident=9,
+                                  aligned=False).vec == 1
+
+
+def test_k6_binding_matches_the_c_entry_points():
+    """The ctypes argument lists of K6's two entry points have one entry
+    per parameter of the C functions: pointers where they take pointers,
+    64-bit integers where they take ``long long``."""
+    import ctypes
+    import re
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        _build,
+    )
+
+    src = (_build.CSRC / "bn_pair_sums.cu").read_text()
+    for name in ("octseg_bn_pair_sums", "octseg_bn_pair_sums_resident"):
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)',
+                           src).group(1).split(",")
+        argtypes = _build.SIGNATURES[name]
+        assert len(params) == len(argtypes)
+        for p, t in zip(params, argtypes):
+            assert ("*" in p) == (t is ctypes.c_void_p), (p, t)
+            assert ("long long" in p) == (t is ctypes.c_longlong), (p, t)
 
 
 def test_batchnorm_module_train_and_eval():
