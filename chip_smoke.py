@@ -1417,11 +1417,17 @@ def fused_loss_phases(dev, card, time_ms):
          lambda: k89.dice_ce_bwd_reference(logits, labels, coef)),
     ):
         ms, pms = time_ms(fn), time_ms(plain, 3)
+        dms = device_ms(fn)
         b_ms, b_by = bound(*work[k], PEAK["fp32"])
-        rows[k] = (ms, pms, b_ms, b_by)
+        rows[k] = (ms, pms, b_ms, b_by, dms)
+        gate = (" (must < 0.075, aim <= 0.045); plan "
+                f"{k89.launch_plan(logits, labels)}" if k == "dice_ce_bwd"
+                else "")
         print(f"time b{nb} {k}: kernel {ms:.4f} ms "
-              f"({work[k][1] / ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"({work[k][1] / ms / 1e6:.0f} GB/s), device {dms:.4f} ms "
+              f"({work[k][1] / dms / 1e6:.0f} GB/s, {100 * b_ms / dms:.2f}% "
+              f"of the bound's rate){gate}, plain {pms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
 
     def fwd_bwd(fn):
         def run():
@@ -1470,6 +1476,7 @@ def fused_loss_phases(dev, card, time_ms):
         "replaces": "; ".join(REPLACES[k]), "launches": launches[k],
         "max_abs_err": max_err[k], "ms": rows[k][0], "plain_ms": rows[k][1],
         "bound_ms": rows[k][2], "bound_by": rows[k][3],
+        "device_ms": rows[k][4],
         # no single PyTorch call computes Dice + CE (the unfused loss's
         # time is printed above)
         "library_ms": None,
@@ -1725,6 +1732,33 @@ def relaynet_phases(dev, card, time_ms, http_post):
         print(f"time b{n} TPU kernel {row} ({n_st} launches per forward): "
               f"kernel {ms:.4f} ms, device_ms {dms:.4f}, plain {pms:.4f} ms, "
               f"bound {b_ms:.4f} ms")
+    # K3 at ReLayNet's head: (n, 512, 512, 64) -> NC classes
+    hx = torch.randint(-127, 128, (n, HW, HW, rf), dtype=torch.int8,
+                       device=dev, generator=torch.Generator(
+                           device=dev).manual_seed(SEED + 61))
+    head = (k3.pack_head_weights(torch.tensor(
+        gen.integers(-40, 41, (NC, rf, 1, 1)), dtype=torch.int8, device=dev)),
+        torch.tensor(gen.uniform(30, 60, NC) / rf ** 0.5 / 73 / 40,
+                     dtype=torch.float32, device=dev),
+        torch.tensor(gen.uniform(-5, 5, NC), dtype=torch.float32,
+                     device=dev))
+    with torch.inference_mode():
+        if not torch.equal(k3.head_argmax(hx, *head),
+                           k3.head_argmax_reference(hx, *head)):
+            raise RuntimeError("K3 differs from its plain version at "
+                               "ReLayNet's head")
+        h_ms = time_ms(lambda: k3.head_argmax(hx, *head))
+        h_dev = device_ms(lambda: k3.head_argmax(hx, *head))
+    h_bytes = n * HW * HW * (rf + 1) + NC * rf + 8 * NC
+    h_bound = h_bytes / HBM * 1e3
+    print(f"time b{n} K3 at ReLayNet's head ({HW}x{HW}x{rf} -> {NC}; "
+          f"bit-equal to plain): event {h_ms:.4f} ms, device {h_dev:.4f} ms "
+          f"(must < 0.30, aim <= 0.22), bound {h_bound:.4f} ms (bytes), "
+          f"{100 * h_bound / h_dev:.2f}% of the bound's rate, "
+          f"{h_bytes / h_dev / 1e6:.1f} GB/s; plan "
+          f"{k3.launch_plan(hx, NC).text()}", flush=True)
+    del hx, head
+    torch.cuda.empty_cache()
     xb = torch.tensor(np.random.default_rng(n).uniform(0, 255, (n, HW, HW, 1)),
                       dtype=torch.float32, device=dev)
     with torch.inference_mode():
@@ -3565,6 +3599,7 @@ def main() -> int:
     # K2's four calls: event and device time, bound, operations, bytes
     k2 = {"ms": 0.0, "dev": 0.0, "bound": 0.0, "ops": 0.0, "bytes": 0.0}
     k2_plans = {}
+    k3_head = {}  # K3 at the head: event and device time, bound, plan
     for name, kernel, shape in stages():
         args, kw = stage_args(kernel, shape, 32)
         with torch.inference_mode():
@@ -3632,6 +3667,15 @@ def main() -> int:
             extra = (f" (device {dms:.4f}; {100 * b_ms / dms:.2f}% of the "
                      f"bound's rate, {nbytes / dms / 1e6:.1f} GB/s, "
                      f"{ops / dms / 1e9:.1f} TOPS; plan {k2_plans[name]})")
+        if kernel == "head_argmax":
+            with torch.inference_mode():
+                dms = device_ms(lambda: wrappers[kernel](*args, **kw))
+            nbytes = serving_work(kernel, shape, 32)[1]
+            k3_head.update(ms=ms, dev=dms, bound=b_ms, bytes=nbytes,
+                           plan=k3.launch_plan(args[0], NC).text())
+            extra = (f" (device {dms:.4f}; {100 * b_ms / dms:.2f}% of the "
+                     f"bound's rate, {nbytes / dms / 1e6:.1f} GB/s; plan "
+                     f"{k3_head['plan']})")
         print(f"time b32 {name:16s} {kernel:13s} kernel {ms:.4f} ms"
               f"{extra}, plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
               flush=True)
@@ -3668,6 +3712,12 @@ def main() -> int:
           f"{100 * k2['bound'] / k2['dev']:.2f}% of the bound's rate, "
           f"{k2['bytes'] / k2['dev'] / 1e6:.1f} GB/s, "
           f"{k2['ops'] / k2['dev'] / 1e9:.1f} TOPS", flush=True)
+    print(f"time b32 K3 at the U-Net head ({HW}x{HW}x{F} -> {NC}): event "
+          f"{k3_head['ms']:.4f} ms, device {k3_head['dev']:.4f} ms (must < "
+          f"0.15, aim <= 0.11), bound {k3_head['bound']:.4f} ms, "
+          f"{100 * k3_head['bound'] / k3_head['dev']:.2f}% of the bound's "
+          f"rate, {k3_head['bytes'] / k3_head['dev'] / 1e6:.1f} GB/s; plan "
+          f"{k3_head['plan']}", flush=True)
     for n in (32, 128):
         xb = torch.tensor(
             np.random.default_rng(n).uniform(0, 255, (n, HW, HW, 1)),
@@ -3702,6 +3752,8 @@ def main() -> int:
            if k == "conv3x3_int8" else {}),
         **({"device_ms": k2["dev"], "plan": k2_plans}
            if k == "ct2x2_int8" else {}),
+        **({"device_ms": k3_head["dev"], "plan": k3_head["plan"]}
+           if k == "head_argmax" else {}),
         # no single PyTorch call computes an int8 conv with requant (K1),
         # an int8 transposed conv with requant (K2) or head + argmax on
         # int8 (K3)

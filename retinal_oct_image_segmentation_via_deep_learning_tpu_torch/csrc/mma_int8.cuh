@@ -1,5 +1,6 @@
 // The int8 tensor-core helpers that K1 (conv3x3_int8.cu), K2 (ct2x2_int8.cu),
-// K7 (conv7x3_int8.cu) and K10 (stem_conv_int8.cu) share: cp.async copies
+// K3 (head_argmax.cu), K7 (conv7x3_int8.cu) and K10 (stem_conv_int8.cu)
+// share, K9 (dice_ce.cu) its copy helpers: cp.async copies
 // into shared memory, the ldmatrix reads, mma.sync m16n8k32 s8 * s8 -> s32,
 // the 32-byte-row swizzle, the requant's rounding by an add and the
 // packing of four rounded bytes into a word. Every function is inline

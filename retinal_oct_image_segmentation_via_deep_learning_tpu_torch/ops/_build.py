@@ -44,7 +44,8 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _P],
     "octseg_conv3x3_int8_stem": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     "octseg_ct2x2_int8": [_P, _P, _P, _P, _I, _F, _P] + [_I] * 12 + [_P],
-    "octseg_head_argmax": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "octseg_head_argmax": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "octseg_head_argmax_resident": [_I, _I, _P],
     "octseg_conv3x3_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "octseg_conv3x3_bf16_mma": [_P, _P, _P] + [_I] * 10 + [_P],
     "octseg_conv3x3_bf16_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -54,7 +55,8 @@ SIGNATURES = {
     "octseg_bn_pair_sums_resident": [_I, _I, _I, _P],
     "octseg_dice_ce_stats": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I,
                              _P],
-    "octseg_dice_ce_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    "octseg_dice_ce_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    "octseg_dice_ce_bwd_resident": [_I, _I, _I, _P],
     "octseg_conv7x3_int8": [_P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _P]
                            + [_I] * 12 + [_P],
     "octseg_stem_conv_int8": [_P] * 9 + [_I] * 8 + [_P],

@@ -20,12 +20,18 @@ and nothing is recomputed but the softmax.
 The kernels read NHWC logits (a thread owns a pixel, its C values are
 contiguous), which is what the packed train step's head emits; ``nchw=True``
 is permuted here. They take any H and W and at most 32 classes: a CUDA
-tensor with more raises ``ValueError`` (there is no fallback). Each wrapper
-runs its CUDA kernel (``csrc/dice_ce.cu``) for a CUDA tensor and its plain
-version (``*_reference``, float64 sums) only for a CPU tensor.
+tensor with more raises ``ValueError`` (there is no fallback). K9 moves
+whole tiles of pixels by 16-byte copies (its launch is ``bwd_plan``'s), so
+its logits and labels must be 16-byte aligned. Each wrapper runs its CUDA
+kernel (``csrc/dice_ce.cu``) for a CUDA tensor and its plain version
+(``*_reference``, float64 sums) only for a CPU tensor.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +41,8 @@ from .conv_int8 import _check, _check_vec, _stream
 MAX_CLASSES = 32
 _EPS = 1e-7
 _THREADS = 256
+BWD_TILE = _THREADS  # csrc/dice_ce.cu BWD_TP: K9's pixels a tile
+BWD_STAGES = 2  # csrc/dice_ce.cu: the slots of K9's ring
 
 
 def _softmax_onehot(x: torch.Tensor, labels: torch.Tensor):
@@ -122,21 +130,77 @@ def dice_ce_stats(x: torch.Tensor, labels: torch.Tensor,
 dice_ce_stats.launches = 0
 
 
+class BwdPlan(NamedTuple):
+    """K9's launch for one call (``bwd_plan``): tiles of ``tile`` pixels
+    (``tiles`` of them; the last one holds the ``P % tile`` left, if any),
+    ``smem`` bytes a block (BWD_STAGES slots of logits and labels, the
+    output tile), and a persistent grid of ``grid`` blocks walking the
+    tiles g, g + grid, ... Thread i of a tile computes its pixel i where
+    that pixel exists."""
+
+    P: int
+    C: int
+    x_bytes: int  # bytes a logit
+    lab_bytes: int  # bytes a label
+    tile: int
+    smem: int
+    tiles: int
+    grid: int
+
+
+def bwd_plan(P: int, C: int, x_bytes: int, lab_bytes: int, *,
+             co_resident: int) -> BwdPlan:
+    """K9's plan for P pixels of C classes, logits of ``x_bytes`` (2 or 4)
+    and labels of ``lab_bytes`` (4 or 8); ``co_resident``: the blocks of
+    its instance the card holds at once."""
+    tiles = -(-P // BWD_TILE)
+    smem = BWD_TILE * ((BWD_STAGES + 1) * C * x_bytes
+                       + BWD_STAGES * lab_bytes)
+    return BwdPlan(P, C, x_bytes, lab_bytes, BWD_TILE, smem, tiles,
+                   max(1, min(tiles, co_resident)))
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_co_resident(index: int, C: int, bf16: bool, lab64: bool) -> int:
+    """Blocks of K9's instance the card holds at once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.lib().octseg_dice_ce_bwd_resident(
+            C, int(bf16), int(lab64), ctypes.addressof(n))
+    _build.check(err, "dice_ce_bwd occupancy")
+    return n.value
+
+
+def launch_plan(x: torch.Tensor, labels: torch.Tensor) -> BwdPlan:
+    """The plan ``dice_ce_bwd`` launches for CUDA logits and labels."""
+    C = x.shape[-1]
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    return bwd_plan(x.numel() // C, C, x.element_size(),
+                    labels.element_size(),
+                    co_resident=_bwd_co_resident(
+                        index, C, x.dtype == torch.bfloat16,
+                        labels.dtype == torch.int64))
+
+
 def dice_ce_bwd(x: torch.Tensor, labels: torch.Tensor,
                 coef: torch.Tensor) -> torch.Tensor:
     """K9: dlogits of x's shape and dtype from coef = [A, B, wce] (3C,)
-    float32."""
+    float32. CUDA logits and labels must be 16-byte aligned."""
     if x.device.type == "cpu":
         return dice_ce_bwd_reference(x, labels, coef)
     C = _check_inputs("dice_ce_bwd", x, labels)
     dev = x.device
+    _check(x.data_ptr() % 16 == 0 and labels.data_ptr() % 16 == 0,
+           "dice_ce_bwd: logits or labels not 16-byte aligned")
     _check_vec(coef, 3 * C, "dice_ce_bwd coefficients", dev)
     dx = torch.empty_like(x)
+    plan = launch_plan(x, labels)
     with torch.cuda.device(dev):
         err = _build.lib().octseg_dice_ce_bwd(
             x.data_ptr(), labels.data_ptr(), coef.data_ptr(), dx.data_ptr(),
-            x.numel() // C, C, int(x.dtype == torch.bfloat16),
-            int(labels.dtype == torch.int64), _stream(x))
+            plan.P, C, int(x.dtype == torch.bfloat16),
+            int(labels.dtype == torch.int64), plan.grid, _stream(x))
     _build.check(err, "dice_ce_bwd")
     dice_ce_bwd.launches += 1
     return dx

@@ -46,6 +46,7 @@ from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
     preprocess,
 )
+from test_torch_k3_mma import crafted_case as k3_case
 from test_torch_k6_order import SHAPES as K6_ORDER_SHAPES
 from test_torch_k6_order import emulate as k6_emulate
 
@@ -206,6 +207,54 @@ def test_k3_matches_plain_with_tie(dev):
     got = k3.head_argmax(x, wk, sc, b)
     assert torch.equal(got, k3.head_argmax_reference(x, wk, sc, b))
     assert bool((got[0, 0] == 3).all())
+
+
+def _k3_args(rng, shape, cin, nc, ties, dev):
+    x, w, sc, b = k3_case(rng, int(np.prod(shape)), cin, nc, ties)
+    return (torch.tensor(x, device=dev).reshape(shape + (cin,)),
+            torch.tensor(w, device=dev), torch.tensor(sc, device=dev),
+            torch.tensor(b, device=dev))
+
+
+# the served heads at batch 2: the U-Net's at f=32 (PSRP and packed
+# graphs), ReLayNet's at f=64, the U-Net's at f=16
+@pytest.mark.parametrize("cin", [32, 64, 16])
+def test_k3_serving_heads_match_plain_and_repeat(dev, cin):
+    rng = np.random.default_rng(cin)
+    args = _k3_args(rng, (2, 512, 512), cin, 10, False, dev)
+    before = k3.head_argmax.launches
+    got = k3.head_argmax(*args)
+    again = k3.head_argmax(*args)
+    torch.cuda.synchronize()
+    assert k3.head_argmax.launches == before + 2
+    assert got.shape == (2, 512, 512) and got.dtype == torch.int8
+    assert torch.equal(got, k3.head_argmax_reference(*args))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("nc", [1, 8, 10, 17, 32])
+@pytest.mark.parametrize("cin", [4, 12, 32, 48, 64])
+def test_k3_classes_channels_and_ties(dev, cin, nc, ties):
+    """Every copy path and instance, ragged P (1073 pixels: a tile of 49),
+    ties across n8 tiles, across a quad's lanes and of all classes."""
+    rng = np.random.default_rng(cin * 100 + nc)
+    args = _k3_args(rng, (1, 37, 29), cin, nc, ties, dev)
+    got = k3.head_argmax(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k3.head_argmax_reference(*args))
+    if ties:
+        assert bool((got.reshape(-1)[:40] == 0).all())
+
+
+def test_k3_rejects_misaligned_input(dev):
+    rng = np.random.default_rng(3)
+    x, w, sc, b = _k3_args(rng, (1, 4, 4), 32, 10, False, dev)
+    odd = torch.empty(x.numel() + 4, dtype=torch.int8, device=dev)[4:]
+    before = k3.head_argmax.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        k3.head_argmax(odd.view(x.shape), w, sc, b)
+    assert k3.head_argmax.launches == before
 
 
 def test_wrapper_rejects_bad_input(dev):
@@ -559,14 +608,57 @@ def test_k8_k9_match_float64(dev, shape, nc, dtype, label_dtype):
         (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(stats, k89.dice_ce_stats_reference(x, lab, cw),
                                rtol=1e-5, atol=1e-6)
-    want = k89.dice_ce_bwd_reference(x, lab, coef)
     assert dx.dtype == dtype and dx.shape == x.shape
+    _assert_k9_within_ulp(dx, x, lab, coef)
+
+
+def _assert_k9_within_ulp(dx, x, lab, coef):
+    """dx within one ulp of x's dtype of the float64 dlogits, plus the
+    fp32 floor (see test_k8_k9_match_float64)."""
+    want = k89.dice_ce_bwd_reference(x, lab, coef)
     exact = k89.dice_ce_bwd_reference(x.double(), lab, coef)
     err = (dx.double() - exact).abs()
-    ulp = (_bf16_ulp(want) if dtype == torch.bfloat16
+    ulp = (_bf16_ulp(want) if x.dtype == torch.bfloat16
            else want.float().abs().clamp_min(2.0 ** -126) * 2.0 ** -23)
     floor = 2.0 ** -20 * float(exact.abs().max())
     assert bool((err <= ulp.double() + floor).all())
+
+
+@pytest.mark.parametrize("shape,nc,dtype,label_dtype", [
+    ((8, 64, 64), 10, torch.bfloat16, torch.int64),  # the train step's C
+    ((1, 37, 29), 10, torch.bfloat16, torch.int32),  # a ragged tile
+    ((2, 33, 17), 5, torch.bfloat16, torch.int64),   # 10-byte pixels
+    ((1, 40, 40), 32, torch.float32, torch.int64),
+    ((3, 7, 11), 16, torch.float32, torch.int32),
+    ((1, 1, 1), 1, torch.bfloat16, torch.int32),
+])
+def test_k9_tiles_within_ulp_and_repeat(dev, shape, nc, dtype, label_dtype):
+    """K9's tiled body within one ulp of the float64 dlogits, and a second
+    call bit-identical to the first."""
+    rng = np.random.default_rng(12)
+    x, lab = _dice_ce_case(rng, shape, nc, dtype, label_dtype, dev)
+    coef = torch.tensor(rng.normal(0, 1e-3, 3 * nc), dtype=torch.float32,
+                        device=dev)
+    dx = k89.dice_ce_bwd(x, lab, coef)
+    again = k89.dice_ce_bwd(x, lab, coef)
+    torch.cuda.synchronize()
+    _assert_k9_within_ulp(dx, x, lab, coef)
+    assert torch.equal(again, dx)
+
+
+def test_k9_rejects_misaligned_inputs(dev):
+    rng = np.random.default_rng(13)
+    x, lab = _dice_ce_case(rng, (1, 8, 8), 10, torch.bfloat16, torch.int64,
+                           dev)
+    coef = torch.zeros(30, device=dev)
+    odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    odd_lab = torch.empty(lab.numel() + 1, dtype=lab.dtype, device=dev)[1:]
+    before = k89.dice_ce_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        k89.dice_ce_bwd(odd.view(x.shape), lab, coef)
+    with pytest.raises(ValueError, match="16-byte"):
+        k89.dice_ce_bwd(x, odd_lab.view(lab.shape), coef)
+    assert k89.dice_ce_bwd.launches == before
 
 
 def test_fused_loss_autograd_on_the_card(dev):
