@@ -71,14 +71,16 @@ Phases (any failure raises; the exit code is then non-zero):
    by this script);
 9. fused-loss kernels: K8 and K9 at the train step's logits (8, 512, 512,
    10) bf16 with int64 labels, uniform and class weights: K8 within rtol
-   1e-5 of the float64 plain version, K9 within one bf16 ulp of the
-   float64 dlogits (plus an fp32 floor of 2^-20 of the largest);
+   1e-5 of the float64 plain version and a second call bit-identical to
+   the first (its plan printed), K9 within one bf16 ulp of the float64
+   dlogits (plus an fp32 floor of 2^-20 of the largest);
 10. fused-loss training: five steps of ``cli train --packed`` with
     ``OCTSEG_PACKED_FUSED_LOSS=1``: loss finite and falling, K8/K9
     launched once each per step (K4-K6 as in phase 7); from the state
     those steps reached, the fused step against the unfused step
     (``FUSED_GATE``) and two planted K8/K9 faults the gate must reject;
-11. times: K8 and K9 against their plain versions, both losses' forward +
+11. times: K8 and K9 against their plain versions (device time, share of
+    the bound's rate, must and aim), both losses' forward +
     backward, and the train step at batch 8 with and without the fused
     loss (in turns: unfused, fused, fused, unfused);
 12. ReLayNet kernels: K7 at its 7 stage shapes (f=64, 512x512, batch 2),
@@ -124,7 +126,8 @@ Phases (any failure raises; the exit code is then non-zero):
     packed forward and the PSRP forward with the fused stem off and on at
     batch 32 and 128 (in turns), and ``Trainer.evaluate`` per batch of 8;
 22. K12 (SDNet's column softmax, position and std) against its plain
-    version at (8, 3, 512, 512), (8, 11, 512, 512) and (2, 5, 100, 200): sm
+    version at (8, 3, 512, 512), (8, 11, 512, 512), (2, 5, 100, 200) and
+    (1, 2, 600, 96) (H > 512: the three-pass body), each with its plan: sm
     within 1e-6, pos and std within 1e-5 * H, its backward within 1e-5 of
     autograd through the plain version, a one-hot column (std = 0) without
     a std cotangent giving a finite gradient; K6 at SDNet's BatchNorm
@@ -143,7 +146,9 @@ Phases (any failure raises; the exit code is then non-zero):
     with every kernel against every plain version (``SDNET_GATE``, which a
     planted K6 fault must fail), the whole loss shown ungated;
 25. times: K12 against its plain version and bound at both batch-8
-    shapes, the SDNet forward at batch 8, the train step at batch 4 and its
+    shapes and the step's (4, 3, 512, 512), each device time's share of
+    the bound's rate, must and aim, the SDNet forward at batch 8, the
+    train step at batch 4 and its
     peak memory, a ``torch.profiler`` breakdown of the step;
 26. K1 and K2 with the w4a4 knobs bit for bit against their plain versions
     at every stage of the f=32 512x512 graph (batch 2) in the modes w4a4,
@@ -1308,11 +1313,14 @@ def fused_loss_phases(dev, card, time_ms):
             max_err["dice_ce_bwd"],
             float((dx.float() - k89.dice_ce_bwd_reference(
                 logits, labels, coef).float()).abs().max()))
+        same = torch.equal(k89.dice_ce_stats(logits, labels, cw), stats)
         print(f"{label}: K8 largest relative error vs float64 {rel:.3e} "
-              f"(limit 1e-5); K9 elements beyond one bf16 ulp + floor "
-              f"{beyond} of {dx.numel()}, largest error {ulps:.3f} ulp",
-              flush=True)
-        bad += (rel > 1e-5) + beyond
+              f"(limit 1e-5), a second call bit-identical {same}; K9 "
+              f"elements beyond one bf16 ulp + floor {beyond} of "
+              f"{dx.numel()}, largest error {ulps:.3f} ulp", flush=True)
+        bad += (rel > 1e-5) + beyond + (not same)
+    print(f"K8 plan: {k89.launch_stats_plan(logits, labels).text()}",
+          flush=True)
     if bad:
         raise RuntimeError("fused-loss kernel checks failed")
 
@@ -1422,7 +1430,8 @@ def fused_loss_phases(dev, card, time_ms):
         rows[k] = (ms, pms, b_ms, b_by, dms)
         gate = (" (must < 0.075, aim <= 0.045); plan "
                 f"{k89.launch_plan(logits, labels)}" if k == "dice_ce_bwd"
-                else "")
+                else " (must < 0.050, aim <= 0.028); plan "
+                f"{k89.launch_stats_plan(logits, labels).text()}")
         print(f"time b{nb} {k}: kernel {ms:.4f} ms "
               f"({work[k][1] / ms / 1e6:.0f} GB/s), device {dms:.4f} ms "
               f"({work[k][1] / dms / 1e6:.0f} GB/s, {100 * b_ms / dms:.2f}% "
@@ -2411,7 +2420,10 @@ def sdnet_phases(dev, card, time_ms):
           f"comparison): cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
           f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 80)
-    shapes = [(8, 3, HW, HW), (8, 11, HW, HW), (2, 5, 100, 200)]
+    # the forward's and the curvature table's L at batch 8, odd H and W,
+    # and an H past the register body's 512 rows
+    shapes = [(8, 3, HW, HW), (8, 11, HW, HW), (2, 5, 100, 200),
+              (1, 2, 600, 96)]
 
     # ------------------------------------------------------------------ 22
     phase("22 K12 (column softmax, position, std) vs its plain version")
@@ -2427,8 +2439,9 @@ def sdnet_phases(dev, card, time_ms):
         lims = (1e-6, 1e-5 * H, 1e-5 * H)
         max_err = max([max_err] + errs)
         ok = all(e <= t for e, t in zip(errs, lims))
-        print(f"K12 {shape}: max abs error sm {errs[0]:.3e} (limit 1e-6), "
-              f"pos {errs[1]:.3e}, std {errs[2]:.3e} (limit {lims[1]:.3e})",
+        print(f"K12 {shape} ({k12.column_softargmax_plan(*shape).text()}): "
+              f"max abs error sm {errs[0]:.3e} (limit 1e-6), pos "
+              f"{errs[1]:.3e}, std {errs[2]:.3e} (limit {lims[1]:.3e})",
               flush=True)
         bad += not ok
         # the backward on random cotangents against autograd through the
@@ -2708,8 +2721,11 @@ def sdnet_phases(dev, card, time_ms):
 
     # ------------------------------------------------------------------ 25
     phase(f"25 SDNet times on {card}")
-    k12_row = {"ms": 0.0, "plain_ms": 0.0, "operations": 0.0, "bytes": 0.0}
-    for shape in shapes[:2]:
+    k12_row = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
+               "operations": 0.0, "bytes": 0.0}
+    # device ms: must, aim (PERF.md, section 6); none at the step's shape
+    k12_goals = {shapes[0]: (0.030, 0.020), shapes[1]: (0.11, 0.070)}
+    for shape in shapes[:2] + [(SDNET_TRAIN_BATCH, 3, HW, HW)]:
         x = torch.randn(shape, generator=gen, device=dev)
         with torch.no_grad():
             ms = time_ms(lambda: k12.column_softargmax_forward(x))
@@ -2717,10 +2733,17 @@ def sdnet_phases(dev, card, time_ms):
             dev_ms = device_ms(lambda: k12.column_softargmax_forward(x))
         ops, nbytes = column_work(shape)
         b_ms, b_by = bound(ops, nbytes, PEAK["fp32"])
-        for key, v in (("ms", ms), ("plain_ms", pms), (b_by, b_ms)):
-            k12_row[key] += v
-        print(f"time K12 {shape}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
-              f"{nbytes / dev_ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, bound "
+        if shape in k12_goals:  # the kernels line: the two batch-8 shapes
+            for key, v in (("ms", ms), ("plain_ms", pms),
+                           ("device_ms", dev_ms), (b_by, b_ms)):
+                k12_row[key] += v
+        goal = (" (must < {}, aim <= {})".format(*k12_goals[shape])
+                if shape in k12_goals else "")
+        print(f"time K12 {shape} "
+              f"({k12.column_softargmax_plan(*shape).text()}): kernel "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms, "
+              f"{nbytes / dev_ms / 1e6:.0f} GB/s, {100 * b_ms / dev_ms:.2f}% "
+              f"of the bound's rate){goal}, plain {pms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)", flush=True)
         del x
     with torch.no_grad():
@@ -2755,6 +2778,7 @@ def sdnet_phases(dev, card, time_ms):
         "launches": train_launches["column_softargmax"],
         "max_abs_err": max_err, "ms": k12_row["ms"],
         "plain_ms": k12_row["plain_ms"],
+        "device_ms": k12_row["device_ms"],
         "bound_ms": k12_row["operations"] + k12_row["bytes"],
         "bound_by": ("operations" if k12_row["operations"]
                      >= k12_row["bytes"] else "bytes"),

@@ -10,10 +10,21 @@
 // outside [0, C)): the softmax p_c, and the sums over all pixels
 //   out[c] = sum p_c t_c,  out[C + c] = sum p_c,  out[2C + c] = sum t_c,
 //   out[3C] = sum ll * w (ll = x_l - max - log sum exp),  out[3C + 1] = sum w.
-// Pass 1 gives each block a contiguous range of pixels and writes its
-// (3C + 2) fp32 partial sums (warp shuffles, then the warps in order);
-// pass 2 adds the partials of each sum in a fixed order in fp64. No float
-// atomics, so the loss is reproducible run to run.
+// One cooperative launch (dice_ce_stats_kernel) on a persistent grid of no
+// more blocks than the card holds at once:
+// - pass 1: a block walks tiles of STATS_TP pixels (g, g + grid, ...),
+//   each tile's logits and labels brought by K9's 16-byte copies into a
+//   ring of STATS_STAGES slots; a thread computes its two pixels of a tile
+//   from shared memory (the label's logit and weight read once, bf16 pairs
+//   as one word) and keeps the 3C + 2 running sums in registers across all
+//   its tiles, then the warp trees and the warps in order give the block's
+//   partial, written to its own row of a (grid, 3C + 2) fp32 array;
+// - a grid-wide barrier (cooperative_groups; the grid fits on the card);
+// - pass 2: one block an output, its threads adding partials t, t + 256,
+//   ... in fp64, then the warps' shuffle-down trees and the 8 warps in
+//   order (one round of loads, where a warp an output needs three).
+// No float atomics: the order of every sum depends on the plan alone
+// (ops/dice_ce.py:stats_plan), so the loss is reproducible run to run.
 //
 // K9, per pixel, from the per-class coefficients A, B, wce (3C fp32,
 // read once per block into shared memory):
@@ -24,11 +35,12 @@
 // Bound on the card: bytes. K8 reads the logits and labels once; K9 reads
 // them once more and writes dlogits. A thread keeps its pixel's C values
 // and (K8) its 3C + 2 running sums in registers (statically indexed: the
-// class loops are unrolled to MAXC, 8, 16 or 32, and for K9 also exactly
-// 10); expf and logf are the accurate versions, not the fast intrinsics.
+// class loops are unrolled to MAXC, 8, 16 or 32, and exactly 10 in an
+// instance of each kernel of its own); expf and logf are the accurate
+// versions, not the fast intrinsics.
 //
-// K9 moves its bytes in 16-byte units: a thread's own C values are 2C or
-// 4C bytes apart from its neighbours', so C loads or stores of 2 or 4
+// Both move their bytes in 16-byte units: a thread's own C values are 2C
+// or 4C bytes apart from its neighbours', so C loads or stores of 2 or 4
 // bytes a thread would touch many sectors a warp instruction and fill none.
 // A persistent grid (no more blocks than the card holds at once) walks
 // tiles of BWD_TP pixels (a multiple of 8: a tile's logits and labels are
@@ -40,11 +52,14 @@
 // output tile, and the block stores that tile with 16-byte stores (element
 // stores for the ragged tail's last unit).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_int8.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -88,96 +103,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     return v;
-}
-
-// Pass 1: block b sums pixels [b * rows, min(P, (b + 1) * rows)) and writes
-// partial[b][0 .. 3C + 2).
-template <int MAXC, typename T, typename L>
-__global__ void __launch_bounds__(THREADS) dice_ce_stats_partial(
-    const T* __restrict__ x, const L* __restrict__ lab,
-    const float* __restrict__ cw, float* __restrict__ partial, long long P,
-    int C, long long rows) {
-    __shared__ float cws[MAX_C];
-    __shared__ float sh[WARPS][3 * MAX_C + 2];
-    for (int i = threadIdx.x; i < C; i += THREADS) cws[i] = cw[i];
-    __syncthreads();
-
-    float inter[MAXC], sp[MAXC], cnt[MAXC];
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) inter[c] = sp[c] = cnt[c] = 0.0f;
-    float sll = 0.0f, sw = 0.0f;
-
-    const long long p0 = (long long)blockIdx.x * rows;
-    const long long p1 = min(P, p0 + rows);
-    for (long long p = p0 + threadIdx.x; p < p1; p += THREADS) {
-        const int l = static_cast<int>(lab[p]);
-        float e[MAXC], m, x_l;
-        const float s = softmax_pixel<MAXC>(x + p * C, C, l, e, m, x_l);
-        const float inv = 1.0f / s;
-        const float logs = logf(s);
-        float w = 0.0f;
-#pragma unroll
-        for (int c = 0; c < MAXC; ++c) {
-            if (c < C) {
-                const float pc = e[c] * inv;
-                sp[c] += pc;
-                if (c == l) {
-                    inter[c] += pc;
-                    cnt[c] += 1.0f;
-                    w = cws[c];
-                }
-            }
-        }
-        sll += (x_l - m - logs) * w;
-        sw += w;
-    }
-
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-        if (c < C) {
-            const float a = warp_sum(inter[c]);
-            const float b = warp_sum(sp[c]);
-            const float d = warp_sum(cnt[c]);
-            if (lane == 0) {
-                sh[warp][c] = a;
-                sh[warp][C + c] = b;
-                sh[warp][2 * C + c] = d;
-            }
-        }
-    }
-    const float a = warp_sum(sll), b = warp_sum(sw);
-    if (lane == 0) {
-        sh[warp][3 * C] = a;
-        sh[warp][3 * C + 1] = b;
-    }
-    __syncthreads();
-    const int K = 3 * C + 2;
-    for (int k = threadIdx.x; k < K; k += THREADS) {
-        float v = 0.0f;
-#pragma unroll
-        for (int j = 0; j < WARPS; ++j) v += sh[j][k];
-        partial[(size_t)blockIdx.x * K + k] = v;
-    }
-}
-
-// Pass 2: block k writes out[k] = sum over g of partial[g][k]: each thread
-// sums a fixed strided subset in fp64, then a fixed tree over the threads.
-__global__ void __launch_bounds__(THREADS) dice_ce_stats_final(
-    const float* __restrict__ partial, float* __restrict__ out, int G,
-    int K) {
-    __shared__ double sh[THREADS];
-    const int k = blockIdx.x;
-    double v = 0.0;
-    for (int g = threadIdx.x; g < G; g += THREADS)
-        v += (double)partial[(size_t)g * K + k];
-    sh[threadIdx.x] = v;
-    __syncthreads();
-    for (int w = THREADS / 2; w > 0; w >>= 1) {
-        if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) out[k] = (float)sh[0];
 }
 
 constexpr int BWD_TP = THREADS;  // pixels a K9 tile: one a thread
@@ -300,20 +225,198 @@ __global__ void __launch_bounds__(THREADS) dice_ce_bwd_kernel(
     }
 }
 
+constexpr int STATS_TP = 2 * THREADS;  // pixels a K8 tile: two a thread
+constexpr int STATS_STAGES = 2;     // slots of K8's ring
+constexpr int STATS_EXACT_C = 10;   // the classes of K8's exact instance
+
+// Shared memory of a K8 block: STATS_STAGES slots of logits and of labels.
+template <typename T, typename L>
+constexpr int stats_smem(int C) {
+    return STATS_STAGES * STATS_TP
+           * (C * static_cast<int>(sizeof(T)) + static_cast<int>(sizeof(L)));
+}
+
+// K8's pixel from shared memory: e[c] = x_c (c < C), bf16 pairs read as
+// one 4-byte word where C is even (the pixel then starts on 4 bytes);
+// returns the max, taken in class order as softmax_pixel takes it.
+template <int MAXC, typename T>
+__device__ __forceinline__ float load_pixel(const T* __restrict__ xp, int C,
+                                            float (&e)[MAXC]) {
+    if constexpr (sizeof(T) == 2 && MAXC % 2 == 0) {
+        if (C % 2 == 0) {
+            const uint32_t* const xw = reinterpret_cast<const uint32_t*>(xp);
+#pragma unroll
+            for (int c = 0; c < MAXC; c += 2) {
+                if (c < C) {
+                    const uint32_t u = xw[c / 2];
+                    e[c] = __uint_as_float(u << 16);  // bf16 -> fp32: exact
+                    e[c + 1] = __uint_as_float(u & 0xffff0000u);
+                }
+            }
+        } else {
+#pragma unroll
+            for (int c = 0; c < MAXC; ++c)
+                if (c < C) e[c] = to_f32(xp[c]);
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < MAXC; ++c)
+            if (c < C) e[c] = to_f32(xp[c]);
+    }
+    float m = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c)
+        if (c < C) m = fmaxf(m, e[c]);
+    return m;
+}
+
+// grid (G) <= the co-resident blocks, block (THREADS); partial: fp32
+// scratch (G, K), K = 3C + 2; out: fp32 (K,).
 template <int MAXC, typename T, typename L>
-int stats(const void* x, const void* lab, const void* cw, void* partial,
-          void* out, long long P, int C, int G, long long rows,
-          cudaStream_t s) {
-    dice_ce_stats_partial<MAXC, T, L><<<G, THREADS, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const L*>(lab),
-        static_cast<const float*>(cw), static_cast<float*>(partial), P, C,
-        rows);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    dice_ce_stats_final<<<3 * C + 2, THREADS, 0, s>>>(
-        static_cast<const float*>(partial), static_cast<float*>(out), G,
-        3 * C + 2);
-    return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(THREADS) dice_ce_stats_kernel(
+    const T* __restrict__ x, const L* __restrict__ lab,
+    const float* __restrict__ cw, float* __restrict__ partial,
+    float* __restrict__ out, long long P, int C, long long tiles) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ float cws[MAX_C];
+    __shared__ float sh[WARPS][3 * MAX_C + 2];
+    __shared__ double shd[WARPS];
+    // the exact instance's class count is a constant (C == MAXC there)
+    const int Cn = MAXC == STATS_EXACT_C ? MAXC : C;
+    for (int i = threadIdx.x; i < Cn; i += THREADS) cws[i] = cw[i];
+    const int XB = STATS_TP * Cn * static_cast<int>(sizeof(T));
+    const int LB = STATS_TP * static_cast<int>(sizeof(L));
+    const uint32_t ring = smem_addr(smem);
+    const long long stride = gridDim.x;
+
+    float inter[MAXC], sp[MAXC], cnt[MAXC];
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) inter[c] = sp[c] = cnt[c] = 0.0f;
+    float sll = 0.0f, sw = 0.0f;
+
+    // tile `tile`'s logits and labels into slot `slot`
+    auto load = [&](long long tile, int slot) {
+        const long long q0 = tile * STATS_TP;
+        const long long nq = min((long long)STATS_TP, P - q0);
+        copy_tile(ring + slot * XB, x + q0 * Cn,
+                  nq * Cn * (long long)sizeof(T));
+        copy_tile(ring + STATS_STAGES * XB + slot * LB, lab + q0,
+                  nq * (long long)sizeof(L));
+    };
+#pragma unroll
+    for (int s = 0; s < STATS_STAGES - 1; ++s) {
+        if (blockIdx.x + s * stride < tiles) load(blockIdx.x + s * stride, s);
+        cp_async_commit();
+    }
+    int slot = 0;
+    for (long long tile = blockIdx.x; tile < tiles; tile += stride) {
+        cp_async_wait<STATS_STAGES - 2>();
+        __syncthreads();  // this tile landed; the slot before it is free
+        {
+            const long long next = tile + (STATS_STAGES - 1) * stride;
+            if (next < tiles)
+                load(next, slot == 0 ? STATS_STAGES - 1 : slot - 1);
+            cp_async_commit();
+        }
+
+        // thread t adds pixels t, t + THREADS, ... of the tile, in order
+#pragma unroll
+        for (int k = 0; k < STATS_TP / THREADS; ++k) {
+            const int i = threadIdx.x + k * THREADS;
+            if (i < P - tile * STATS_TP) {  // the pixel exists
+                const T* const xt = reinterpret_cast<const T*>(smem + slot * XB);
+                const L* const lt = reinterpret_cast<const L*>(
+                    smem + STATS_STAGES * XB + slot * LB);
+                const int l = static_cast<int>(lt[i]);
+                float e[MAXC];
+                const float m = load_pixel<MAXC>(xt + i * Cn, Cn, e);
+                // the label's logit and weight read once (0 outside [0, C))
+                const bool in =
+                    static_cast<unsigned>(l) < static_cast<unsigned>(Cn);
+                const float x_l = in ? to_f32(xt[i * Cn + l]) : 0.0f;
+                const float w = in ? cws[l] : 0.0f;
+                float s = 0.0f;
+#pragma unroll
+                for (int c = 0; c < MAXC; ++c) {
+                    if (c < Cn) {
+                        e[c] = expf(e[c] - m);
+                        s += e[c];
+                    }
+                }
+                const float inv = 1.0f / s;
+                const float logs = logf(s);
+#pragma unroll
+                for (int c = 0; c < MAXC; ++c) {
+                    if (c < Cn) {
+                        const float pc = e[c] * inv;
+                        sp[c] += pc;
+                        if (c == l) {
+                            inter[c] += pc;
+                            cnt[c] += 1.0f;
+                        }
+                    }
+                }
+                sll += (x_l - m - logs) * w;
+                sw += w;
+            }
+        }
+        slot = slot == STATS_STAGES - 1 ? 0 : slot + 1;
+    }
+
+    // the block's partial: the warp trees, then the warps in order
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int K = 3 * Cn + 2;
+#pragma unroll
+    for (int c = 0; c < MAXC; ++c) {
+        if (c < Cn) {
+            const float a = warp_sum(inter[c]);
+            const float b = warp_sum(sp[c]);
+            const float d = warp_sum(cnt[c]);
+            if (lane == 0) {
+                sh[warp][c] = a;
+                sh[warp][Cn + c] = b;
+                sh[warp][2 * Cn + c] = d;
+            }
+        }
+    }
+    {
+        const float a = warp_sum(sll), b = warp_sum(sw);
+        if (lane == 0) {
+            sh[warp][3 * Cn] = a;
+            sh[warp][3 * Cn + 1] = b;
+        }
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < K; k += THREADS) {
+        float v = 0.0f;
+#pragma unroll
+        for (int j = 0; j < WARPS; ++j) v += sh[j][k];
+        partial[(size_t)blockIdx.x * K + k] = v;
+    }
+
+    // pass 2, after every partial: output k by block k (k, k + grid, ...);
+    // thread t adds partials t, t + THREADS, ... in fp64, then the warp
+    // trees and the warps in order
+    cg::this_grid().sync();
+    const int G = gridDim.x;
+    for (int k = blockIdx.x; k < K; k += G) {
+        double v = 0.0;
+#pragma unroll 4
+        for (int q = threadIdx.x; q < G; q += THREADS)
+            v += static_cast<double>(__ldcg(partial + (size_t)q * K + k));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+            v += __shfl_down_sync(0xffffffffu, v, o);
+        if (lane == 0) shd[warp] = v;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            double t = 0.0;
+#pragma unroll
+            for (int j = 0; j < WARPS; ++j) t += shd[j];
+            out[k] = static_cast<float>(t);
+        }
+        __syncthreads();
+    }
 }
 
 template <typename T, typename L>
@@ -362,6 +465,48 @@ int bwd_resident(int C, int* blocks) {
     return static_cast<int>(err);
 }
 
+// K8's instance for C classes (MAXC of the dispatch below), as for K9.
+template <int MAXC, typename T, typename L>
+const void* stats_kernel(int C) {
+    if (MAXC == 16 && C == STATS_EXACT_C)
+        return reinterpret_cast<const void*>(
+            dice_ce_stats_kernel<STATS_EXACT_C, T, L>);
+    return reinterpret_cast<const void*>(dice_ce_stats_kernel<MAXC, T, L>);
+}
+
+template <int MAXC, typename T, typename L>
+int stats(const void* x, const void* lab, const void* cw, void* partial,
+          void* out, long long P, int C, int grid, cudaStream_t s) {
+    const void* k = stats_kernel<MAXC, T, L>(C);
+    const int smem = stats_smem<T, L>(C);
+    cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    long long tiles = (P + STATS_TP - 1) / STATS_TP;
+    void* args[] = {&x, &lab, &cw, &partial, &out, &P, &C, &tiles};
+    err = cudaLaunchCooperativeKernel(k, dim3(grid), dim3(THREADS), args, smem,
+                                      s);
+    if (err != cudaSuccess) cudaGetLastError();  // clear it; reported below
+    return static_cast<int>(err);
+}
+
+template <int MAXC, typename T, typename L>
+int stats_resident(int C, int* blocks) {
+    const void* k = stats_kernel<MAXC, T, L>(C);
+    const int smem = stats_smem<T, L>(C);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, THREADS,
+                                                            smem);
+    *blocks = per_sm * sms;
+    return static_cast<int>(err);
+}
+
 // Calls F<MAXC, T, L>(args...) for the logits' dtype (bf16 or fp32), the
 // labels' width (int64 or int32) and the smallest MAXC >= C.
 #define OCTSEG_DISPATCH(F, ...)                                              \
@@ -389,16 +534,26 @@ int bwd_resident(int C, int* blocks) {
 }  // namespace
 
 // x: contiguous (P, C) logits, fp32 (bf16 = 0) or bf16 (bf16 = 1); lab:
-// (P,) int32 (lab64 = 0) or int64 (lab64 = 1); cw: fp32 (C,); partial: fp32
-// scratch (G, 3C + 2) with G = ceil(P / rows); out: fp32 (3C + 2,).
-// 1 <= C <= 32. Two launches; returns cudaGetLastError() after each.
+// (P,) int32 (lab64 = 0) or int64 (lab64 = 1); both 16-byte aligned; cw:
+// fp32 (C,); partial: fp32 scratch (grid, 3C + 2); out: fp32 (3C + 2,).
+// 1 <= C <= 32; grid <= the co-resident blocks
+// (octseg_dice_ce_stats_resident). One cooperative launch.
 extern "C" int octseg_dice_ce_stats(const void* x, const void* lab,
                                     const void* cw, void* partial, void* out,
-                                    long long P, int C, int G,
-                                    long long rows, int bf16, int lab64,
-                                    void* stream) {
+                                    long long P, int C, int bf16, int lab64,
+                                    int grid, void* stream) {
+    if (C < 1 || C > MAX_C || grid < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
-    OCTSEG_DISPATCH(stats, x, lab, cw, partial, out, P, C, G, rows, s);
+    OCTSEG_DISPATCH(stats, x, lab, cw, partial, out, P, C, grid, s);
+}
+
+// *blocks = the blocks of K8's instance for (C, bf16, lab64) that the card
+// holds at once (the occupancy API's blocks an SM times the SMs).
+extern "C" int octseg_dice_ce_stats_resident(int C, int bf16, int lab64,
+                                             void* blocks) {
+    if (C < 1 || C > MAX_C) return static_cast<int>(cudaErrorInvalidValue);
+    OCTSEG_DISPATCH(stats_resident, C, static_cast<int*>(blocks));
 }
 
 // x, lab as above, both 16-byte aligned; coef: fp32 (3C,) = [A, B, wce];

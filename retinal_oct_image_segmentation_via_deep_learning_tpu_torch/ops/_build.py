@@ -53,8 +53,8 @@ SIGNATURES = {
     "octseg_bn_pair_sums": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _L,
                             _I, _P],
     "octseg_bn_pair_sums_resident": [_I, _I, _I, _P],
-    "octseg_dice_ce_stats": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I,
-                             _P],
+    "octseg_dice_ce_stats": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    "octseg_dice_ce_stats_resident": [_I, _I, _I, _P],
     "octseg_dice_ce_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "octseg_dice_ce_bwd_resident": [_I, _I, _I, _P],
     "octseg_conv7x3_int8": [_P, _I, _P, _I, _P, _P, _P, _F, _P, _P, _P]

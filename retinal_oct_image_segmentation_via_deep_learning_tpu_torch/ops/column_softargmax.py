@@ -14,9 +14,13 @@ layout and its 128-lane padding of W are TPU layout; the tests convert.
 
 ``column_softargmax_forward`` runs K12 (``csrc/column_softargmax.cu``) for a
 CUDA tensor and its plain version (``column_softargmax_reference``) only for
-a CPU tensor. ``column_softargmax`` is differentiable: the TPU kernel has no
-backward kernel (JAX differentiates its XLA path), so the backward here is
-the analytic VJP in torch ops. With G_h = g_sm[h] + g_pos * h
+a CPU tensor. ``column_softargmax_plan`` names the body a shape takes: for
+H <= 512 a thread holds its rows in registers and x is read once; beyond,
+the three-pass body reads x three times.
+
+``column_softargmax`` is differentiable: the TPU kernel has no backward
+kernel (JAX differentiates its XLA path), so the backward here is the
+analytic VJP in torch ops. With G_h = g_sm[h] + g_pos * h
 + g_var * (h - pos)^2 and g_var = g_std / (2 * std),
 
     dx[h] = sm[h] * (G_h - sum_k sm[k] * G_k).
@@ -27,6 +31,8 @@ std = 0, and a zero g_std would give 0 / 0.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +53,48 @@ def column_softargmax_reference(x: torch.Tensor):
     pos = torch.sum(sm * rows, dim=2)
     std = torch.sqrt(torch.sum(sm * (rows - pos.unsqueeze(2)) ** 2, dim=2))
     return sm.float(), pos.float(), std.float()
+
+
+COLS = 32  # csrc/column_softargmax.cu: columns a block (threadIdx.x)
+ROW_WARPS = 16  # row lanes a block (threadIdx.y), one warp each
+REG_ROWS = (8, 16, 32)  # the register body's instances: rows a thread
+
+
+class ColumnSoftargmaxPlan(NamedTuple):
+    """K12's launch for (B, L, H, W): ``body`` "regs" (a thread holds its
+    ``rows`` rows h = ty, ty + 16, ... in registers; ``full``: H = 16 *
+    rows and W % 32 == 0, so nothing is predicated and 2 blocks share an
+    SM) or "three_pass" (``rows`` 0), on a ``grid`` (x, y) of blocks
+    ``block`` (32 columns, 16 row warps); the last strip of a plane holds
+    ``W % 32`` columns, if any."""
+
+    body: str
+    rows: int
+    full: bool
+    grid: tuple[int, int]
+    block: tuple[int, int]
+
+    def text(self) -> str:
+        rows = (f" R={self.rows}{' full' if self.full else ''}"
+                if self.body == "regs" else "")
+        return (f"{self.body}{rows} grid {self.grid[0]}x{self.grid[1]} "
+                f"block {self.block[0]}x{self.block[1]}")
+
+
+def column_softargmax_plan(B: int, L: int, H: int,
+                           W: int) -> ColumnSoftargmaxPlan:
+    """The body ``octseg_column_softargmax`` launches for x (B, L, H, W):
+    the register body with the fewest rows of ``REG_ROWS`` that covers
+    ceil(H / 16); the three-pass body where none does (H > 512) or a plane
+    holds 2^31 elements or more (the register body's offsets are
+    32-bit)."""
+    need = -(-H // ROW_WARPS)
+    rows = next((r for r in REG_ROWS if r >= need), 0)
+    if H * W >= 2 ** 31:
+        rows = 0
+    full = bool(rows) and H == ROW_WARPS * rows and W % COLS == 0
+    return ColumnSoftargmaxPlan("regs" if rows else "three_pass", rows, full,
+                                (-(-W // COLS), B * L), (COLS, ROW_WARPS))
 
 
 def column_softargmax_forward(x: torch.Tensor):

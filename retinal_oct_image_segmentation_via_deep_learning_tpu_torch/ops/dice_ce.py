@@ -20,9 +20,10 @@ and nothing is recomputed but the softmax.
 The kernels read NHWC logits (a thread owns a pixel, its C values are
 contiguous), which is what the packed train step's head emits; ``nchw=True``
 is permuted here. They take any H and W and at most 32 classes: a CUDA
-tensor with more raises ``ValueError`` (there is no fallback). K9 moves
-whole tiles of pixels by 16-byte copies (its launch is ``bwd_plan``'s), so
-its logits and labels must be 16-byte aligned. Each wrapper runs its CUDA
+tensor with more raises ``ValueError`` (there is no fallback). K8 and K9
+move whole tiles of pixels by 16-byte copies (their launches are
+``stats_plan``'s, one cooperative launch, and ``bwd_plan``'s), so their
+logits and labels must be 16-byte aligned. Each wrapper runs its CUDA
 kernel (``csrc/dice_ce.cu``) for a CUDA tensor and its plain version
 (``*_reference``, float64 sums) only for a CPU tensor.
 """
@@ -43,6 +44,8 @@ _EPS = 1e-7
 _THREADS = 256
 BWD_TILE = _THREADS  # csrc/dice_ce.cu BWD_TP: K9's pixels a tile
 BWD_STAGES = 2  # csrc/dice_ce.cu: the slots of K9's ring
+STATS_TILE = 2 * _THREADS  # csrc/dice_ce.cu STATS_TP: K8's pixels a tile
+STATS_STAGES = 2  # csrc/dice_ce.cu: the slots of K8's ring
 
 
 def _softmax_onehot(x: torch.Tensor, labels: torch.Tensor):
@@ -95,33 +98,91 @@ def _check_inputs(what: str, x: torch.Tensor, labels: torch.Tensor) -> int:
     return C
 
 
-def stats_groups(P: int) -> tuple[int, int]:
-    """K8's (G, pixels per block): at most 1024 blocks of at least 1024
-    pixels (four a thread)."""
-    G = max(1, min(-(-P // (4 * _THREADS)), 1024))
-    rows = -(-P // G)
-    return -(-P // rows), rows
+class StatsPlan(NamedTuple):
+    """K8's launch for one call (``stats_plan``): tiles of ``tile`` pixels
+    (``tiles`` of them; the last one holds the ``P % tile`` left, if any),
+    ``smem`` bytes a block (STATS_STAGES slots of logits and labels), and a
+    persistent grid of ``grid`` blocks walking the tiles g, g + grid, ...
+    The launch is cooperative (a grid-wide barrier between its passes), so
+    ``grid`` is no larger than the blocks the card holds at once. Thread t
+    of a tile adds its pixels t and t + 256 where they exist; block g
+    writes row g of the (grid, 3C + 2) partials; block k (k, k + grid, ...)
+    adds column k."""
+
+    P: int
+    C: int
+    x_bytes: int  # bytes a logit
+    lab_bytes: int  # bytes a label
+    tile: int
+    smem: int
+    tiles: int
+    grid: int
+
+    def text(self) -> str:
+        return (f"tile {self.tile} stages {STATS_STAGES} smem {self.smem} "
+                f"grid {self.grid} of {self.tiles} tiles, partials "
+                f"({self.grid}, {3 * self.C + 2})")
+
+
+def stats_plan(P: int, C: int, x_bytes: int, lab_bytes: int, *,
+               co_resident: int) -> StatsPlan:
+    """K8's plan for P pixels of C classes, logits of ``x_bytes`` (2 or 4)
+    and labels of ``lab_bytes`` (4 or 8); ``co_resident``: the blocks of
+    its instance the card holds at once."""
+    tiles = -(-P // STATS_TILE)
+    smem = STATS_STAGES * STATS_TILE * (C * x_bytes + lab_bytes)
+    return StatsPlan(P, C, x_bytes, lab_bytes, STATS_TILE, smem, tiles,
+                     max(1, min(tiles, co_resident)))
+
+
+@functools.lru_cache(maxsize=64)
+def _stats_co_resident(index: int, C: int, bf16: bool, lab64: bool) -> int:
+    """Blocks of K8's instance the card holds at once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.lib().octseg_dice_ce_stats_resident(
+            C, int(bf16), int(lab64), ctypes.addressof(n))
+    _build.check(err, "dice_ce_stats occupancy")
+    return n.value
+
+
+def _device_index(x: torch.Tensor) -> int:
+    return x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+
+
+def launch_stats_plan(x: torch.Tensor, labels: torch.Tensor) -> StatsPlan:
+    """The plan ``dice_ce_stats`` launches for CUDA logits and labels."""
+    C = x.shape[-1]
+    return stats_plan(x.numel() // C, C, x.element_size(),
+                      labels.element_size(),
+                      co_resident=_stats_co_resident(
+                          _device_index(x), C, x.dtype == torch.bfloat16,
+                          labels.dtype == torch.int64))
 
 
 def dice_ce_stats(x: torch.Tensor, labels: torch.Tensor,
                   cw: torch.Tensor) -> torch.Tensor:
     """K8: (..., C) logits, labels of the leading shape, cw (C,) float32 ->
-    (3C + 2,) float32 statistics."""
+    (3C + 2,) float32 statistics. CUDA logits and labels must be 16-byte
+    aligned."""
     if x.device.type == "cpu":
         return dice_ce_stats_reference(x, labels, cw)
     C = _check_inputs("dice_ce_stats", x, labels)
     dev = x.device
+    _check(x.data_ptr() % 16 == 0 and labels.data_ptr() % 16 == 0,
+           "dice_ce_stats: logits or labels not 16-byte aligned")
     _check_vec(cw, C, "dice_ce_stats class weights", dev)
-    P = x.numel() // C
-    G, rows = stats_groups(P)
-    partial = torch.empty((G, 3 * C + 2), dtype=torch.float32, device=dev)
+    plan = launch_stats_plan(x, labels)
+    partial = torch.empty((plan.grid, 3 * C + 2), dtype=torch.float32,
+                          device=dev)
     out = torch.empty(3 * C + 2, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().octseg_dice_ce_stats(
             x.data_ptr(), labels.data_ptr(), cw.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), P, C, G, rows,
+            partial.data_ptr(), out.data_ptr(), plan.P, C,
             int(x.dtype == torch.bfloat16), int(labels.dtype == torch.int64),
-            _stream(x))
+            plan.grid, _stream(x))
     _build.check(err, "dice_ce_stats")
     dice_ce_stats.launches += 1
     return out
@@ -174,12 +235,10 @@ def _bwd_co_resident(index: int, C: int, bf16: bool, lab64: bool) -> int:
 def launch_plan(x: torch.Tensor, labels: torch.Tensor) -> BwdPlan:
     """The plan ``dice_ce_bwd`` launches for CUDA logits and labels."""
     C = x.shape[-1]
-    index = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
     return bwd_plan(x.numel() // C, C, x.element_size(),
                     labels.element_size(),
                     co_resident=_bwd_co_resident(
-                        index, C, x.dtype == torch.bfloat16,
+                        _device_index(x), C, x.dtype == torch.bfloat16,
                         labels.dtype == torch.int64))
 
 

@@ -646,6 +646,65 @@ def test_k9_tiles_within_ulp_and_repeat(dev, shape, nc, dtype, label_dtype):
     assert torch.equal(again, dx)
 
 
+@pytest.mark.parametrize("nc", [1, 5, 10, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
+def test_k8_matches_float64_and_repeats(dev, nc, dtype, label_dtype):
+    """K8's cooperative body within rtol 1e-5 of the float64 sums on
+    several tiles a block and a ragged last tile, and a second call
+    bit-identical to the first."""
+    rng = np.random.default_rng(14 + nc)
+    x, lab = _dice_ce_case(rng, (3, 97, 61), nc, dtype, label_dtype, dev)
+    cw = torch.tensor(rng.uniform(0.5, 2.0, nc), dtype=torch.float32,
+                      device=dev)
+    plan = k89.launch_stats_plan(x, lab)
+    assert plan.grid <= plan.tiles
+    stats = k89.dice_ce_stats(x, lab, cw)
+    again = k89.dice_ce_stats(x, lab, cw)
+    torch.cuda.synchronize()
+    want = k89.dice_ce_stats_reference(x.double(), lab, cw).double()
+    rel = ((stats.double() - want).abs() / want.abs().clamp_min(1e-30))
+    assert float(rel.max()) <= 1e-5
+    assert torch.equal(again, stats)
+
+
+def test_k8_is_one_kernel_a_call(dev):
+    """One cooperative launch a call: the profiler sees one kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(15)
+    x, lab = _dice_ce_case(rng, (2, 64, 64), 10, torch.bfloat16,
+                           torch.int64, dev)
+    cw = torch.ones(10, device=dev)
+    k89.dice_ce_stats(x, lab, cw)
+    torch.cuda.synchronize()
+    before = k89.dice_ce_stats.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        k89.dice_ce_stats(x, lab, cw)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count}
+    assert k89.dice_ce_stats.launches == before + 1
+    assert list(kernels.values()) == [1], kernels
+    assert "dice_ce_stats" in next(iter(kernels))
+
+
+def test_k8_rejects_misaligned_inputs(dev):
+    rng = np.random.default_rng(16)
+    x, lab = _dice_ce_case(rng, (1, 8, 8), 10, torch.bfloat16, torch.int64,
+                           dev)
+    cw = torch.ones(10, device=dev)
+    odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    odd_lab = torch.empty(lab.numel() + 1, dtype=lab.dtype, device=dev)[1:]
+    before = k89.dice_ce_stats.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        k89.dice_ce_stats(odd.view(x.shape), lab, cw)
+    with pytest.raises(ValueError, match="16-byte"):
+        k89.dice_ce_stats(x, odd_lab.view(lab.shape), cw)
+    assert k89.dice_ce_stats.launches == before
+
+
 def test_k9_rejects_misaligned_inputs(dev):
     rng = np.random.default_rng(13)
     x, lab = _dice_ce_case(rng, (1, 8, 8), 10, torch.bfloat16, torch.int64,
@@ -835,9 +894,12 @@ def test_bn_train_cuda_sdnet_shapes(dev, shape):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
-# K12: (B, L, H, W); odd H and W, L = 11 (the curvature table), full size
+# K12: (B, L, H, W); odd H and W, L = 11 (the curvature table), full size,
+# the SDNet step's shape, 32 rows a thread with tails (the register body's
+# general instance), and H > 512 (the three-pass body)
 K12_SHAPES = [(2, 5, 100, 200), (2, 11, 64, 48), (1, 3, 7, 33),
-              (8, 3, 512, 512)]
+              (8, 3, 512, 512), (4, 3, 512, 512), (1, 2, 500, 45),
+              (1, 2, 600, 96)]
 
 
 @pytest.mark.parametrize("shape", K12_SHAPES)
@@ -886,6 +948,20 @@ def test_k12_one_hot_column_without_std_cotangent(dev):
     (torch.sum(sm * torch.linspace(-1, 1, 24, device=dev).view(1, 1, 24, 1))
      + torch.sum(pos)).backward()
     assert bool(torch.isfinite(xs.grad).all())
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 512, 512), (2, 5, 200, 70),
+                                   (1, 2, 600, 96)])
+def test_k12_repeats_bit_for_bit(dev, shape):
+    """Two calls give the same bits (fixed-order sums, no atomics) on the
+    register body (R = 32 and 16) and the three-pass body."""
+    x = torch.tensor(np.random.default_rng(20).standard_normal(shape) * 3,
+                     dtype=torch.float32, device=dev)
+    first = k12sm.column_softargmax_forward(x)
+    again = k12sm.column_softargmax_forward(x)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 def test_k12_rejects_bad_input(dev):

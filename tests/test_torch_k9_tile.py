@@ -5,8 +5,9 @@ grid), the tail predicate (every pixel computed once), the byte movement
 emulated in numpy (the 16-byte copies with a ragged last unit, the
 output tile's 16-byte stores and element tail: every output byte written
 once) with the plain version's dlogits computed from the copied tile,
-and the ctypes binding of the changed entry points. K8's two kernels are
-untouched. Imports no JAX.
+and the ctypes binding of K9's and K8's entry points (K8, one cooperative
+launch on the same tile ring, has its own plan and order tests in
+``test_torch_k8_order.py``). Imports no JAX.
 """
 
 import ctypes
@@ -148,13 +149,12 @@ def test_bwd_tile_emulation_matches_plain(shape, C, dtype, labels):
 
 
 def test_k9_binding_matches_the_c_entry_points():
-    """The ctypes argument lists of K9's two entry points (and K8's,
-    unchanged) have one entry per parameter of the C functions: pointers
-    where they take pointers, 64-bit integers where they take ``long
-    long``."""
+    """The ctypes argument lists of K9's two entry points and K8's two
+    have one entry per parameter of the C functions: pointers where they
+    take pointers, 64-bit integers where they take ``long long``."""
     src = (_build.CSRC / "dice_ce.cu").read_text()
     for name in ("octseg_dice_ce_bwd", "octseg_dice_ce_bwd_resident",
-                 "octseg_dice_ce_stats"):
+                 "octseg_dice_ce_stats", "octseg_dice_ce_stats_resident"):
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)',
                            src).group(1).split(",")
         argtypes = _build.SIGNATURES[name]
