@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's int8 serving paths (U-Net and ReLayNet), the
 U-Net's w4a4 serving mode and fused head, its U-Net training path (with and
-without the fused Dice+CE loss) and SDNet's forward and composite train step
-once on one NVIDIA GPU.
+without the fused Dice+CE loss), SDNet's forward and composite train step,
+and the real-data path (Duke DME volumes through ``train --data`` and
+``eval --data``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -173,7 +174,23 @@ Phases (any failure raises; the exit code is then non-zero):
     with the fused head against K1 then K3; P3's counterpart, K1 at the
     deep widths (128, 256, 512 channels) on +-7 against int8 values and
     with clip 7 against 127; the served forward int8, w4a4 and with the
-    fused head at batch 32 and 128, in turns.
+    fused head at batch 32 and 128, in turns;
+31. the real-data path: four synthetic Duke DME v5 volumes in the
+    published layout (496x768x61 uint8, 11 annotated B-scans,
+    ``manualLayers1`` (8, 768, 61), ``manualFluid1``) written from ``SEED``;
+    ``cli train --data duke:DIR --packed`` (f=32, 512x512, batch 8, one
+    epoch; K4, K5 and K6 launched) and ``cli eval --data duke:DIR
+    --quantize psrp`` from the trained weights (K1, K2, K3 launched; the
+    metrics equal the same masks scored on the CPU within 1e-4, the
+    confusion counts exactly); ``preprocess(flatten=True, denoise=True)``
+    on one batch on the card and on the CPU (surfaces equal, values within
+    1e-5); a RETOUCH case (49x496x512 uint16, zlib) read by
+    ``load_mhd_volume`` and by the native ``PrefetchReader`` (equal
+    arrays); ``serve --quantize int8``, ``off`` and ``psrp
+    --load-quantized`` (an ``infer --save-quantized`` artifact) answering
+    HTTP requests with the direct forward's labels; ``infer --image-dir``
+    on PNGs where PIL or cv2 is installed; the five metric families on
+    CUDA tensors against the CPU within 1e-4; each step's seconds.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -3192,6 +3209,426 @@ def int4_phases(dev, card, time_ms, model, calib):
     ]
 
 
+DUKE_VOLUMES = 4  # synthetic Duke DME volumes written in phase 31
+DUKE_SHAPE = (496, 768, 61)  # their (H, W, B-scans), the published size
+RETOUCH_SHAPE = (49, 496, 512)  # a Spectralis case (B-scans, H, W)
+SERVE_REQUESTS = 4  # HTTP requests per served mode in phase 31
+
+
+def cpu_scored(evaluate, argv, main):
+    """Run ``main(argv)`` (a ``cli eval``) with ``evaluate`` (the
+    ``Trainer.evaluate`` it calls) keeping the labels and masks it scores;
+    -> (the metrics ``main`` returned, [(labels, masks)] on the CPU)."""
+    from types import SimpleNamespace
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
+        Trainer,
+    )
+
+    seen = []
+
+    def keeping(self, state, dataset, *a, predict_fn=None, **kw):
+        def epoch(e):
+            for images, labels in dataset.epoch(e):
+                seen.append([labels.cpu()])
+                yield images, labels
+
+        def predict(st, images):
+            p = predict_fn(st, images)
+            seen[-1].append(p.cpu())
+            return p
+
+        return evaluate(self, state, SimpleNamespace(epoch=epoch), *a,
+                        predict_fn=predict, **kw)
+
+    with swapped(Trainer, evaluate=keeping):
+        m = main(argv)
+    return m, seen
+
+
+def real_data_phase(dev, card):
+    """Phase 31: the real-data path on Duke-layout volumes (train --data,
+    eval --data), preprocessing with flattening on the card, the RETOUCH
+    readers, serve off / int8 / an artifact, and the metric families on
+    CUDA tensors."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    import scipy.io as sio
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
+        cli,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
+        metrics,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.inference.http_server import (
+        start_in_background,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.metrics import (
+        biomarker,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv_bf16 as k45,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv_int8 as k12,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        head_argmax as k3,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        preprocess as pre,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        stem_conv_int8 as k10,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training import (
+        native_io,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training import (
+        retouch,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.data import (
+        load_real_dataset,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.duke import (
+        synthetic_duke_dme_volume,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
+        Trainer,
+    )
+
+    phase(f"31 real-data path: {DUKE_VOLUMES} Duke DME v5 volumes, cli "
+          f"train --data --packed and eval --data --quantize psrp ({HW}x{HW}"
+          f"), preprocess, RETOUCH readers, serve, metrics, on {card}")
+    wrappers = {"conv3x3_bf16": k45.conv3x3_bf16_fwd,
+                "conv3x3_bf16_wgrad": k45.conv3x3_bf16_wgrad,
+                "bn_pair_sums": k6.pair_sums,
+                "conv3x3_int8": k12.conv3x3_int8,
+                "ct2x2_int8": k12.ct2x2_int8, "pool2x2_int8": k12.pool2x2_int8,
+                "head_argmax": k3.head_argmax,
+                "stem_conv_int8": k10.stem_conv_int8}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def launched():
+        return {k: w.launches for k, w in wrappers.items() if w.launches}
+
+    def need(counts, names, what):
+        missing = [k for k in names if not counts.get(k)]
+        if missing:
+            raise RuntimeError(f"{what}: {missing} not launched ({counts})")
+
+    def step(name, t0):
+        print(f"  {name}: {time.perf_counter() - t0:.2f} s ({card})",
+              flush=True)
+
+    found = []
+    for name in ("cv2", "PIL", "h5py"):
+        try:
+            found.append(f"{name} {__import__(name).__version__}")
+        except ImportError:
+            found.append(f"{name} not installed")
+    print(f"  image and HDF5 readers: {', '.join(found)}", flush=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        duke = os.path.join(tmp, "duke")
+        os.makedirs(duke)
+        t0 = time.perf_counter()
+
+        def write_volume(i):
+            rng = np.random.default_rng([SEED, 31, i])
+            sio.savemat(os.path.join(duke, f"Subject_{i + 1:02d}.mat"),
+                        synthetic_duke_dme_volume(rng, *DUKE_SHAPE))
+
+        # numpy and the file writes release the GIL: one thread a volume
+        with ThreadPoolExecutor(DUKE_VOLUMES) as pool:
+            list(pool.map(write_volume, range(DUKE_VOLUMES)))
+        step(f"write {DUKE_VOLUMES} volumes ({DUKE_SHAPE} uint8, 11 "
+             "annotated B-scans, manualLayers1, manualFluid1)", t0)
+        spec = f"duke:{duke}"
+        common = ["--image-size", str(HW), "--batch-size", str(TRAIN_BATCH),
+                  "--device", dev.type]
+        width = ["--model-kwargs", json.dumps({"init_features": F})]
+
+        # train --data --packed: K4, K5, K6
+        t0 = time.perf_counter()
+        reset()
+        log = os.path.join(tmp, "train.jsonl")
+        state = cli.main(["train", "--data", spec, "--packed", "--epochs",
+                          "1", "--log-file", log, *common, *width])
+        torch.cuda.synchronize()
+        train_counts = launched()
+        step("cli train --data --packed, one epoch (data read included)",
+             t0)
+        with open(log) as f:
+            rec = json.loads(f.readline())
+        print(f"  train: {state.step} steps, train loss "
+              f"{rec['train_loss']:.4f}, validation loss "
+              f"{rec['val_loss']:.4f}, launches {train_counts}", flush=True)
+        need(train_counts, ("conv3x3_bf16", "conv3x3_bf16_wgrad",
+                            "bn_pair_sums"), "train --data")
+        if state.step < 1 or not (math.isfinite(rec["train_loss"])
+                                  and math.isfinite(rec["val_loss"])):
+            raise RuntimeError("train --data: no step or a loss not finite")
+        ckpt = os.path.join(tmp, "unet.pt")
+        torch.save(state.model.state_dict(), ckpt)
+        del state
+        torch.cuda.empty_cache()
+
+        # eval --data --quantize psrp from the trained weights, the masks
+        # scored again on the CPU
+        t0 = time.perf_counter()
+        reset()
+        m, seen = cpu_scored(Trainer.evaluate, [
+            "eval", "--data", spec, "--quantize", "psrp", *common, *width,
+            "--checkpoint", ckpt], cli.main)
+        torch.cuda.synchronize()
+        eval_counts = launched()
+        step("cli eval --data --quantize psrp (data read included)", t0)
+        need(eval_counts, ("conv3x3_int8", "ct2x2_int8", "head_argmax"),
+             "eval --data")
+        cpu_trainer, _ = cli.build_eval_trainer(cli.parser().parse_args(
+            ["eval", "--num-classes", str(NC), "--device", "cpu"]))
+        cpu = cpu_trainer.evaluate(
+            None, SimpleNamespace(epoch=lambda e: iter(
+                [(p, lab) for lab, p in seen])),
+            predict_fn=lambda s, p: p)
+        n_pix = sum(lab.numel() for lab, _ in seen)
+        worst = max(float(np.nanmax(np.abs(
+            np.asarray(m[k], np.float64) - np.asarray(cpu[k], np.float64))))
+            for k in m if k != "confusion")
+        nan_same = all(np.array_equal(np.isnan(np.asarray(m[k], float)),
+                                      np.isnan(np.asarray(cpu[k], float)))
+                       for k in m)
+        print(f"  eval: {len(seen)} batch(es) of the validation split, "
+              f"launches {eval_counts}; pixel accuracy "
+              f"{m['pixel_accuracy']:.4f}, Dice {np.round(m['dice'], 4)}; "
+              f"confusion sum {int(m['confusion'].sum())} (pixels {n_pix}),"
+              f" equal to the CPU's "
+              f"{np.array_equal(m['confusion'], cpu['confusion'])}; largest "
+              f"metric difference from the CPU {worst:.3e} (limit 1e-4), "
+              f"NaNs in the same places {nan_same}", flush=True)
+        if int(m["confusion"].sum()) != n_pix or not worst <= 1e-4 \
+                or not nan_same \
+                or not np.array_equal(m["confusion"], cpu["confusion"]):
+            raise RuntimeError("eval --data check failed")
+        labels_b = seen[0][0]
+        del cpu_trainer, seen
+
+        # preprocess(flatten, denoise) on the card against the CPU
+        t0 = time.perf_counter()
+        one = os.path.join(tmp, "one_volume")
+        os.makedirs(one)
+        os.symlink(os.path.join(duke, "Subject_01.mat"),
+                   os.path.join(one, "Subject_01.mat"))
+        images = torch.from_numpy(load_real_dataset(
+            f"duke:{one}", (HW, HW))[0][:TRAIN_BATCH]) * 255.0
+        step("read one volume's annotated B-scans", t0)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            s_gpu = pre.estimate_surface(images.to(dev)).cpu()
+            x_gpu = pre.preprocess(images.to(dev), flatten=True,
+                                   denoise=True).cpu()
+        torch.cuda.synchronize()
+        s_cpu = pre.estimate_surface(images)
+        x_cpu = pre.preprocess(images, flatten=True, denoise=True)
+        diff = float((x_gpu - x_cpu).abs().max())
+        same_s = torch.equal(s_gpu, s_cpu)
+        step("preprocess(flatten=True, denoise=True), card and CPU", t0)
+        print(f"  preprocess {tuple(images.shape)}: surfaces equal {same_s} "
+              f"(rows {int(s_cpu.min())}-{int(s_cpu.max())}), largest "
+              f"difference {diff:.3e} (limit 1e-5)", flush=True)
+        if not same_s or not diff <= 1e-5:
+            raise RuntimeError("preprocess on the card differs from the CPU")
+        del images, x_gpu, x_cpu
+
+        # RETOUCH: a 49 x 496 x 512 uint16 zlib case, the Python reader
+        # against the native reader and prefetch pool
+        t0 = time.perf_counter()
+        case = os.path.join(tmp, "retouch", "TRAIN001")
+        os.makedirs(case)
+        r = np.random.default_rng(SEED + 32)
+        vol = r.gamma(4.0, 2000.0, RETOUCH_SHAPE).clip(0, 65535)
+        vol = vol.astype(np.uint16)
+        ref = np.zeros(vol.shape, np.uint8)
+        ref[:, 20:60, 10:30] = r.integers(1, 4)
+        paths = [os.path.join(case, n) for n in ("oct.mhd",
+                                                 "reference.mhd")]
+        retouch.write_mhd_volume(paths[0], vol, compressed=True)
+        retouch.write_mhd_volume(paths[1], ref, compressed=True)
+        step(f"write a RETOUCH case ({RETOUCH_SHAPE} uint16 + labels, "
+             "zlib)", t0)
+        t0 = time.perf_counter()
+        py = [retouch.load_mhd_volume(p)[0] for p in paths]
+        step("read it with load_mhd_volume", t0)
+        t0 = time.perf_counter()
+        with native_io.PrefetchReader(paths, n_threads=2) as reader:
+            nat = list(reader)
+        step("read it with the native PrefetchReader (g++ build included)",
+             t0)
+        same = (len(nat) == 2 and all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(nat, py)) and np.array_equal(py[0], vol)
+            and np.array_equal(py[1], ref))
+        print(f"  RETOUCH: arrays equal {same} ({vol.shape} {vol.dtype}, "
+              f"{ref.shape} {ref.dtype})", flush=True)
+        if not same:
+            raise RuntimeError("the RETOUCH readers differ")
+        del vol, ref, py, nat
+
+        # serve: int8, off, and psrp from an artifact, built as cli serve
+        # builds them, each response against the direct forward
+        art = os.path.join(tmp, "psrp.npz")
+        cli.main(["infer", "--quantize", "psrp", "--checkpoint", ckpt,
+                  "--save-quantized", art, "--out-dir",
+                  os.path.join(tmp, "infer"), *common, *width])
+        model = cli.build_model(num_classes=NC, init_features=F, seed=SEED,
+                                checkpoint=ckpt, device=dev)
+        reqs = np.random.default_rng(SEED + 33).uniform(
+            0, 255, (SERVE_REQUESTS, HW, HW, 1)).astype(np.float32)
+        for mode, extra in (("int8", []), ("off", []),
+                            ("psrp", ["--load-quantized", art])):
+            t0 = time.perf_counter()
+            if mode == "off":
+                direct_fwd = cli.build_float_forward(model, "bfloat16")
+            else:
+                direct_fwd = cli.build_quantized_forward(
+                    model, "unet", mode, image_size=HW, device=dev,
+                    seed=SEED)[0]
+            want = []
+            with torch.inference_mode():
+                for i in range(SERVE_REQUESTS):
+                    # alone in a zero-padded batch, as the loop serves it
+                    pad = np.zeros((TRAIN_BATCH, HW, HW, 1), np.float32)
+                    pad[0] = reqs[i]
+                    want.append(direct_fwd(torch.from_numpy(pad).to(dev))
+                                [0].cpu().numpy())
+            loop = cli.build_serving(cli.parser().parse_args(
+                ["serve", "--quantize", mode, "--checkpoint", ckpt,
+                 "--init-features", str(F), "--image-size", str(HW),
+                 "--device", dev.type, "--batch-size", str(TRAIN_BATCH),
+                 *extra]))
+            reset()
+            loop.warmup()
+            httpd, _ = start_in_background(loop, port=0)
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            try:
+                got = [http_post(url, reqs[i])
+                       for i in range(SERVE_REQUESTS)]
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                loop.close()
+            counts = launched()
+            ok = sum(np.array_equal(g, w) for g, w in zip(got, want))
+            step(f"serve --quantize {mode}{' --load-quantized' * bool(extra)}"
+                 f": {ok}/{SERVE_REQUESTS} responses equal the direct "
+                 f"forward, launches {counts}", t0)
+            if ok != SERVE_REQUESTS:
+                raise RuntimeError(f"serve --quantize {mode}: labels differ")
+            if mode == "psrp":
+                need(counts, ("conv3x3_int8", "ct2x2_int8", "head_argmax"),
+                     "serve --load-quantized")
+            del loop, direct_fwd
+
+        # infer --image-dir, where an image reader is installed
+        try:
+            from PIL import Image
+
+            def write_png(path, img):
+                Image.fromarray(img).save(path)
+        except ImportError:
+            try:
+                import cv2
+
+                def write_png(path, img):
+                    cv2.imwrite(path, img)
+            except ImportError:
+                write_png = None
+        if write_png is None:
+            print("  infer --image-dir: not driven (neither PIL nor cv2 is "
+                  "installed)", flush=True)
+        else:
+            t0 = time.perf_counter()
+            folder = os.path.join(tmp, "bscans")
+            os.makedirs(folder)
+            grey = np.random.default_rng(SEED + 35).integers(
+                0, 256, (SERVE_REQUESTS, HW, HW), dtype=np.uint8)
+            for i, img in enumerate(grey):
+                write_png(os.path.join(folder, f"bscan_{i:03d}.png"), img)
+            out = os.path.join(tmp, "infer_dir")
+            reset()
+            cli.main(["infer", "--image-dir", folder, "--quantize", "psrp",
+                      "--checkpoint", ckpt, "--out-dir", out, *common,
+                      *width])
+            counts = launched()
+            masks = np.load(os.path.join(out, "masks.npy"))
+            with torch.inference_mode():
+                want = cli.build_quantized_forward(
+                    model, "unet", "psrp", image_size=HW, device=dev,
+                    seed=SEED)[0](torch.from_numpy(
+                        grey[..., None].astype(np.float32)).to(dev))
+            same = np.array_equal(masks, want.cpu().numpy())
+            step(f"cli infer --image-dir ({SERVE_REQUESTS} PNGs, psrp): "
+                 f"masks {masks.shape} equal the direct forward {same}, "
+                 f"launches {counts}", t0)
+            if not same:
+                raise RuntimeError("infer --image-dir: masks differ")
+            need(counts, ("conv3x3_int8", "ct2x2_int8", "head_argmax"),
+                 "infer --image-dir")
+        del model
+        torch.cuda.empty_cache()
+
+    # the metric families on CUDA tensors against the CPU: one class of
+    # two B-scans' labels (the one-epoch model's masks are near-constant)
+    t0 = time.perf_counter()
+    worst = {}
+    cls = 1 + int(torch.bincount(labels_b[0].flatten(), minlength=NC)[1:]
+                  .argmax())
+    yt_c = (labels_b[0] == cls).to(torch.int32)
+    yp_c = (labels_b[1] == cls).to(torch.int32)
+    scores = yp_c.float() * 0.5 + torch.from_numpy(np.random.default_rng(
+        SEED + 34).random(yp_c.shape).astype(np.float32))
+    pair = ["accuracy", "sensitivity", "cm_precision", "specificity",
+            "dice_coefficient", "iou_score", "precision", "recall",
+            "mean_squared_error", "root_mean_squared_error",
+            "thickness_difference", "vascularity_index", "mad",
+            "hausdorff_distance", "hausdorff_distance_95", "assd"]
+    for name in pair:
+        g = float(getattr(metrics, name)(yt_c.to(dev), yp_c.to(dev)))
+        c = float(getattr(metrics, name)(yt_c, yp_c))
+        worst[name] = abs(g - c)
+    g = float(metrics.auc_score(yt_c.to(dev), scores.to(dev)))
+    worst["auc_score"] = abs(g - float(metrics.auc_score(yt_c, scores)))
+    counts_same = [float(a) for a in metrics.confusion_counts(
+        yt_c.to(dev), yp_c.to(dev))] == [float(a) for a in
+                                          metrics.confusion_counts(yt_c,
+                                                                   yp_c)]
+    tmap = float((biomarker.thickness_map(yt_c.to(dev)).cpu()
+                  - biomarker.thickness_map(yt_c)).abs().max())
+    worst["thickness_map"] = tmap
+    step(f"metric families, class {cls} of two B-scans ({HW}x{HW}), card "
+         "and CPU", t0)
+    top = max(worst, key=worst.get)
+    print(f"  metrics: confusion counts equal {counts_same}; largest "
+          f"difference {worst[top]:.3e} ({top}; limit 1e-4); "
+          f"{len(worst)} functions", flush=True)
+    if not counts_same or worst[top] > 1e-4:
+        raise RuntimeError("metrics on the card differ from the CPU")
+    print(f"phase 31: {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3789,6 +4226,7 @@ def main() -> int:
     kernels += infer_eval_phases(dev, card, time_ms, model, calib, by_row)
     kernels.append(sdnet_phases(dev, card, time_ms))
     kernels += int4_phases(dev, card, time_ms, model, calib)
+    real_data_phase(dev, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,19 @@
 suite, ``smoke`` every ported model with one forward.
 
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        serve --model unet|relaynet --quantize psrp|int4 --image-size 512 \\
-        --device cuda [--init-features F] [--checkpoint state_dict.pt] \\
-        [--seed 0]
+        serve --model unet|relaynet --quantize off|int8|psrp|int4 \\
+        --image-size 512 --device cuda [--init-features F] \\
+        [--checkpoint state_dict.pt | --load-quantized q.npz] [--seed 0]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        train --packed --image-size 512 --device cuda [--epochs 10] ...
+        train --packed --image-size 512 --device cuda [--epochs 10] \\
+        [--data duke:DIR|retouch:DIR|png:DIR] ...
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         infer --model unet --quantize off|int8|packed|psrp|int4 \\
-        --out-dir DIR [--export-probs] \\
+        --out-dir DIR [--image-dir DIR] [--export-probs] \\
         [--save-quantized q.npz | --load-quantized q.npz]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         eval --model unet|relaynet --quantize off|int8|psrp|int4 \\
-        [--num-val 16]
+        [--num-val 16 | --data duke:DIR|retouch:DIR|png:DIR]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         smoke --model all|unet|relaynet|sdnet [--num-classes 10] --device cuda
 
@@ -23,18 +24,21 @@ The int8 graphs are built by ``build_quantized_forward``: model -> BN fold
 preprocessing the images get) -> int8 quantization -> the graph, behind the
 per-image z-score. ``psrp``, ``int4`` (the U-Net's w4a4 mode of the psrp
 graph) and ``packed`` run on the CUDA kernels; ``int8`` is the all-int8
-oracle graph in plain PyTorch (the JAX package runs it in XLA). ``serve``
-serves ``psrp`` or ``int4`` (``build_psrp_forward`` for the U-Net,
-``build_relaynet_psrp_forward`` for ReLayNet). ``train`` builds its trainer
-and synthetic datasets with ``build_training``. ``infer`` and ``eval`` run
-on synthetic B-scans made on the device from ``--seed`` (eval's from seed
-99, as ``train``'s validation data). ``chip_smoke.py`` builds all of them
-the same way.
+oracle graph in plain PyTorch (the JAX package runs it in XLA); ``off`` is
+the float model (``build_float_forward``). ``serve`` serves any of them
+but ``packed``, from the model or a quantized artifact. ``train`` builds its
+trainer and datasets with ``build_training``. Without ``--data`` and
+``--image-dir``, ``train``, ``infer`` and ``eval`` run on synthetic B-scans
+made on the device from ``--seed`` (eval's from seed 99, as ``train``'s
+validation data); ``--data`` reads a real dataset (``training/data.py``,
+eval scoring its validation split), ``--image-dir`` a folder of B-scans.
+``chip_smoke.py`` builds all of them the same way.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -74,8 +78,15 @@ from .inference.relaynet_psrp import (
 from .inference.server import ServingLoop
 from .ops.preprocess import preprocess
 from .registry import get_model, list_models
-from .training.data import SyntheticOCTConfig, SyntheticOCTDataset, synth_batch
-from .training.trainer import Trainer
+from .training.data import (
+    SyntheticOCTConfig,
+    SyntheticOCTDataset,
+    make_datasets,
+    synth_batch,
+)
+from .training.fouriernet_pipeline import read_folder_dataset
+from .training.trainer import Trainer, nhwc_logits
+from .utils.dtype import resolve_dtype
 from .utils.logging import MetricLogger, export_prob_maps
 
 
@@ -184,6 +195,19 @@ def build_quantized_forward(model: torch.nn.Module, name: str = "unet",
     return forward, calib
 
 
+def build_float_forward(model: torch.nn.Module, dtype: str = "bfloat16"):
+    """``forward(images)``: (N, H, W, 1) float images -> (N, H, W) labels
+    through the float model in eval mode, computed in ``dtype`` (autocast;
+    the parameters stay float32), behind the per-image z-score."""
+    compute = resolve_dtype(dtype)
+    model.eval()
+
+    def forward(images: torch.Tensor) -> torch.Tensor:
+        return nhwc_logits(model, preprocess(images), compute).argmax(-1)
+
+    return forward
+
+
 def build_psrp_forward(model: torch.nn.Module, *, image_size: int, device,
                        seed: int = 0):
     """``build_quantized_forward`` of the U-Net's served int8 graph
@@ -209,15 +233,20 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def _with_classes(cfg: TrainConfig, num_classes: int) -> TrainConfig:
+    """``cfg`` with ``num_classes`` classes where the dataset has more than
+    ``--num-classes`` (the JAX CLI raises the count the same way)."""
+    if num_classes <= cfg.model.num_classes:
+        return cfg
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, num_classes=num_classes))
+
+
 def build_training(args):
     """-> (trainer, train_ds, val_ds) for ``train``'s arguments: the
-    config as the JAX CLI builds it, synthetic Duke-DME-shaped data made on
-    the device (validation from seed 99)."""
-    if args.data:
-        raise NotImplementedError(
-            f"--data {args.data}: the real-data loaders are not ported yet "
-            "(ROADMAP.md, Queue A item 11); omit --data for synthetic data"
-        )
+    config as the JAX CLI builds it; ``--data``'s dataset split by volume
+    (``training/data.make_datasets``), or synthetic Duke-DME-shaped data
+    made on the device (validation from seed 99)."""
     device = _device(args.device)
     cfg = TrainConfig(
         model=ModelConfig(
@@ -238,6 +267,15 @@ def build_training(args):
         early_stop_patience=args.patience,
         packed_train=args.packed,
     )
+    real = make_datasets(args.data, cfg.data.image_size,
+                         cfg.data.batch_size)
+    if real is not None:
+        train_ds, val_ds, num_classes = real
+        if num_classes > cfg.model.num_classes:
+            print(f"note: dataset has {num_classes} classes; overriding "
+                  f"--num-classes {cfg.model.num_classes}")
+            cfg = _with_classes(cfg, num_classes)
+        return Trainer(cfg, device), train_ds, val_ds
 
     def dataset(num, seed):
         height, width = cfg.data.image_size
@@ -259,42 +297,59 @@ def cmd_train(args):
     return state
 
 
-def cmd_serve(args) -> None:
+def _check_artifact_args(args) -> None:
+    """Refuse artifact flags that the mode or the model cannot take."""
+    if args.model != "unet" and (getattr(args, "save_quantized", None)
+                                 or args.load_quantized):
+        raise SystemExit("--save-quantized/--load-quantized: U-Net only")
+    if args.load_quantized and args.quantize == "off":
+        raise SystemExit("--load-quantized needs --quantize other than off")
+
+
+def build_serving(args) -> ServingLoop:
+    """The ``ServingLoop`` that ``serve`` runs: the float model
+    (``--quantize off``) or an int8 graph, built from the model
+    (``--checkpoint`` or random init from ``--seed``) or from a quantized
+    artifact (``--load-quantized``)."""
+    _check_artifact_args(args)
     device = _device(args.device)
-    if args.checkpoint is None:
+    if args.checkpoint is None and not args.load_quantized:
         print("note: no --checkpoint given; using random init from --seed")
     model = build_model(args.model, num_classes=args.num_classes,
                         init_features=args.init_features, seed=args.seed,
                         checkpoint=args.checkpoint, device=device)
-    forward, _ = build_quantized_forward(
-        model, args.model, args.quantize, image_size=args.image_size,
-        device=device, seed=args.seed)
-    loop = ServingLoop(forward, (args.image_size, args.image_size, 1),
+    if args.quantize == "off":
+        forward = build_float_forward(model, args.dtype)
+    else:
+        loaded = (load_qparams(args.load_quantized, args.quantize)
+                  if args.load_quantized else None)
+        forward, _ = build_quantized_forward(
+            model, args.model, args.quantize, image_size=args.image_size,
+            device=device, seed=args.seed, qparams=loaded)
+    return ServingLoop(forward, (args.image_size, args.image_size, 1),
                        device=device, batch_size=args.batch_size,
                        max_wait_ms=args.max_wait_ms)
-    serve_forever(loop, host=args.host, port=args.port)
+
+
+def cmd_serve(args) -> None:
+    serve_forever(build_serving(args), host=args.host, port=args.port)
 
 
 def _refuse_unported(args) -> None:
-    """The JAX flags whose paths are not ported yet raise, naming the
-    ROADMAP.md item (Queue A) they wait for."""
+    """``--spatial`` (not ported yet) raises, naming the ROADMAP.md item
+    (Queue A) it waits for."""
     if getattr(args, "spatial", 1) > 1:
         raise NotImplementedError(
             "--spatial: spatially sharded inference is not ported yet "
             "(ROADMAP.md, Queue A item 12)")
-    for flag in ("data", "image_dir"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: the real-data loaders are not "
-                "ported yet (ROADMAP.md, Queue A item 11); omit it for "
-                "synthetic B-scans")
 
 
-def build_eval_trainer(args):
+def build_eval_trainer(args, num_classes: int = 0):
     """-> (trainer, state): the model of ``infer``/``eval``'s arguments as
     the JAX CLI builds it (``--model-kwargs``, random init from ``--seed``
     or ``--checkpoint``, a torch state dict), in eval mode on
-    ``--device``."""
+    ``--device``; with ``num_classes`` classes where that is more than
+    ``--num-classes``."""
     device = _device(args.device)
     cfg = TrainConfig(
         model=ModelConfig(
@@ -306,7 +361,7 @@ def build_eval_trainer(args):
                         batch_size=args.batch_size),
         compute_dtype=args.dtype, seed=args.seed,
     )
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(_with_classes(cfg, num_classes), device)
     if args.checkpoint:
         trainer.model.load_state_dict(
             torch.load(args.checkpoint, map_location=device,
@@ -324,19 +379,21 @@ def _synthetic_config(args, seed: int) -> SyntheticOCTConfig:
 
 
 def cmd_infer(args):
-    """Masks for a batch of synthetic B-scans -> ``--out-dir/masks.npy``
-    (int32 labels), with ``--export-probs`` also the float model's class-1
-    probability maps (``prob_0000.txt``, ...)."""
+    """Masks for the B-scans of ``--image-dir`` (every image, grey levels)
+    or a batch of synthetic ones -> ``--out-dir/masks.npy`` (int32
+    labels), with ``--export-probs`` also the float model's class-1
+    probability maps (``prob_0000.txt``, ..., or the images' names)."""
     _refuse_unported(args)
-    if args.model != "unet" and (args.save_quantized or args.load_quantized):
-        raise SystemExit("--save-quantized/--load-quantized: U-Net only")
-    if args.load_quantized and args.quantize == "off":
-        raise SystemExit(
-            "--load-quantized needs --quantize int8|packed|psrp|int4")
+    _check_artifact_args(args)
     trainer, state = build_eval_trainer(args)
-    g = torch.Generator(device=trainer.device).manual_seed(args.seed)
-    images, _ = synth_batch(g, args.batch_size,
-                            _synthetic_config(args, args.seed))
+    names = None
+    if args.image_dir:
+        images, _, names = read_folder_dataset(args.image_dir)
+        images = torch.from_numpy(images[..., None]).to(trainer.device)
+    else:
+        g = torch.Generator(device=trainer.device).manual_seed(args.seed)
+        images, _ = synth_batch(g, args.batch_size,
+                                _synthetic_config(args, args.seed))
     with torch.inference_mode():
         if args.quantize == "off":
             preds = trainer.predict(state, images)
@@ -359,19 +416,24 @@ def cmd_infer(args):
             logits = trainer.model(
                 trainer._preprocess(images.float()).permute(0, 3, 1, 2))
             probs = torch.softmax(logits.float(), dim=1)[:, 1]
-            export_prob_maps(probs, args.out_dir)
+            export_prob_maps(probs, args.out_dir, names)
     print(f"wrote {preds.shape[0]} masks to {args.out_dir}")
     return preds
 
 
 def cmd_eval(args) -> dict:
-    """The metric suite (``Trainer.evaluate``) over ``--num-val`` synthetic
-    B-scans, through the float model or the ``--quantize`` graph; prints
-    the JAX CLI's lines."""
-    _refuse_unported(args)
-    trainer, state = build_eval_trainer(args)
-    ds = SyntheticOCTDataset(_synthetic_config(args, 99), args.num_val,
-                             args.batch_size, trainer.device)
+    """The metric suite (``Trainer.evaluate``) over the validation split of
+    ``--data`` or ``--num-val`` synthetic B-scans, through the float model
+    or the ``--quantize`` graph; prints the JAX CLI's lines."""
+    real = make_datasets(args.data, (args.image_size, args.image_size),
+                         args.batch_size)
+    if real is not None:
+        _, ds, num_classes = real
+        trainer, state = build_eval_trainer(args, num_classes)
+    else:
+        trainer, state = build_eval_trainer(args)
+        ds = SyntheticOCTDataset(_synthetic_config(args, 99), args.num_val,
+                                 args.batch_size, trainer.device)
     predict_fn = None
     if args.quantize != "off":
         forward, _ = build_quantized_forward(
@@ -379,7 +441,7 @@ def cmd_eval(args) -> dict:
             image_size=args.image_size, device=trainer.device, seed=args.seed)
 
         def predict_fn(_state, images):
-            return forward(images)
+            return forward(images.to(trainer.device))
 
     m = trainer.evaluate(state, ds, predict_fn=predict_fn)
     print(f"pixel_accuracy: {m['pixel_accuracy']:.4f}")
@@ -440,11 +502,14 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="octseg-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve",
-                       help="HTTP serving of the int8 U-Net or ReLayNet")
+                       help="HTTP serving of the U-Net or ReLayNet (int8 "
+                            "graphs or the float model)")
     s.add_argument("--model", default="unet", choices=list(WIDTH_ARGS))
-    s.add_argument("--quantize", default="psrp", choices=["psrp", "int4"],
-                   help="the served graph on the CUDA kernels: psrp (int8), "
-                        "or int4 (the U-Net's w4a4 mode)")
+    s.add_argument("--quantize", default="psrp",
+                   choices=["off", "int8", "psrp", "int4"],
+                   help="the served graph: psrp (int8) or int4 (the U-Net's "
+                        "w4a4 mode) on the CUDA kernels, int8 the all-int8 "
+                        "oracle, off the float model")
     s.add_argument("--num-classes", type=int, default=10)
     s.add_argument("--init-features", type=int, default=None,
                    help="model width (ReLayNet: num_filters); default the "
@@ -453,6 +518,12 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default="cuda")
     s.add_argument("--checkpoint", default=None,
                    help="torch state dict of the model (.pt)")
+    s.add_argument("--load-quantized", default=None,
+                   help="serve from a quantized artifact of the same "
+                        "--quantize mode, written by infer --save-quantized "
+                        "or by the JAX package (unet)")
+    s.add_argument("--dtype", default="bfloat16",
+                   help="compute dtype of the float model (--quantize off)")
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--batch-size", type=int, default=8)
     s.add_argument("--max-wait-ms", type=float, default=2.0)
@@ -460,7 +531,8 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--port", type=int, default=8765)
     s.set_defaults(fn=cmd_serve)
 
-    t = sub.add_parser("train", help="train a model on synthetic data")
+    t = sub.add_parser("train", help="train a model on a real dataset or "
+                                     "synthetic data")
     t.add_argument("--model", default="unet")
     t.add_argument("--num-classes", type=int, default=10)
     t.add_argument("--in-channels", type=int, default=1)
@@ -471,7 +543,8 @@ def parser() -> argparse.ArgumentParser:
     t.add_argument("--dtype", default="bfloat16")
     t.add_argument("--device", default="cuda")
     t.add_argument("--data", default=None,
-                   help="real dataset spec (not ported yet: raises)")
+                   help="real dataset spec: duke:<dir> | retouch:<dir> | "
+                        "png:<dir> (default: synthetic, made on the device)")
     t.add_argument("--epochs", type=int, default=10)
     t.add_argument("--lr", type=float, default=1e-3)
     t.add_argument("--optimizer", default="adam")
@@ -490,7 +563,8 @@ def parser() -> argparse.ArgumentParser:
     )
     t.set_defaults(fn=cmd_train)
 
-    e = sub.add_parser("eval", help="the metric suite on synthetic B-scans")
+    e = sub.add_parser("eval", help="the metric suite on a real dataset's "
+                                    "validation split or synthetic B-scans")
     _eval_args(e)
     e.add_argument("--num-val", type=int, default=16)
     e.add_argument("--quantize", default="off",
@@ -498,13 +572,15 @@ def parser() -> argparse.ArgumentParser:
                    help="evaluate an int8 graph instead of the float model "
                         "(int4: the U-Net's w4a4 mode of psrp)")
     e.add_argument("--data", default=None,
-                   help="real dataset spec (not ported yet: raises)")
+                   help="real dataset spec: duke:<dir> | retouch:<dir> | "
+                        "png:<dir> (evaluates the validation split)")
     e.set_defaults(fn=cmd_eval)
 
     i = sub.add_parser("infer", help="masks for a batch of B-scans")
     _eval_args(i)
     i.add_argument("--image-dir", default=None,
-                   help="a folder of B-scans (not ported yet: raises)")
+                   help="a folder of B-scans (read with cv2 or PIL; "
+                        "default: a batch of synthetic ones)")
     i.add_argument("--out-dir", default="./inference_out")
     i.add_argument("--export-probs", action="store_true")
     i.add_argument("--spatial", type=int, default=1,

@@ -38,7 +38,7 @@ class OptimConfig:
 class DataConfig:
     image_size: tuple[int, int] = (512, 512)
     batch_size: int = 8
-    # on-device preprocessing (ops/preprocess.py; only normalize is ported)
+    # preprocessing on the device (ops/preprocess.py)
     flatten_retina: bool = False
     denoise: bool = False
     normalize: bool = True  # per-image z-score

@@ -1,6 +1,6 @@
-"""Data: synthetic Duke-DME-shaped B-scans made on the device, and a host
-loader over arrays already in memory (the JAX package's
-``training/data.py``).
+"""Data: synthetic Duke-DME-shaped B-scans made on the device, a host
+loader over arrays already in memory, and the dataset-spec dispatcher
+over the real-data loaders (the JAX package's ``training/data.py``).
 
 The synthetic generator draws from the same distributions as the JAX one
 (smooth monotone layer boundaries, alternating layer reflectivity,
@@ -8,14 +8,17 @@ elliptical fluid pockets, gamma(4)/4 multiplicative speckle plus Gaussian
 noise) from an explicit ``torch.Generator`` on the device. JAX's PRNG is not
 reproduced, so the samples differ. ``numpy_folder_dataset`` is the JAX one
 exactly, numpy shuffle included, so both trainers see the same batches in
-the same order. The real-data loaders (Duke, RETOUCH, PNG volumes) are not
-ported yet (ROADMAP.md, Queue A item 11).
+the same order. ``load_real_dataset`` and ``make_datasets`` read a spec
+``duke:<dir>``, ``retouch:<dir>`` or ``png:<dir>`` through ``duke.py``,
+``retouch.py`` or ``png_volumes.py`` and split whole volumes off for
+validation, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -129,3 +132,120 @@ def numpy_folder_dataset(images: np.ndarray, labels: np.ndarray,
             yield torch.from_numpy(images[sel]), torch.from_numpy(labels[sel])
 
     return SimpleNamespace(epoch=epoch, steps_per_epoch=n // batch_size)
+
+
+# ---------------------------------------------------------------------------
+# dataset spec dispatcher: one string selects synthetic or a real-data loader
+# ---------------------------------------------------------------------------
+
+
+def _crop_pad(img: np.ndarray, lab: np.ndarray, size):
+    """Crop or zero-pad (H, W[, C]) ``img`` and (H, W) ``lab`` top-left to
+    ``size``."""
+    th, tw = size
+    img, lab = img[:th, :tw], lab[:th, :tw]
+    ph, pw = th - img.shape[0], tw - img.shape[1]
+    if ph > 0 or pw > 0:
+        img = np.pad(img, ((0, ph), (0, pw)) + ((0, 0),) * (img.ndim - 2))
+        lab = np.pad(lab, ((0, ph), (0, pw)))
+    return img, lab
+
+
+def load_real_dataset(spec: str, image_size, return_volumes: bool = False):
+    """'duke:<dir>' | 'retouch:<dir>' | 'png:<dir>' ->
+    (images (N, H, W, 1) float32, labels (N, H, W) int32, num_classes[,
+    vol_ids]).
+
+    Only labeled B-scans are kept; volumes are flattened into one B-scan
+    pool, cropped or padded top-left to ``image_size`` (the Duke
+    convention). With ``return_volumes=True`` also a per-B-scan int volume
+    id, so callers can split train/val at volume granularity.
+    """
+    kind, _, root = spec.partition(":")
+    if not root:
+        raise ValueError(f"dataset spec needs a path: '{spec}'")
+    imgs, labs, vols = [], [], []
+    if kind == "duke":
+        from .duke import annotated_slices, load_duke_dme_volume
+
+        files = sorted(
+            f for f in os.listdir(root) if f.lower().endswith(".mat")
+        )
+        for v, f in enumerate(files):
+            images, labels, valid = load_duke_dme_volume(
+                os.path.join(root, f)
+            )
+            for b in annotated_slices(labels, valid):
+                imgs.append(images[b])
+                labs.append(labels[b])
+                vols.append(v)
+    elif kind == "retouch":
+        from .retouch import iter_cases
+
+        for v, case in enumerate(iter_cases(root)):
+            if case["labels"] is None:
+                continue
+            for b in range(case["images"].shape[0]):
+                imgs.append(case["images"][b][..., None])
+                labs.append(case["labels"][b])
+                vols.append(v)
+    elif kind == "png":
+        from .png_volumes import iter_png_volumes
+
+        for v, vol in enumerate(iter_png_volumes(root)):
+            if vol["labels"] is None:
+                continue
+            for b in range(vol["images"].shape[0]):
+                imgs.append(vol["images"][b])
+                labs.append(vol["labels"][b])
+                vols.append(v)
+    else:
+        raise ValueError(f"unknown dataset kind '{kind}'")
+    if not imgs:
+        raise FileNotFoundError(f"no labeled B-scans under {root}")
+    pairs = [_crop_pad(i, l, image_size) for i, l in zip(imgs, labs)]
+    # C order: scipy reads MATLAB arrays in Fortran order, and the CUDA
+    # kernels take contiguous tensors only
+    images = np.ascontiguousarray(np.stack([p[0] for p in pairs]),
+                                  np.float32)
+    labels = np.ascontiguousarray(np.stack([p[1] for p in pairs]), np.int32)
+    out = (images, labels, int(labels.max()) + 1)
+    return out + (np.asarray(vols),) if return_volumes else out
+
+
+def make_datasets(spec: str | None, image_size, batch_size: int,
+                  val_fraction: float = 0.1, seed: int = 0):
+    """-> (train_ds, val_ds, num_classes), or None for a synthetic spec
+    (the caller builds the synthetic datasets).
+
+    The validation split holds out WHOLE volumes (the last volumes until
+    they hold >= ``val_fraction`` of the B-scans, or a batch), so that
+    near-duplicate B-scans of one volume never straddle the split; with a
+    single volume it falls back to a B-scan index split.
+    """
+    if spec in (None, "", "synthetic", "synthetic_duke_dme"):
+        return None
+    images, labels, num_classes, vols = load_real_dataset(
+        spec, image_size, return_volumes=True
+    )
+    n = images.shape[0]
+    n_val = max(int(n * val_fraction), min(batch_size, n // 2))
+    unique_vols = np.unique(vols)
+    if len(unique_vols) > 1:
+        counts = {v: int(np.sum(vols == v)) for v in unique_vols}
+        val_vols, acc = [], 0
+        for v in unique_vols[::-1]:
+            if acc >= n_val or len(val_vols) >= len(unique_vols) - 1:
+                break
+            val_vols.append(v)
+            acc += counts[v]
+        is_val = np.isin(vols, val_vols)
+    else:
+        is_val = np.arange(n) >= n - n_val
+    train = numpy_folder_dataset(
+        images[~is_val], labels[~is_val], batch_size, seed=seed
+    )
+    val = numpy_folder_dataset(
+        images[is_val], labels[is_val], batch_size, shuffle=False
+    )
+    return train, val, num_classes

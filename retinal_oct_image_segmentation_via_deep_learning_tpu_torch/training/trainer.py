@@ -48,7 +48,8 @@ def _autocast(device: torch.device, dtype: torch.dtype):
     return torch.autocast(device.type, dtype=dtype)
 
 
-def _logits(model, images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def nhwc_logits(model, images: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
     """NHWC images -> NHWC logits of an NCHW model, computed in ``dtype``."""
     with _autocast(images.device, dtype):
         return model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -62,7 +63,7 @@ def make_train_step(loss_fn: Callable, class_weights=None,
     def train_step(state: TrainState, images, labels):
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(_logits(state.model, images, dtype), labels,
+        loss = loss_fn(nhwc_logits(state.model, images, dtype), labels,
                        class_weights)
         loss.backward()
         state.apply_gradients()
@@ -79,7 +80,7 @@ def make_eval_step(loss_fn: Callable, num_classes: int, class_weights=None,
     @torch.no_grad()
     def eval_step(state: TrainState, images, labels):
         state.model.eval()
-        logits = _logits(state.model, images, dtype)
+        logits = nhwc_logits(state.model, images, dtype)
         loss = loss_fn(logits, labels, class_weights)
         dice = per_class_dice(labels, logits.argmax(-1), num_classes)
         return loss, dice
@@ -266,4 +267,4 @@ class Trainer:
         """(N, H, W, 1) images -> (N, H, W) labels, eval mode."""
         images = self._preprocess(images.to(self.device).float())
         state.model.eval()
-        return _logits(state.model, images, self.dtype).argmax(-1)
+        return nhwc_logits(state.model, images, self.dtype).argmax(-1)

@@ -131,8 +131,18 @@ def test_eval_off_prints_what_jax_prints(capsys):
     (["eval", "--data", "duke:/x"], "item 11"),
     (["infer", "--image-dir", "/x"], "item 11"),
 ])
-def test_unported_flags_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_raise(tmp_path, argv, match):
+    """``--spatial`` (item 12) raises, naming its item. The flags of item
+    11 are ported: a missing directory raises what the JAX CLI raises."""
+    if match == "item 12":
+        with pytest.raises(NotImplementedError, match=match):
+            _port([argv[0], *_args("unet"), *argv[1:]])
+        return
+    argv = [a.replace("/x", str(tmp_path / "missing")) for a in argv]
+    with pytest.raises(Exception) as jax_error:
+        jcli.main([argv[0], *_args("unet"), *argv[1:]])
+    assert isinstance(jax_error.value, FileNotFoundError)
+    with pytest.raises(FileNotFoundError, match="missing"):
         _port([argv[0], *_args("unet"), *argv[1:]])
 
 
@@ -144,3 +154,175 @@ def test_refused_combinations():
     with pytest.raises(SystemExit, match="U-Net only"):
         _port(["infer", *_args("relaynet"), "--quantize", "psrp",
                "--save-quantized", "x.npz"])
+
+
+# ------------------------------------------------------ real data, folders
+
+
+DUKE_NC = 9  # the Duke DME classes: background, 7 layers, fluid
+
+
+def _duke_dir(root, n=3):
+    """``n`` synthetic Duke DME v5 volumes (72 x 80, 5 B-scans, all
+    annotated) in the published layout."""
+    import scipy.io as sio
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.duke import (
+        synthetic_duke_dme_volume,
+    )
+
+    root.mkdir()
+    for i in range(n):
+        sio.savemat(root / f"Subject_{i:02d}.mat", synthetic_duke_dme_volume(
+            np.random.default_rng(i), 72, 80, 5, range(5)))
+    return str(root)
+
+
+def _jax_state_from(model, monkeypatch):
+    """Make the JAX trainer's ``init_state`` start from ``model``'s
+    weights (the JAX CLI reads Orbax checkpoints, not torch ones)."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu.training import (
+        trainer as jtrainer,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.utils.convert import (
+        unet_variables_from_state_dict,
+    )
+
+    v = unet_variables_from_state_dict(model.state_dict())
+    init = jtrainer.Trainer.init_state
+
+    def init_state(self, sample):
+        state = init(self, sample)
+        return state.replace(params=v["params"],
+                             batch_stats=v["batch_stats"])
+
+    monkeypatch.setattr(jtrainer.Trainer, "init_state", init_state)
+
+
+def test_eval_data_prints_what_jax_prints_on_the_same_weights(
+        tmp_path, capsys, monkeypatch):
+    """``eval --data duke:DIR``: both CLIs raise --num-classes to the
+    dataset's 9, score the validation split (the last volume) with the
+    same weights, and print the same metric lines."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.models.unet import (
+        UNet,
+    )
+
+    root = _duke_dir(tmp_path / "duke")
+    model = UNet(1, DUKE_NC, 8, generator=torch.Generator().manual_seed(3))
+    ckpt = tmp_path / "unet.pt"
+    torch.save(model.state_dict(), ckpt)
+    _jax_state_from(model, monkeypatch)
+    argv = ["eval", *_args("unet"), "--data", f"duke:{root}"]
+    want = jcli.main(argv)
+    want_lines = [line for line in capsys.readouterr().out.splitlines()
+                  if _printed(line)]
+    got = _port([*argv, "--checkpoint", str(ckpt)])
+    got_lines = [line for line in capsys.readouterr().out.splitlines()
+                 if _printed(line)]
+    assert _printed("\n".join(got_lines)) == list(METRIC_LINES)
+    assert got_lines == want_lines
+    assert int(got["confusion"].sum()) == 4 * HW * HW  # 2 batches of 2
+    assert got["dice"].shape == (DUKE_NC,)
+    for k in METRIC_LINES:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
+                                   equal_nan=True, err_msg=k)
+
+
+@pytest.mark.parametrize("quantize", ["int8", "psrp"])
+def test_eval_data_quantized_scores_the_graphs_masks(tmp_path, quantize):
+    """``eval --data --quantize``: the validation split through the graph
+    ``build_quantized_forward`` builds, scored as ``Trainer.evaluate``
+    scores it."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.data import (
+        make_datasets,
+    )
+
+    root = _duke_dir(tmp_path / "duke")
+    m = _port(["eval", *_args("unet"), "--data", f"duke:{root}",
+               "--quantize", quantize])
+    args = cli.parser().parse_args(["eval", *_args("unet"), "--device",
+                                    "cpu"])
+    trainer, state = cli.build_eval_trainer(args, DUKE_NC)
+    forward, _ = cli.build_quantized_forward(
+        trainer.model, "unet", quantize, image_size=HW, device="cpu")
+    _, val, _ = make_datasets(f"duke:{root}", (HW, HW), 2)
+    want = trainer.evaluate(state, val, predict_fn=lambda s, x: forward(x))
+    np.testing.assert_array_equal(m["confusion"], want["confusion"])
+    assert m["confusion"].shape == (DUKE_NC, DUKE_NC)
+
+
+@pytest.mark.parametrize("packed", [[], ["--packed"]],
+                         ids=["unpacked", "packed"])
+def test_train_data_raises_the_classes_as_jax(tmp_path, capsys, packed):
+    """``train --data duke:DIR --num-classes 2``: the note and the class
+    count JAX's CLI gives (its dataset reader says 9), one epoch of steps
+    on the CPU."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu.training.data import (
+        make_datasets as jax_make_datasets,
+    )
+
+    root = _duke_dir(tmp_path / "duke")
+    argv = ["train", "--device", "cpu", "--image-size", "32",
+            "--batch-size", "2", "--epochs", "1", "--num-classes", "2",
+            "--model-kwargs", '{"init_features": 4}', "--data",
+            f"duke:{root}", *packed]
+    nc = jax_make_datasets(f"duke:{root}", (32, 32), 2)[2]
+    assert nc == DUKE_NC
+    trainer, train_ds, val_ds = cli.build_training(cli.parser().parse_args(
+        argv))
+    note = f"note: dataset has {nc} classes; overriding --num-classes 2"
+    assert note in capsys.readouterr().out
+    assert trainer.cfg.model.num_classes == nc
+    assert train_ds.steps_per_epoch == 5 and val_ds.steps_per_epoch == 2
+    state = cli.main(argv)
+    assert note in capsys.readouterr().out
+    assert state.step == 5
+    assert state.model.conv.out_channels == nc
+
+
+def _image_dir(root, n=2, h=HW, w=HW):
+    from PIL import Image
+
+    root.mkdir()
+    rng = np.random.default_rng(4)
+    for i in range(n):
+        img = rng.integers(0, 255, (h, w)).astype(np.uint8)
+        Image.fromarray(img).save(root / f"bscan_{i}.png")
+    return str(root)
+
+
+@pytest.mark.parametrize("quantize", ["off", "psrp"])
+def test_infer_image_dir_writes_masks(tmp_path, capsys, quantize):
+    """``infer --image-dir``: a mask for every image of the folder, the
+    forward's labels of the images as read; ``--export-probs`` names the
+    maps after the images, as the JAX CLI does (two 64x64 images: the JAX
+    CLI reuses the program it compiled for the synthetic batch above)."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.fouriernet_pipeline import (
+        read_folder_dataset,
+    )
+
+    folder = _image_dir(tmp_path / "img")
+    out = tmp_path / "out"
+    _port(["infer", *_args("unet"), "--image-dir", folder, "--quantize",
+           quantize, "--out-dir", str(out), "--export-probs"])
+    assert f"wrote 2 masks to {out}" in capsys.readouterr().out
+    masks = np.load(out / "masks.npy", allow_pickle=False)
+    assert masks.shape == (2, HW, HW) and masks.dtype == np.int32
+    images = torch.from_numpy(read_folder_dataset(folder)[0][..., None])
+    trainer, state = cli.build_eval_trainer(cli.parser().parse_args(
+        ["infer", *_args("unet"), "--device", "cpu"]))
+    with torch.inference_mode():
+        if quantize == "off":
+            want = trainer.predict(state, images)
+        else:
+            want = cli.build_quantized_forward(
+                trainer.model, "unet", quantize, image_size=HW,
+                device="cpu")[0](images)
+    np.testing.assert_array_equal(masks, want.numpy())
+    jout = tmp_path / "jax"
+    jcli.main(["infer", *_args("unet"), "--image-dir", folder, "--out-dir",
+               str(jout), "--export-probs"])
+    assert sorted(p.name for p in out.iterdir()) == \
+        sorted(p.name for p in jout.iterdir())
+    assert np.load(jout / "masks.npy").shape == masks.shape

@@ -124,3 +124,95 @@ def test_cuda_tensor_never_takes_the_plain_version():
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+def _serve_args(*extra):
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli import (
+        parser,
+    )
+
+    return parser().parse_args([
+        "serve", "--device", "cpu", "--image-size", str(HW),
+        "--num-classes", "5", "--init-features", "8", "--batch-size", "4",
+        "--max-wait-ms", "5", *extra])
+
+
+def _direct(mode, imgs):
+    """Labels of the forward of ``mode`` built from the seeded model, called
+    directly."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli import (
+        build_float_forward,
+        build_quantized_forward,
+    )
+
+    model = build_model(num_classes=5, init_features=8, seed=0, device="cpu")
+    if mode == "off":
+        forward = build_float_forward(model, "float32")
+    else:
+        forward, _ = build_quantized_forward(model, "unet", mode,
+                                             image_size=HW, device="cpu")
+    with torch.inference_mode():
+        return forward(torch.from_numpy(imgs)).numpy()
+
+
+def _artifact(tmp_path, mode):
+    """``infer --save-quantized`` of the seeded model in ``mode``."""
+    path = str(tmp_path / f"{mode}.npz")
+    main(["infer", "--device", "cpu", "--image-size", str(HW),
+          "--num-classes", "5", "--batch-size", "2", "--model-kwargs",
+          '{"init_features": 8}', "--quantize", mode, "--out-dir",
+          str(tmp_path / "out"), "--save-quantized", path])
+    return path
+
+
+@pytest.mark.parametrize("mode,load", [("off", False), ("int8", False),
+                                       ("int8", True), ("psrp", True)],
+                         ids=["off", "int8", "int8-artifact",
+                              "psrp-artifact"])
+def test_cli_serve_modes_answer_with_the_direct_forward(tmp_path, mode,
+                                                        load):
+    """``serve --quantize off|int8|psrp [--load-quantized]``, built as
+    ``cli serve`` builds it, answers HTTP with the labels of the same graph
+    called directly (from an artifact: the graph it was saved from)."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli import (
+        build_serving,
+    )
+
+    extra = ["--quantize", mode]
+    if mode == "off":
+        extra += ["--dtype", "float32"]
+    if load:
+        extra += ["--load-quantized", _artifact(tmp_path, mode)]
+    loop = build_serving(_serve_args(*extra))
+    imgs = np.random.default_rng(1).uniform(0, 255, (5, HW, HW, 1)).astype(
+        np.float32)
+    direct = _direct(mode, imgs)
+    httpd, _ = start_in_background(loop.warmup(), port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        got = [_post(f"{url}/predict", imgs[i]) for i in range(3)]
+        got.append(_post(f"{url}/predict", imgs[3:5]))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        loop.close()
+    for g, w in zip(got, [direct[0], direct[1], direct[2], direct[3:5]]):
+        np.testing.assert_array_equal(g, w)
+    assert loop.requests_served == 5
+
+
+def test_cli_serve_refuses_wrong_artifacts(tmp_path):
+    art = _artifact(tmp_path, "int8")
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli import (
+        build_serving,
+    )
+
+    with pytest.raises(ValueError, match="a int8 artifact"):
+        build_serving(_serve_args("--quantize", "psrp", "--load-quantized",
+                                  art))
+    with pytest.raises(SystemExit, match="needs --quantize"):
+        build_serving(_serve_args("--quantize", "off", "--load-quantized",
+                                  art))
+    with pytest.raises(SystemExit, match="U-Net only"):
+        build_serving(_serve_args("--model", "relaynet", "--quantize",
+                                  "int8", "--load-quantized", art))

@@ -665,10 +665,15 @@ def test_cli_train_on_cpu(tmp_path, packed):
                                         else bool(packed))
 
 
-def test_cli_train_refuses_real_data_and_a_missing_card():
+def test_cli_train_refuses_real_data_and_a_missing_card(tmp_path):
+    """A ``--data`` directory that is not there raises what the JAX CLI's
+    reader raises (the loaders are ported); a missing card exits."""
+    missing = tmp_path / "data"
     args = cli.parser().parse_args(["train", "--device", "cpu", "--data",
-                                    "duke:/data"])
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+                                    f"duke:{missing}"])
+    with pytest.raises(FileNotFoundError, match=str(missing)):
+        jdata.make_datasets(f"duke:{missing}", (32, 32), 2)
+    with pytest.raises(FileNotFoundError, match=str(missing)):
         cli.build_training(args)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
