@@ -2,8 +2,9 @@
 """Drive the PyTorch port's int8 serving paths (U-Net and ReLayNet), the
 U-Net's w4a4 serving mode and fused head, its U-Net training path (with and
 without the fused Dice+CE loss), SDNet's forward and composite train step,
-and the real-data path (Duke DME volumes through ``train --data`` and
-``eval --data``) once on one NVIDIA GPU.
+the real-data path (Duke DME volumes through ``train --data`` and
+``eval --data``) and the zoo's first models (Y-Net plain and FFC, EdgeAL,
+FourierNet, AnoGAN) once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -190,7 +191,22 @@ Phases (any failure raises; the exit code is then non-zero):
     --load-quantized`` (an ``infer --save-quantized`` artifact) answering
     HTTP requests with the direct forward's labels; ``infer --image-dir``
     on PNGs where PIL or cv2 is installed; the five metric families on
-    CUDA tensors against the CPU within 1e-4; each step's seconds.
+    CUDA tensors against the CPU within 1e-4; each step's seconds;
+32. the zoo's first models at the JAX defaults' full width from seed 0:
+    Y-Net-FFC and Y-Net (f=32, 10 classes): the eval forward on the card
+    against the CPU at 128x128 with TF32 off (1e-4 of the largest
+    output), the forward at batch 8 in bf16 (CUDA events, median of 5),
+    one ``cli train`` epoch of 4 steps at batch 8 (K6 launched 70 / 52
+    times a step), the step's ms, peak memory and a profile (K6 kernels a
+    step, idle share); for Y-Net-FFC one step from the trained state under
+    cuDNN deterministic with K6 against its plain version (``SDNET_GATE``)
+    and a planted K6 fault that must fail the gate; EdgeAL (ngf 64, 9
+    blocks, 3 classes): card vs CPU at 64x64, the forward and one
+    ``cli train`` step at batch 4; FourierNet (features 16-256):
+    ``prepare_dataset`` on 8 synthetic masks (host seconds),
+    ``FourierNetTrainer.fit`` for 2 epochs at batch 4, ``predict``, card
+    vs CPU at 128x128; AnoGAN: 5 + 5 ``AnoGANTrainer`` steps at 64x64,
+    batch 64, finite losses, ms a step, K6 launched.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -549,12 +565,13 @@ def split_by_function(prof, runs, skip):
     return out
 
 
-def profile_breakdown(fn, runs, what, groups, split=False):
+def profile_breakdown(fn, runs, what, groups, split=False, host=False):
     """``torch.profiler`` over ``runs`` calls of ``fn``: wall and device
     busy time per call, device time and kernel launches by kernel group
     (name substring) and the 15 largest kernels; with ``split``, the
     device time outside the groups by port function
-    (``split_by_function``)."""
+    (``split_by_function``); with ``host``, the host side
+    (``host_breakdown``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -609,6 +626,41 @@ def profile_breakdown(fn, runs, what, groups, split=False):
     for e in sorted(kern, key=dev_us, reverse=True)[:15]:
         print(f"  {dev_us(e) / runs / 1e3:8.3f} ms "
               f"{100 * dev_us(e) / 1e3 / total:6.2f}%  {e.key[:100]}")
+    if host:
+        host_breakdown(prof, runs)
+
+
+def host_breakdown(prof, runs):
+    """The host side of a profile, a call: the operators and CUDA runtime
+    calls recorded and their self CPU time, the kernel launches, the time
+    spent waiting on the device, and the 10 largest by self CPU time."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+          and not getattr(e, "is_user_annotation", False)]
+    waits = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+             "cudaEventSynchronize")
+    runtime = [e for e in ev if e.key.startswith("cuda")]
+    launch = [e for e in runtime if "LaunchKernel" in e.key]
+    wait = [e for e in runtime if e.key in waits]
+
+    def per_call(es):
+        return (sum(e.count for e in es) / runs,
+                sum(e.self_cpu_time_total for e in es) / runs / 1e3)
+
+    n_all, t_all = per_call(ev)
+    n_rt, t_rt = per_call(runtime)
+    n_launch, t_launch = per_call(launch)
+    _, t_wait = per_call(wait)
+    print(f"  host, a call: {n_all:g} events, self CPU {t_all:.3f} ms; "
+          f"of it CUDA runtime {n_rt:g} calls {t_rt:.3f} ms (kernel "
+          f"launches {n_launch:g}, {t_launch:.3f} ms; waiting on the "
+          f"device {t_wait:.3f} ms), operators and autograd "
+          f"{n_all - n_rt:g} events {t_all - t_rt:.3f} ms")
+    for e in sorted(ev, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:10]:
+        print(f"    {e.self_cpu_time_total / runs / 1e3:8.3f} ms self CPU, "
+              f"{e.count / runs:g} a call  {e.key[:90]}")
 
 
 def http_post(url, arr):
@@ -3629,6 +3681,336 @@ def real_data_phase(dev, card):
           flush=True)
 
 
+ZOO_BATCH = 8  # Y-Net and Y-Net-FFC: forward and train batch (phase 32)
+ZOO_STEPS = 4  # Trainer steps in phase 32's one-epoch runs
+EDGEAL_NC, EDGEAL_BATCH = 3, 4
+FOURIER_IMAGES, FOURIER_BATCH = 8, 4
+ANOGAN_HW, ANOGAN_BATCH = 64, 64
+# Y-Net-FFC's train-mode BatchNorms: the U-Net blocks' 18, the four
+# spectral stages' two stream BNs and stages 2-4's three spectral BNs; K6
+# runs twice for each (forward sums, backward sums)
+YNET_FFC_K6_PER_STEP = 2 * (18 + 4 * 2 + 3 * 3)
+YNET_K6_PER_STEP = 2 * 26
+
+
+def _outputs(out):
+    """The tensors of a model's output (a tensor, or a tuple or list of
+    tensors and lists), in order."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _outputs(o)]
+
+
+def zoo_phase(dev, card, time_ms):
+    """Phase 32: the zoo's first models on the FFC stack (Y-Net-FFC, Y-Net,
+    EdgeAL), FourierNet with its FD targets and trainer, and AnoGAN with
+    its adversarial step, at the JAX defaults' full width from seed
+    ``SEED``; K6 in every train-mode BatchNorm."""
+    import copy
+
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
+        cli,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
+        get_model,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.adversarial import (
+        AnoGANTrainer,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.fouriernet_pipeline import (
+        FourierNetTrainer,
+        prepare_dataset,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
+        nhwc_logits,
+    )
+
+    on_card = dev.type == "cuda"
+    phase(f"32 the zoo's first models: Y-Net-FFC, Y-Net, EdgeAL, "
+          f"FourierNet, AnoGAN ({HW}x{HW}, full width, seed {SEED}) on "
+          f"{card}")
+    bad = []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def card_vs_cpu(label, cpu_model, x):
+        """max |card - CPU| / max |CPU| over the eval forward's outputs,
+        float32 with TF32 off on the card."""
+        cpu_model.eval()
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        with torch.no_grad():
+            want = _outputs(cpu_model(x))
+            model = copy.deepcopy(cpu_model).to(dev)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                got = _outputs(model(x.to(dev)))
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = flags
+        rel = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                  for g, w in zip(got, want))
+        print(f"{label}: card vs CPU, eval forward {tuple(x.shape)}, TF32 "
+              f"off: max |difference| / max |CPU| {rel:.3e} (limit 1e-4)",
+              flush=True)
+        if not rel <= 1e-4:
+            bad.append(f"{label} card vs CPU {rel:.3e}")
+
+    def forward_time(label, model, batch, nc):
+        xb, _ = train_batch(dev, batch, SEED + 90, nc)
+        model.eval()
+        with torch.no_grad():
+            ms = time_ms(lambda: nhwc_logits(model, xb, torch.bfloat16), 5)
+        print(f"{label} forward, batch {batch}, bf16 autocast: {ms:.3f} ms "
+              f"(median of 5), {batch / ms * 1e3:.1f} B-scans/s", flush=True)
+
+    def trainer_epoch(name, nc, batch, steps, kwargs=None):
+        """One ``cli train`` epoch (Adam 1e-3, dice_ce, bf16 autocast) of
+        ``steps`` steps on synthetic B-scans; K6 counted from 0."""
+        args = cli.parser().parse_args([
+            "train", "--model", name, "--image-size", str(HW),
+            "--num-classes", str(nc), "--batch-size", str(batch),
+            "--num-train", str(steps * batch), "--num-val", str(batch),
+            "--epochs", "1", "--device", str(dev),
+            "--model-kwargs", json.dumps(kwargs or {})])
+        trainer, train_ds, val_ds = cli.build_training(args)
+        k6.pair_sums.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.fit(train_ds, val_ds)
+        sync()
+        launches = k6.pair_sums.launches
+        rec = trainer.history[0]
+        print(f"{name}: cli train, one epoch of {steps} steps at batch "
+              f"{batch} in {time.perf_counter() - t0:.2f} s (validation "
+              f"included): train loss {rec['train_loss']:.6f}, val loss "
+              f"{rec['val_loss']:.6f}; K6 launches {launches} "
+              f"({launches / steps:g} a step)", flush=True)
+        if not (math.isfinite(rec["train_loss"])
+                and math.isfinite(rec["val_loss"])):
+            bad.append(f"{name} losses {rec}")
+        if on_card and launches == 0:
+            bad.append(f"{name}: K6 not launched by the train steps")
+        return trainer, state, launches / steps
+
+    def step_times(label, trainer, state, batch, nc, host=False):
+        """ms per train step (host clock over 5 after 2), peak memory and
+        a profile with K6's kernels a step and the idle share; with
+        ``host``, the profile's host side."""
+        images, labels = train_batch(dev, batch, SEED + 92, nc)
+        step = trainer.train_step_fn()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            step(state, images, labels)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(state, images, labels)
+        sync()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+                if on_card else "not measured")
+        print(f"{label} train step, batch {batch}: {ms:.3f} ms, "
+              f"{batch / ms * 1e3:.1f} B-scans/s, peak memory {peak}",
+              flush=True)
+        if on_card:
+            profile_breakdown(lambda: step(state, images, labels), 3,
+                              f"{label} train steps at batch {batch}",
+                              {"K6 bn_pair_sums": "pair_sums"}, host=host)
+        return images, labels
+
+    # --------------------------------------------------------- Y-Net-FFC
+    nc = NC
+    side = min(128, HW)
+    xs, _ = train_batch(dev, 2, SEED + 93, nc)
+    xs = xs[:, :side, :side].permute(0, 3, 1, 2).contiguous().cpu()
+    for name in ("y_net_gen_ffc", "y_net_gen"):
+        label = {"y_net_gen_ffc": "Y-Net-FFC", "y_net_gen": "Y-Net"}[name]
+        cpu_model = get_model(name, num_classes=nc, seed=SEED)
+        print(f"{label} (f=32, ratio 0.5, {nc} classes): "
+              f"{sum(p.numel() for p in cpu_model.parameters()):,} "
+              f"parameters", flush=True)
+        card_vs_cpu(label, cpu_model, xs)
+        forward_time(label, cpu_model.to(dev), ZOO_BATCH, nc)
+        del cpu_model
+        trainer, state, per_step = trainer_epoch(name, nc, ZOO_BATCH,
+                                                 ZOO_STEPS)
+        want = (YNET_FFC_K6_PER_STEP if name == "y_net_gen_ffc"
+                else YNET_K6_PER_STEP)
+        if on_card and per_step != want:
+            bad.append(f"{label}: K6 {per_step:g} a step, expected {want}")
+        images, labels = step_times(label, trainer, state, ZOO_BATCH, nc)
+        if name == "y_net_gen_ffc":
+            ynet_ffc_gate(trainer, images, labels, k6, bad, on_card)
+        del trainer, state, images, labels
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ EdgeAL
+    cpu_model = get_model("edgeal", in_channels=1, num_classes=EDGEAL_NC,
+                          seed=SEED)
+    print(f"EdgeAL (ngf 64, 9 blocks, 3 downsamplings, {EDGEAL_NC} "
+          f"classes): {sum(p.numel() for p in cpu_model.parameters()):,} "
+          f"parameters", flush=True)
+    card_vs_cpu("EdgeAL", cpu_model, xs[:, :, :64, :64].contiguous())
+    forward_time("EdgeAL", cpu_model.to(dev), EDGEAL_BATCH, EDGEAL_NC)
+    del cpu_model
+    trainer, state, _ = trainer_epoch("edgeal", EDGEAL_NC, EDGEAL_BATCH, 1)
+    step_times("EdgeAL", trainer, state, EDGEAL_BATCH, EDGEAL_NC, host=True)
+    del trainer, state
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- FourierNet
+    images, labels = train_batch(dev, FOURIER_IMAGES, SEED + 94, nc)
+    images = images[..., 0].cpu().numpy()
+    masks = (labels == 3).cpu().numpy().astype(np.uint8)  # one layer
+    t0 = time.perf_counter()
+    data = prepare_dataset(images, masks, fd_channel=1)
+    print(f"FourierNet: prepare_dataset on {FOURIER_IMAGES} masks of "
+          f"{HW}x{HW} in {time.perf_counter() - t0:.2f} s (host); FD "
+          f"targets finite {bool(np.isfinite(data[1]).all())}", flush=True)
+    fn = FourierNetTrainer(max_epochs=2, batch_size=FOURIER_BATCH,
+                           seed=SEED, device=dev)
+    k6.pair_sums.launches = 0
+    t0 = time.perf_counter()
+    best = fn.fit(data, tuple(a[:FOURIER_BATCH] for a in data))
+    sync()
+    print(f"FourierNetTrainer.fit, 2 epochs of "
+          f"{FOURIER_IMAGES // FOURIER_BATCH} steps at batch "
+          f"{FOURIER_BATCH} (Adadelta 0.01, dropout 0.2): "
+          f"{time.perf_counter() - t0:.2f} s, history "
+          f"{[(round(h['loss'], 6), round(h['val_loss'], 6)) for h in fn.history]}"
+          f"; K6 launches {k6.pair_sums.launches} (FourierNet has no "
+          f"BatchNorm)", flush=True)
+    probs = fn.predict(best, data[0][:FOURIER_BATCH])
+    ok = (probs.shape == (FOURIER_BATCH, HW, HW)
+          and bool(np.isfinite(probs).all()) and probs.min() >= 0.0
+          and probs.max() <= 1.0)
+    print(f"FourierNet predict: class-1 probabilities {probs.shape}, in "
+          f"[{probs.min():.4f}, {probs.max():.4f}]", flush=True)
+    if not ok or not all(math.isfinite(h["loss"]) for h in fn.history):
+        bad.append("FourierNet fit/predict")
+    del fn, best
+    cpu_model = get_model("fouriernet", seed=SEED)
+    card_vs_cpu("FourierNet", cpu_model, xs)
+    del cpu_model
+
+    # ------------------------------------------------------------ AnoGAN
+    an = AnoGANTrainer(seed=SEED, device=dev)
+    state = an.init()
+    step = an.make_train_step()
+    gx = torch.Generator(device=dev).manual_seed(SEED + 95)
+    x = torch.rand((ANOGAN_BATCH, ANOGAN_HW, ANOGAN_HW, 1), generator=gx,
+                   device=dev)
+    k6.pair_sums.launches = 0
+    t0 = time.perf_counter()
+    losses = [{k: float(v) for k, v in step(state, x).items()}
+              for _ in range(5)]
+    sync()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    launches = k6.pair_sums.launches
+    print(f"AnoGANTrainer: 5 steps at {ANOGAN_HW}x{ANOGAN_HW}, batch "
+          f"{ANOGAN_BATCH}: {ms:.3f} ms a step (the first included); "
+          f"losses {[{k: round(v, 5) for k, v in l.items()} for l in losses]}"
+          f"; K6 launches {launches} ({launches / 5:g} a step)", flush=True)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(state, x)
+    sync()
+    print(f"AnoGANTrainer: 5 more steps, {(time.perf_counter() - t0) / 5 * 1e3:.3f} "
+          f"ms a step", flush=True)
+    if not all(math.isfinite(v) for l in losses for v in l.values()):
+        bad.append(f"AnoGAN losses {losses}")
+    if on_card and launches == 0:
+        bad.append("AnoGAN: K6 not launched by the train steps")
+    del an, state, x
+    if bad:
+        raise RuntimeError(f"phase 32: {bad}")
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def ynet_ffc_gate(trainer, images, labels, k6, bad, on_card):
+    """The K6 gate on one Y-Net-FFC step from the trained state (cuDNN
+    deterministic): K6 against its plain version (``SDNET_GATE``: relative
+    loss and whole-gradient cosine), and a planted K6 fault (sums 0.5%
+    high) that must fail it."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
+        nhwc_logits,
+    )
+
+    model = trainer.model
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def loss_and_grads():
+        model.load_state_dict(saved)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = trainer.loss_fn(nhwc_logits(model, images, trainer.dtype),
+                               labels, trainer.class_weights)
+        loss.backward()
+        if on_card:
+            torch.cuda.synchronize()
+        return float(loss.detach()), torch.cat([
+            (torch.zeros_like(p) if p.grad is None else p.grad)
+            .detach().double().flatten() for p in model.parameters()])
+
+    def compare(a, b):
+        return (abs(a[0] - b[0]) / abs(b[0]),
+                float(a[1] @ b[1] / (a[1].norm() * b[1].norm())))
+
+    def passes(c):
+        return c[0] < SDNET_GATE["loss"] and c[1] > SDNET_GATE["cosine"]
+
+    sums = k6.pair_sums
+
+    def k6_sums_high(a, b=None):
+        """K6 with its sums 0.5% high."""
+        return sums(a, b) * 1.005
+
+    k6_sums_high.launches = 0  # the wrapper counts under its module name
+    try:
+        kern = loss_and_grads()
+        again = loss_and_grads()
+        with swapped(k6, pair_sums=k6.pair_sums_reference):
+            ref = loss_and_grads()
+        with swapped(k6, pair_sums=k6_sums_high):
+            fault = compare(loss_and_grads(), ref)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        model.load_state_dict(saved)
+    every = compare(kern, ref)
+    print(f"Y-Net-FFC step from the trained state (cuDNN deterministic): "
+          f"K6 vs its plain version: relative loss {every[0]:.3e}, "
+          f"whole-gradient cosine {every[1]:.9f}; the same step twice: "
+          f"loss equal {kern[0] == again[0]}, gradients equal "
+          f"{bool(torch.equal(kern[1], again[1]))}; planted fault (K6 sums "
+          f"0.5% high): relative loss {fault[0]:.3e}, cosine "
+          f"{fault[1]:.9f}; gate (SDNET_GATE) relative loss < "
+          f"{SDNET_GATE['loss']}, cosine > {SDNET_GATE['cosine']}",
+          flush=True)
+    if not passes(every):
+        bad.append("Y-Net-FFC: K6 and its plain version disagree")
+    if passes(fault):
+        bad.append("Y-Net-FFC: the gate does not see a planted K6 fault")
+
+
+
 def main() -> int:
     import torch
 
@@ -4227,6 +4609,7 @@ def main() -> int:
     kernels.append(sdnet_phases(dev, card, time_ms))
     kernels += int4_phases(dev, card, time_ms, model, calib)
     real_data_phase(dev, card)
+    zoo_phase(dev, card, time_ms)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

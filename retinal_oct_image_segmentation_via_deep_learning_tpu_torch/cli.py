@@ -10,14 +10,14 @@ suite, ``smoke`` every ported model with one forward.
         train --packed --image-size 512 --device cuda [--epochs 10] \\
         [--data duke:DIR|retouch:DIR|png:DIR] ...
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        infer --model unet --quantize off|int8|packed|psrp|int4 \\
+        infer --model NAME --quantize off|int8|packed|psrp|int4 \\
         --out-dir DIR [--image-dir DIR] [--export-probs] \\
         [--save-quantized q.npz | --load-quantized q.npz]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        eval --model unet|relaynet --quantize off|int8|psrp|int4 \\
+        eval --model NAME --quantize off|int8|psrp|int4 \\
         [--num-val 16 | --data duke:DIR|retouch:DIR|png:DIR]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        smoke --model all|unet|relaynet|sdnet [--num-classes 10] --device cuda
+        smoke --model all|NAME [--num-classes 10] --device cuda
 
 The int8 graphs are built by ``build_quantized_forward``: model -> BN fold
 -> calibration on a seeded standard-normal batch (after the same
@@ -25,14 +25,19 @@ preprocessing the images get) -> int8 quantization -> the graph, behind the
 per-image z-score. ``psrp``, ``int4`` (the U-Net's w4a4 mode of the psrp
 graph) and ``packed`` run on the CUDA kernels; ``int8`` is the all-int8
 oracle graph in plain PyTorch (the JAX package runs it in XLA); ``off`` is
-the float model (``build_float_forward``). ``serve`` serves any of them
+the float model (``build_float_forward``), which ``infer`` and ``eval``
+run for any registry model whose forward returns one tensor of logits
+(not AnoGAN, FourierNet, SDNet); the int8 modes take the U-Net and
+ReLayNet. ``serve`` serves any of them
 but ``packed``, from the model or a quantized artifact. ``train`` builds its
 trainer and datasets with ``build_training``. Without ``--data`` and
 ``--image-dir``, ``train``, ``infer`` and ``eval`` run on synthetic B-scans
 made on the device from ``--seed`` (eval's from seed 99, as ``train``'s
 validation data); ``--data`` reads a real dataset (``training/data.py``,
 eval scoring its validation split), ``--image-dir`` a folder of B-scans.
-``chip_smoke.py`` builds all of them the same way.
+``train`` runs any such model through ``Trainer``; FourierNet and AnoGAN
+have their own trainers. ``chip_smoke.py`` builds all of them the same
+way.
 """
 
 from __future__ import annotations
@@ -92,6 +97,13 @@ from .utils.logging import MetricLogger, export_prob_maps
 
 # the constructor argument that sets each served model's width
 WIDTH_ARGS = {"unet": "init_features", "relaynet": "num_filters"}
+# models whose forward is not one tensor of logits, and the trainers of
+# those that have their own
+OWN_TRAINERS = {
+    "fouriernet": "training/fouriernet_pipeline.FourierNetTrainer",
+    "anogan": "training/adversarial.AnoGANTrainer",
+}
+NOT_ONE_TENSOR = (*OWN_TRAINERS, "sdnet")
 
 
 def build_model(name: str = "unet", *, num_classes: int,
@@ -172,7 +184,7 @@ def build_quantized_forward(model: torch.nn.Module, name: str = "unet",
     and the graph's ``qparams``. Given raw ``qparams`` (a loaded artifact,
     U-Net only), the model is neither folded nor calibrated."""
     if (name, quantize) not in GRAPHS:
-        modes = "|".join(q for m, q in GRAPHS if m == name)
+        modes = "|".join(q for m, q in GRAPHS if m == name) or "off"
         raise SystemExit(f"--model {name} supports --quantize {modes}")
     device = torch.device(device)
     quant, attach, graph = GRAPHS[name, quantize]
@@ -246,7 +258,12 @@ def build_training(args):
     """-> (trainer, train_ds, val_ds) for ``train``'s arguments: the
     config as the JAX CLI builds it; ``--data``'s dataset split by volume
     (``training/data.make_datasets``), or synthetic Duke-DME-shaped data
-    made on the device (validation from seed 99)."""
+    made on the device (validation from seed 99). FourierNet and AnoGAN
+    train through their own trainers: they raise ``ValueError``."""
+    if args.model in OWN_TRAINERS:
+        raise ValueError(
+            f"train --model {args.model}: its forward is not a segmentation "
+            f"map; it trains through {OWN_TRAINERS[args.model]}")
     device = _device(args.device)
     cfg = TrainConfig(
         model=ModelConfig(
@@ -349,7 +366,11 @@ def build_eval_trainer(args, num_classes: int = 0):
     the JAX CLI builds it (``--model-kwargs``, random init from ``--seed``
     or ``--checkpoint``, a torch state dict), in eval mode on
     ``--device``; with ``num_classes`` classes where that is more than
-    ``--num-classes``."""
+    ``--num-classes``. A model whose forward is not one tensor of logits
+    (AnoGAN, FourierNet, SDNet) exits."""
+    if args.model in NOT_ONE_TENSOR:
+        raise SystemExit(f"--model {args.model}: infer and eval take a model "
+                         "whose forward returns one tensor of logits")
     device = _device(args.device)
     cfg = TrainConfig(
         model=ModelConfig(
@@ -453,37 +474,50 @@ def cmd_eval(args) -> dict:
     return m
 
 
+def _shapes(out):
+    """The shapes of a model's output: a tensor's, or a tuple's, list's or
+    dict's entries', as the JAX CLI prints them."""
+    if isinstance(out, torch.Tensor):
+        return tuple(out.shape)
+    if isinstance(out, dict):
+        return {k: _shapes(v) for k, v in out.items()}
+    return type(out)(_shapes(v) for v in out)
+
+
 def cmd_smoke(args) -> None:
     """One forward of each ported model (``--model all``: the registry) on
-    a seeded standard-normal 64x64 B-scan, eval mode, random init; prints
-    the JAX CLI's line. A name not ported raises."""
+    a seeded standard-normal one-channel B-scan, eval mode, random init, at
+    the JAX CLI's sizes (64x64; SDNet's channels; AnoGAN with one output
+    channel, its input's); prints the JAX CLI's line. A name not ported
+    raises."""
     device = _device(args.device)
     names = list_models() if args.model == "all" else [args.model]
     for name in names:
         t0 = time.time()
         size, kwargs, kw = 64, {}, {}
+        num_classes = args.num_classes
         if name == "sdnet":  # the JAX CLI's size and channels
             kwargs = {"img_size": size, "channels": (8, 16, 32, 64, 128)}
             kw = {"generator": torch.Generator(device=device).manual_seed(2)}
-        model = get_model(name, num_classes=args.num_classes,
+        if name == "anogan":  # D reads G's output: out == in channels
+            num_classes = 1
+        model = get_model(name, in_channels=1, num_classes=num_classes,
                           **kwargs).to(device)
         x = torch.from_numpy(np.random.default_rng(0).standard_normal(
             (1, 1, size, size)).astype(np.float32)).to(device)
         with torch.no_grad():
             out = model(x, **kw)
-        shape = (tuple(out.shape) if isinstance(out, torch.Tensor) else
-                 {k: (tuple(v.shape) if isinstance(v, torch.Tensor) else
-                      {kk: tuple(vv.shape) for kk, vv in v.items()})
-                  for k, v in out.items()})
         n_params = sum(p.numel() for p in model.parameters())
         print(f"{name:16s} ok  params={n_params:>12,}  "
-              f"out={str(shape)[:80]}  ({time.time() - t0:.1f}s)")
+              f"out={str(_shapes(out))[:80]}  ({time.time() - t0:.1f}s)")
 
 
 def _eval_args(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's common flags, and ``--device``, ``--seed`` and
     ``--checkpoint`` (a torch state dict)."""
-    p.add_argument("--model", default="unet", choices=list(WIDTH_ARGS))
+    p.add_argument("--model", default="unet", choices=list_models(),
+                   help="--quantize off: any model whose forward returns "
+                        "one tensor; the int8 modes: unet, relaynet")
     p.add_argument("--num-classes", type=int, default=10)
     p.add_argument("--in-channels", type=int, default=1)
     p.add_argument("--model-kwargs", default="",
@@ -532,7 +566,8 @@ def parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_serve)
 
     t = sub.add_parser("train", help="train a model on a real dataset or "
-                                     "synthetic data")
+                                     "synthetic data (fouriernet and anogan "
+                                     "have their own trainers)")
     t.add_argument("--model", default="unet")
     t.add_argument("--num-classes", type=int, default=10)
     t.add_argument("--in-channels", type=int, default=1)

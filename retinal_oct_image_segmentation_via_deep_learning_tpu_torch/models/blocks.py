@@ -1,5 +1,6 @@
-"""The layers the U-Net, ReLayNet and SDNet are built from, with
-torch-default initialisation drawn from an explicit ``torch.Generator``.
+"""The layers the port's models are built from, with torch-default
+initialisation drawn from an explicit ``torch.Generator``, and the JAX
+package's ``activation`` table (``models/blocks.py:251``).
 
 Modules are created uninitialised (``skip_init``, so the global RNG is never
 touched) and then initialised as ``torch.nn`` would: weights
@@ -33,16 +34,37 @@ def _init_(m: nn.Module, generator: torch.Generator) -> nn.Module:
     return m
 
 
+def conv(cin: int, cout: int, kernel_size: int, stride: int = 1,
+         padding: int = 0, dilation: int = 1, groups: int = 1,
+         bias: bool = True, *, generator: torch.Generator) -> nn.Conv2d:
+    """Any square-kernel conv with zero padding (the JAX ``Conv``)."""
+    return _init_(skip_init(nn.Conv2d, cin, cout, kernel_size, stride=stride,
+                            padding=padding, dilation=dilation, groups=groups,
+                            bias=bias), generator)
+
+
+def conv_transpose(cin: int, cout: int, kernel_size: int, stride: int = 2,
+                   padding: int = 0, output_padding: int = 0,
+                   bias: bool = True, *,
+                   generator: torch.Generator) -> nn.ConvTranspose2d:
+    """torch's ``ConvTranspose2d``: the JAX ``ConvTranspose`` (an
+    input-dilated conv with the flipped kernel, padded k - 1 - p and
+    k - 1 - p + output_padding), whose (k, k, in, out) kernel is this
+    layer's (in, out, k, k) weight."""
+    return _init_(skip_init(nn.ConvTranspose2d, cin, cout, kernel_size,
+                            stride=stride, padding=padding,
+                            output_padding=output_padding, bias=bias),
+                  generator)
+
+
 def conv3x3(cin: int, cout: int, generator: torch.Generator) -> nn.Conv2d:
     """3x3 stride-1 'same' conv without bias."""
-    return _init_(
-        skip_init(nn.Conv2d, cin, cout, 3, padding=1, bias=False), generator
-    )
+    return conv(cin, cout, 3, padding=1, bias=False, generator=generator)
 
 
 def conv1x1(cin: int, cout: int, generator: torch.Generator) -> nn.Conv2d:
     """1x1 conv with bias (the classifier head)."""
-    return _init_(skip_init(nn.Conv2d, cin, cout, 1), generator)
+    return conv(cin, cout, 1, generator=generator)
 
 
 def conv_same(cin: int, cout: int, kernel: tuple[int, int],
@@ -56,8 +78,7 @@ def conv_same(cin: int, cout: int, kernel: tuple[int, int],
 def conv3x3_stride2(cin: int, cout: int,
                     generator: torch.Generator) -> nn.Conv2d:
     """3x3 stride-2 conv with bias and padding 1."""
-    return _init_(skip_init(nn.Conv2d, cin, cout, 3, stride=2, padding=1),
-                  generator)
+    return conv(cin, cout, 3, 2, 1, generator=generator)
 
 
 def linear(cin: int, cout: int, generator: torch.Generator) -> nn.Linear:
@@ -68,9 +89,23 @@ def linear(cin: int, cout: int, generator: torch.Generator) -> nn.Linear:
 def conv_transpose2x2(cin: int, cout: int,
                       generator: torch.Generator) -> nn.ConvTranspose2d:
     """2x2 stride-2 transposed conv with bias."""
-    return _init_(
-        skip_init(nn.ConvTranspose2d, cin, cout, 2, stride=2), generator
-    )
+    return conv_transpose(cin, cout, 2, 2, generator=generator)
+
+
+ACTIVATIONS = {
+    "relu": F.relu,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+    "leaky_relu_0.2": lambda x: F.leaky_relu(x, 0.2),
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax's nn.gelu
+    "none": lambda x: x,
+}
+
+
+def activation(name: str):
+    """The elementwise activation named as in the JAX package."""
+    return ACTIVATIONS[name]
 
 
 def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor,

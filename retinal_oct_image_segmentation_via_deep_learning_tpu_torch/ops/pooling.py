@@ -1,6 +1,6 @@
 """Index max-pool and max-unpool for NHWC tensors, and the plain max-pool of
-the float models on NCHW tensors (the JAX package's ``ops/pooling.py``), in
-plain PyTorch.
+the float models, the average pool and the adaptive average pool on NCHW
+tensors (the JAX package's ``ops/pooling.py``), in plain PyTorch.
 
 ReLayNet pools with indices and decodes by unpooling to them. The indices
 here are window-local: ``idx`` in [0, k*k) is the flat position ``dy*k + dx``
@@ -13,6 +13,7 @@ graph and its kernel (``ops/conv7x3_int8``) emit.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _windows(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -49,3 +50,15 @@ def max_pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
     if H % k or W % k:
         raise ValueError(f"max_pool: H, W = {H}, {W} not multiples of {k}")
     return x.reshape(N, C, H // k, k, W // k, k).amax(dim=(3, 5))
+
+
+def avg_pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """Non-overlapping k x k average pool of an (N, C, H, W) tensor
+    ('VALID'), summed in float32 and returned in the input's dtype."""
+    return F.avg_pool2d(x.float(), k).to(x.dtype)
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw=(1, 1)) -> torch.Tensor:
+    """torch ``AdaptiveAvgPool2d`` of an (N, C, H, W) tensor, in float32
+    and returned in the input's dtype."""
+    return F.adaptive_avg_pool2d(x.float(), out_hw).to(x.dtype)

@@ -1,21 +1,33 @@
 """Model registry: name -> PyTorch module constructor.
 
-The U-Net, ReLayNet and SDNet are ported so far; every other name of the JAX
-package's zoo raises ``NotImplementedError`` until its slice lands
-(ROADMAP.md, Queue A).
+Eight names of the JAX package's zoo are ported: the U-Net, ReLayNet,
+SDNet, Y-Net (plain and FFC), FourierNet, AnoGAN and EdgeAL; every other
+name raises ``NotImplementedError`` until its slice lands (ROADMAP.md,
+Queue A). Each builder takes ``in_channels``, ``num_classes``, ``seed`` and
+``device``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
+from .models.anogan import build_anogan
+from .models.edgeal import build_edgeal
+from .models.fouriernet import build_fouriernet
 from .models.relaynet import build_relaynet
 from .models.sdnet import build_sdnet
-from .models.unet import build_unet
+from .models.unet import build_unet, build_ynet, build_ynet_ffc
 
-_MODELS: dict[str, Callable[..., Any]] = {"relaynet": build_relaynet,
-                                          "sdnet": build_sdnet,
-                                          "unet": build_unet}
+_MODELS: dict[str, Callable[..., Any]] = {
+    "anogan": build_anogan,
+    "edgeal": build_edgeal,
+    "fouriernet": build_fouriernet,
+    "relaynet": build_relaynet,
+    "sdnet": build_sdnet,
+    "unet": build_unet,
+    "y_net_gen": build_ynet,
+    "y_net_gen_ffc": build_ynet_ffc,
+}
 
 
 def list_models() -> list[str]:

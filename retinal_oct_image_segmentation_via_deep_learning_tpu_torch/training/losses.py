@@ -1,7 +1,7 @@
 """Training losses: the JAX package's ``training/losses.py``.
 
-All take NHWC logits and integer (B, H, W) labels, compute in float32 and
-reduce to a scalar. A label outside [0, num_classes) has an all-zero
+The segmentation losses take NHWC logits and integer (B, H, W) labels,
+compute in float32 and reduce to a scalar. A label outside [0, num_classes) has an all-zero
 one-hot row, as ``jax.nn.one_hot`` gives.
 """
 
@@ -10,6 +10,7 @@ from __future__ import annotations
 from functools import partial
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 _EPS = 1e-7
@@ -90,6 +91,13 @@ def dice_ce_loss(logits, labels, class_weights=None, dice_weight=1.0):
 def mse_loss(pred, target, class_weights=None):
     del class_weights  # uniform over pixels; keeps the trainer's contract
     return torch.mean((pred.float() - target.float()) ** 2)
+
+
+def bce_with_logits(logits, targets):
+    """Mean sigmoid binary cross-entropy in float32, optax's form:
+    -z log_sigmoid(x) - (1 - z) log_sigmoid(-x)."""
+    x, z = logits.float(), targets.float()
+    return torch.mean(-z * F.logsigmoid(x) - (1.0 - z) * F.logsigmoid(-x))
 
 
 def kl_divergence(mean, logvar):

@@ -1,18 +1,23 @@
-"""JAX U-Net, ReLayNet and SDNet weights <-> this package's state dicts (and
-JAX int8 qparams -> this package's qparams).
+"""JAX model weights <-> this package's state dicts (and JAX int8 qparams
+-> this package's qparams).
 
 Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing of JAX
-is imported. The reverse direction, ``unet_variables_from_state_dict``,
-gives numpy arrays in the JAX variable tree, so that a model trained here
-can be held against the JAX package (the JAX package's own
-``utils/torch_compat.import_torch_state`` does the same into an existing
-tree). A U-Net built with ``remat_stages=True`` names its blocks
-``CheckpointUNetBlock_N``; both spellings are read.
+is imported. One design carries every model: a layer map, [(port module
+name, Flax module path, kind)], read by ``state_dict_from_jax`` and
+``variables_from_state_dict`` (the reverse gives numpy arrays in the JAX
+variable tree, so that a model trained here can be held against the JAX
+package). The U-Net's and ReLayNet's maps are fixed (``unet_layer_map``,
+whose ``remat_stages`` spelling names the blocks ``CheckpointUNetBlock_N``;
+``relaynet_layer_map``), SDNet's follows its levels, and ``layer_map`` reads
+the map of Y-Net, EdgeAL, AnoGAN, FourierNet or an FFC unit off the built
+port module. ``unet_state_dict_from_jax`` and the other named pairs wrap
+the two directions.
 
 Layouts: conv kernel (kh, kw, in, out) -> weight (out, in, kh, kw);
 ConvTranspose kernel (k, k, in, out) -> weight (in, out, k, k) (the JAX
-package stores it like torch, flipped at use); BatchNorm scale, bias,
-mean, var -> weight, bias, running_mean, running_var.
+package stores it like torch, flipped at use); Dense (in, out) -> (out,
+in); BatchNorm scale, bias, mean, var -> weight, bias, running_mean,
+running_var; PReLU alpha -> weight.
 """
 
 from __future__ import annotations
@@ -22,8 +27,12 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..models import ffc
+from ..models.anogan import AnoGAN
+from ..models.edgeal import EdgeAL
+from ..models.fouriernet import FourierNet
 from ..models.relaynet import BLOCK_NAMES as RELAYNET_BLOCKS
-from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES
+from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES, YNet
 
 
 def _t(a, perm=None) -> torch.Tensor:
@@ -33,81 +42,39 @@ def _t(a, perm=None) -> torch.Tensor:
     return torch.tensor(a)  # a copy: JAX hands out read-only buffers
 
 
-def unet_state_dict_from_jax(variables) -> OrderedDict:
-    """JAX ``UNet`` variables {"params", "batch_stats"} -> ordered state
-    dict for ``models/unet.UNet``."""
-    params, stats = variables["params"], variables["batch_stats"]
-    sd = OrderedDict()
+def _unet_block(prefix: str, path: tuple) -> list:
+    """A ``unet_block`` named ``prefix`` (conv, BN, ReLU twice), held in
+    Flax as a ``UNetBlock`` at ``path``."""
+    return [(f"{prefix}{name}{j + 1}", path + (f"{layer}_{j}",), kind)
+            for j in (0, 1)
+            for name, layer, kind in (("conv", "Conv", "conv"),
+                                      ("norm", "BatchNorm", "bn"))]
 
-    def block(i):
-        prefix = BLOCK_PREFIXES[i]
-        name = f"UNetBlock_{i}"
-        if name not in params:
-            name = "Checkpoint" + name
-        p, st = params[name], stats[name]
-        for j in (0, 1):
-            sd[f"{prefix}conv{j + 1}.weight"] = _t(
-                p[f"Conv_{j}"]["Conv_0"]["kernel"], (3, 2, 0, 1)
-            )
-            bn_p = p[f"BatchNorm_{j}"]["BatchNorm_0"]
-            bn_s = st[f"BatchNorm_{j}"]["BatchNorm_0"]
-            norm = f"{prefix}norm{j + 1}"
-            sd[f"{norm}.weight"] = _t(bn_p["scale"])
-            sd[f"{norm}.bias"] = _t(bn_p["bias"])
-            sd[f"{norm}.running_mean"] = _t(bn_s["mean"])
-            sd[f"{norm}.running_var"] = _t(bn_s["var"])
-            sd[f"{norm}.num_batches_tracked"] = torch.tensor(0)
 
-    for i in range(5):
-        block(i)
+def unet_layer_map(remat_stages: bool = False) -> list:
+    """The U-Net's layer map; a JAX U-Net built with ``remat_stages=True``
+    names its blocks ``CheckpointUNetBlock_N``."""
+    stem = "CheckpointUNetBlock_" if remat_stages else "UNetBlock_"
+    out = [e for i in range(5)
+           for e in _unet_block(BLOCK_PREFIXES[i], (f"{stem}{i}",))]
     for k, name in enumerate(UPCONV_NAMES):
-        ct = params[f"ConvTranspose_{k}"]
-        sd[f"{name}.weight"] = _t(ct["kernel"], (2, 3, 0, 1))
-        sd[f"{name}.bias"] = _t(ct["bias"])
-        block(5 + k)
-    head = params["Conv_0"]["Conv_0"]
-    sd["conv.weight"] = _t(head["kernel"], (3, 2, 0, 1))
-    sd["conv.bias"] = _t(head["bias"])
-    return sd
+        out += [(name, (f"ConvTranspose_{k}",), "ct")] + _unet_block(
+            BLOCK_PREFIXES[5 + k], (f"{stem}{5 + k}",))
+    return out + [("conv", ("Conv_0",), "conv")]
+
+
+def unet_state_dict_from_jax(variables) -> OrderedDict:
+    """JAX ``UNet`` variables {"params", "batch_stats"} -> state dict for
+    ``models/unet.UNet`` (either block spelling)."""
+    remat = "CheckpointUNetBlock_0" in variables["params"]
+    return state_dict_from_jax(variables, unet_layer_map(remat))
 
 
 def unet_variables_from_state_dict(state_dict, *,
                                   remat_stages: bool = False) -> dict:
-    """Port U-Net state dict -> JAX ``UNet`` variables {"params",
-    "batch_stats"} as float32 numpy arrays (the inverse of
-    ``unet_state_dict_from_jax``); ``remat_stages`` names the blocks
-    ``CheckpointUNetBlock_N``."""
-    def a(name, perm=None):
-        v = state_dict[name].detach().cpu().float().numpy()
-        return v.transpose(perm) if perm is not None else v
-
-    params, stats = {}, {}
-
-    def block(i):
-        prefix = BLOCK_PREFIXES[i]
-        name = ("CheckpointUNetBlock_" if remat_stages else "UNetBlock_") + \
-            str(i)
-        p, st = params.setdefault(name, {}), stats.setdefault(name, {})
-        for j in (0, 1):
-            p[f"Conv_{j}"] = {"Conv_0": {
-                "kernel": a(f"{prefix}conv{j + 1}.weight", (2, 3, 1, 0))}}
-            norm = f"{prefix}norm{j + 1}"
-            p[f"BatchNorm_{j}"] = {"BatchNorm_0": {
-                "scale": a(f"{norm}.weight"), "bias": a(f"{norm}.bias")}}
-            st[f"BatchNorm_{j}"] = {"BatchNorm_0": {
-                "mean": a(f"{norm}.running_mean"),
-                "var": a(f"{norm}.running_var")}}
-
-    for i in range(5):
-        block(i)
-    for k, name in enumerate(UPCONV_NAMES):
-        params[f"ConvTranspose_{k}"] = {
-            "kernel": a(f"{name}.weight", (2, 3, 0, 1)),
-            "bias": a(f"{name}.bias")}
-        block(5 + k)
-    params["Conv_0"] = {"Conv_0": {"kernel": a("conv.weight", (2, 3, 1, 0)),
-                                   "bias": a("conv.bias")}}
-    return {"params": params, "batch_stats": stats}
+    """Port U-Net state dict -> JAX ``UNet`` variables (the inverse of
+    ``unet_state_dict_from_jax``)."""
+    return variables_from_state_dict(state_dict, unet_layer_map(remat_stages))
 
 
 # prefixes of the w4a4 mode's keys in U-Net qparams (``_deep_int4``,
@@ -150,56 +117,26 @@ def unet_qparams_from_jax(qparams) -> dict:
 unet_packed_qparams_from_jax = unet_qparams_from_jax
 
 
-def relaynet_state_dict_from_jax(variables) -> OrderedDict:
-    """JAX ``ReLayNet`` variables {"params", "batch_stats"} -> ordered state
-    dict for ``models/relaynet.ReLayNet``."""
-    params, stats = variables["params"], variables["batch_stats"]
-    sd = OrderedDict()
+def relaynet_layer_map() -> list:
+    out = []
     for i, name in enumerate(RELAYNET_BLOCKS):
-        p, st = params[f"ReLayNetBlock_{i}"], stats[f"ReLayNetBlock_{i}"]
-        conv = p["Conv_0"]["Conv_0"]
-        sd[f"{name}.conv.weight"] = _t(conv["kernel"], (3, 2, 0, 1))
-        sd[f"{name}.conv.bias"] = _t(conv["bias"])
-        bn_p, bn_s = p["BatchNorm_0"]["BatchNorm_0"], st["BatchNorm_0"][
-            "BatchNorm_0"]
-        sd[f"{name}.norm.weight"] = _t(bn_p["scale"])
-        sd[f"{name}.norm.bias"] = _t(bn_p["bias"])
-        sd[f"{name}.norm.running_mean"] = _t(bn_s["mean"])
-        sd[f"{name}.norm.running_var"] = _t(bn_s["var"])
-        sd[f"{name}.norm.num_batches_tracked"] = torch.tensor(0)
-        sd[f"{name}.prelu.weight"] = _t(p["PReLU_0"]["alpha"])
-    head = params["Conv_0"]["Conv_0"]
-    sd["classifier.weight"] = _t(head["kernel"], (3, 2, 0, 1))
-    sd["classifier.bias"] = _t(head["bias"])
-    return sd
+        path = (f"ReLayNetBlock_{i}",)
+        out += [(f"{name}.conv", path + ("Conv_0",), "conv"),
+                (f"{name}.norm", path + ("BatchNorm_0",), "bn"),
+                (f"{name}.prelu", path + ("PReLU_0",), "prelu")]
+    return out + [("classifier", ("Conv_0",), "conv")]
+
+
+def relaynet_state_dict_from_jax(variables) -> OrderedDict:
+    """JAX ``ReLayNet`` variables -> state dict for
+    ``models/relaynet.ReLayNet``."""
+    return state_dict_from_jax(variables, relaynet_layer_map())
 
 
 def relaynet_variables_from_state_dict(state_dict) -> dict:
-    """Port ReLayNet state dict -> JAX ``ReLayNet`` variables {"params",
-    "batch_stats"} as float32 numpy arrays (the inverse of
-    ``relaynet_state_dict_from_jax``)."""
-    def a(name, perm=None):
-        v = state_dict[name].detach().cpu().float().numpy()
-        return v.transpose(perm) if perm is not None else v
-
-    params, stats = {}, {}
-    for i, name in enumerate(RELAYNET_BLOCKS):
-        params[f"ReLayNetBlock_{i}"] = {
-            "Conv_0": {"Conv_0": {
-                "kernel": a(f"{name}.conv.weight", (2, 3, 1, 0)),
-                "bias": a(f"{name}.conv.bias")}},
-            "BatchNorm_0": {"BatchNorm_0": {
-                "scale": a(f"{name}.norm.weight"),
-                "bias": a(f"{name}.norm.bias")}},
-            "PReLU_0": {"alpha": a(f"{name}.prelu.weight")},
-        }
-        stats[f"ReLayNetBlock_{i}"] = {"BatchNorm_0": {"BatchNorm_0": {
-            "mean": a(f"{name}.norm.running_mean"),
-            "var": a(f"{name}.norm.running_var")}}}
-    params["Conv_0"] = {"Conv_0": {
-        "kernel": a("classifier.weight", (2, 3, 1, 0)),
-        "bias": a("classifier.bias")}}
-    return {"params": params, "batch_stats": stats}
+    """Port ReLayNet state dict -> JAX ``ReLayNet`` variables (the inverse
+    of ``relaynet_state_dict_from_jax``)."""
+    return variables_from_state_dict(state_dict, relaynet_layer_map())
 
 
 def relaynet_qparams_from_jax(qparams) -> dict:
@@ -284,63 +221,256 @@ def sdnet_layer_map(levels: int, surface: bool) -> list:
     return out
 
 
+# -- the FFC stack and the zoo models: maps read off the port modules --------
+
+
+def _fourier_unit_map(m, prefix, path) -> list:
+    return [(f"{prefix}conv", path + ("Conv_0",), "conv"),
+            (f"{prefix}bn", path + ("BatchNorm_0",), "bn")]
+
+
+def _spectral_map(m, prefix, path) -> list:
+    out = [(f"{prefix}conv1", path + ("Conv_0",), "conv"),
+           (f"{prefix}bn", path + ("BatchNorm_0",), "bn")]
+    out += _fourier_unit_map(m.fu, f"{prefix}fu.", path + ("FourierUnit_0",))
+    if m.lfu is not None:
+        out += _fourier_unit_map(m.lfu, f"{prefix}lfu.",
+                                 path + ("FourierUnit_1",))
+    return out + [(f"{prefix}conv2", path + ("Conv_1",), "conv")]
+
+
+def _ffc_map(m, prefix, path) -> list:
+    names = [n for n in ("l2l", "l2g", "g2l") if getattr(m, n) is not None]
+    out = [(f"{prefix}{n}", path + (f"Conv_{j}",), "conv")
+           for j, n in enumerate(names)]
+    if m.g2g is not None:
+        out += _spectral_map(m.g2g, f"{prefix}g2g.",
+                             path + ("SpectralTransform_0",))
+    return out
+
+
+def _ffc_bn_act_map(m, prefix, path) -> list:
+    out = _ffc_map(m.ffc, f"{prefix}ffc.", path + ("FFC_0",))
+    bns = [n for n in ("bn_l", "bn_g") if getattr(m, n) is not None]
+    return out + [(f"{prefix}{n}", path + (f"BatchNorm_{j}",), "bn")
+                  for j, n in enumerate(bns)]
+
+
+def _resnet_block_map(m, prefix, path) -> list:
+    return (_ffc_bn_act_map(m.conv1, f"{prefix}conv1.",
+                            path + ("FFC_BN_ACT_0",))
+            + _ffc_bn_act_map(m.conv2, f"{prefix}conv2.",
+                              path + ("FFC_BN_ACT_1",)))
+
+
+def _se_block_map(m, prefix, path) -> list:
+    names = ["conv1"] + [n for n in ("conv_a2l", "conv_a2g")
+                         if getattr(m, n) is not None]
+    return [(f"{prefix}{n}", path + (f"Conv_{j}",), "conv")
+            for j, n in enumerate(names)]
+
+
+def _spatial_wrapper_map(m, prefix, path) -> list:
+    return [(prefix.rstrip("."), path, "angle")] + layer_map(
+        m.impl, f"{prefix}impl.", path + ("impl",))
+
+
+def _ynet_map(m, prefix, path) -> list:
+    names = [f"encoder{i}" for i in (1, 2, 3, 4)]
+    if not m.ffc:
+        names += [f"encoder{i}_f" for i in (1, 2, 3, 4)]
+    names += ["bottleneck"] + [f"decoder{i}" for i in (4, 3, 2, 1)]
+
+    def block(name):  # unet_block "encoder1" is named "enc1", and so on
+        short = name.replace("encoder", "enc").replace("decoder", "dec")
+        return _unet_block(f"{prefix}{name}.{short}",
+                           path + (f"UNetBlock_{names.index(name)}",))
+
+    out = [e for i in (1, 2, 3, 4) for e in block(f"encoder{i}")]
+    for i in (1, 2, 3, 4):
+        name = f"encoder{i}_f"
+        out += (_ffc_bn_act_map(getattr(m, name), f"{prefix}{name}.",
+                                path + (f"FFC_BN_ACT_{i - 1}",))
+                if m.ffc else block(name))
+    out += block("bottleneck")
+    for k, i in enumerate((4, 3, 2, 1)):
+        out.append((f"{prefix}upconv{i}", path + (f"ConvTranspose_{k}",),
+                    "ct"))
+        out += block(f"decoder{i}")
+    return out + [(f"{prefix}conv", path + ("Conv_0",), "conv")]
+
+
+def _edgeal_map(m, prefix, path) -> list:
+    out = _ffc_bn_act_map(m.stem, f"{prefix}stem.", path + ("FFC_BN_ACT_0",))
+    for i, d in enumerate(m.downs):
+        out += _ffc_bn_act_map(d, f"{prefix}downs.{i}.",
+                               path + (f"FFC_BN_ACT_{i + 1}",))
+    for i, b in enumerate(m.blocks):
+        out += _resnet_block_map(b, f"{prefix}blocks.{i}.",
+                                 path + (f"FFCResnetBlock_{i}",))
+    for i in range(len(m.ups)):
+        out += [(f"{prefix}ups.{i}", path + (f"ConvTranspose_{i}",), "ct"),
+                (f"{prefix}up_bns.{i}", path + (f"BatchNorm_{i}",), "bn")]
+    return out + [(f"{prefix}head", path + ("Conv_0",), "conv")]
+
+
+def _indexed(prefix, path, name, layer, kind, n) -> list:
+    return [(f"{prefix}{name}.{i}", path + (f"{layer}_{i}",), kind)
+            for i in range(n)]
+
+
+def _anogan_map(m, prefix, path) -> list:
+    def encoder(p, fp):
+        return (_indexed(p, fp, "convs", "Conv", "conv", 4)
+                + _indexed(p, fp, "bns", "BatchNorm", "bn", 2))
+
+    return (encoder(f"{prefix}G.encoder.", path + ("G", "encoder"))
+            + _indexed(f"{prefix}G.decoder.", path + ("G", "decoder"),
+                       "ups", "ConvTranspose", "ct", 4)
+            + _indexed(f"{prefix}G.decoder.", path + ("G", "decoder"),
+                       "bns", "BatchNorm", "bn", 3)
+            + encoder(f"{prefix}D.encoder.", path + ("D", "Encoder_0"))
+            + [(f"{prefix}D.fc1", path + ("D", "Conv_0"), "conv"),
+               (f"{prefix}D.fc2", path + ("D", "Conv_1"), "conv")])
+
+
+def _fouriernet_map(m, prefix, path) -> list:
+    def block(p, fp):
+        return [(f"{p}conv1", fp + ("Conv_0",), "conv"),
+                (f"{p}conv2", fp + ("Conv_1",), "conv")]
+
+    def blocks(p, fp):
+        return [e for i in range(4)
+                for e in block(f"{p}blocks.{i}.", fp + (f"UNetBlock2_{i}",))]
+
+    def unet(p, fp, decoders, heads):
+        out = blocks(f"{p}encoder.", fp + ("_Encoder_0",))
+        out += block(f"{p}bottleneck.", fp + ("UNetBlock2_0",))
+        for k, (dec, head) in enumerate(zip(decoders, heads)):
+            out += blocks(f"{p}{dec}.", fp + (f"_Decoder_{k}",))
+            out.append((f"{p}{head}", fp + (f"Conv_{k}",), "conv"))
+        return out
+
+    k = len(m.decoders)
+    return (unet(prefix, path, [f"decoders.{i}" for i in range(k)],
+                 [f"fd_heads.{i}" for i in range(k)])
+            + unet(f"{prefix}cas.", path + ("CasUNet_0",), ["decoder"],
+                   ["head"]))
+
+
+def layer_map(module, prefix: str = "", path: tuple = ()) -> list:
+    """The layer map of a port module of the FFC stack or the zoo (Y-Net,
+    EdgeAL, AnoGAN, FourierNet, an FFC unit, a wrapper), its names under
+    ``prefix`` and its Flax modules under ``path``, read off the module:
+    which paths exist follows the channel splits it was built with, and
+    Flax numbers each kind of submodule in call order."""
+    for cls, fn in _MAPS:
+        if isinstance(module, cls):
+            return fn(module, prefix, path)
+    raise TypeError(f"no layer map for {type(module).__name__}")
+
+
+_MAPS = ((ffc.FourierUnit, _fourier_unit_map),
+         (ffc.SpectralTransform, _spectral_map),
+         (ffc.FFC, _ffc_map),
+         (ffc.FFC_BN_ACT, _ffc_bn_act_map),
+         (ffc.FFCResnetBlock, _resnet_block_map),
+         (ffc.FFCSEBlock, _se_block_map),
+         (ffc.LearnableSpatialTransformWrapper, _spatial_wrapper_map),
+         (YNet, _ynet_map),
+         (EdgeAL, _edgeal_map),
+         (AnoGAN, _anogan_map),
+         (FourierNet, _fouriernet_map))
+
+
+# -- the two directions ------------------------------------------------------
+
+# kind -> (Flax module name inside the path's node or None, kernel
+# transpose to the port's layout); a bias is carried where the layer has one
+_KERNELS = {"conv": ("Conv_0", (3, 2, 0, 1)), "dense": (None, (1, 0)),
+            "ct": (None, (2, 3, 0, 1))}
+
+
 def _node(tree, path):
     for k in path:
         tree = tree[k]
     return tree
 
 
+def _key(name: str, leaf: str) -> str:
+    return f"{name}.{leaf}" if name else leaf
+
+
 def state_dict_from_jax(variables, layer_map) -> OrderedDict:
-    """JAX variables {"params", "batch_stats"} -> the state dict of the
-    port module that ``layer_map`` describes. Conv kernels (kh, kw, in,
-    out) -> (out, in, kh, kw); Dense kernels (in, out) -> (out, in)."""
-    params, stats = variables["params"], variables["batch_stats"]
+    """JAX variables {"params"[, "batch_stats"]} -> the state dict of the
+    port module that ``layer_map`` describes: [(port module name, Flax
+    module path, kind)], kind "conv" (a ``Conv`` wrapper: kernel (kh, kw,
+    in, out) -> (out, in, kh, kw)), "dense" ((in, out) -> (out, in)), "ct"
+    (a ``ConvTranspose``: (k, k, in, out) -> (in, out, k, k)), "bn"
+    (a ``BatchNorm`` wrapper), "prelu" (``alpha`` -> weight) or "angle"
+    (the spatial-transform wrapper's ``angle``)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
     sd = OrderedDict()
     for name, path, kind in layer_map:
-        if kind == "bn":
-            p = _node(params, path)["BatchNorm_0"]
-            s = _node(stats, path)["BatchNorm_0"]
-            sd[f"{name}.weight"] = _t(p["scale"])
-            sd[f"{name}.bias"] = _t(p["bias"])
-            sd[f"{name}.running_mean"] = _t(s["mean"])
-            sd[f"{name}.running_var"] = _t(s["var"])
-            sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
-            continue
         p = _node(params, path)
-        if kind == "conv":
-            p = p["Conv_0"]
-        sd[f"{name}.weight"] = _t(p["kernel"],
-                                  (3, 2, 0, 1) if kind == "conv" else (1, 0))
-        sd[f"{name}.bias"] = _t(p["bias"])
+        if kind == "bn":
+            s = _node(stats, path)["BatchNorm_0"]
+            p = p["BatchNorm_0"]
+            for leaf, v in (("weight", p["scale"]), ("bias", p["bias"]),
+                            ("running_mean", s["mean"]),
+                            ("running_var", s["var"])):
+                sd[_key(name, leaf)] = _t(v)
+            sd[_key(name, "num_batches_tracked")] = torch.tensor(0)
+        elif kind == "prelu":
+            sd[_key(name, "weight")] = _t(p["alpha"])
+        elif kind == "angle":
+            sd[_key(name, "angle")] = _t(p["angle"])
+        else:
+            inner, perm = _KERNELS[kind]
+            if inner is not None:
+                p = p[inner]
+            sd[_key(name, "weight")] = _t(p["kernel"], perm)
+            if "bias" in p:
+                sd[_key(name, "bias")] = _t(p["bias"])
     return sd
 
 
 def variables_from_state_dict(state_dict, layer_map) -> dict:
     """The inverse of ``state_dict_from_jax``: JAX variables {"params",
-    "batch_stats"} as float32 numpy arrays."""
-    def a(name, perm=None):
-        v = state_dict[name].detach().cpu().float().numpy()
+    "batch_stats"} as float32 numpy arrays ("batch_stats" only where the
+    map has a BatchNorm)."""
+    def a(name, leaf, perm=None):
+        v = state_dict[_key(name, leaf)].detach().cpu().float().numpy()
         return v.transpose(perm) if perm is not None else v
 
     def put(tree, path, leaf):
-        for k in path[:-1]:
+        for k in path:
             tree = tree.setdefault(k, {})
-        tree[path[-1]] = leaf
+        tree.update(leaf)
 
     params, stats = {}, {}
     for name, path, kind in layer_map:
         if kind == "bn":
             put(params, path + ("BatchNorm_0",), {
-                "scale": a(f"{name}.weight"), "bias": a(f"{name}.bias")})
+                "scale": a(name, "weight"), "bias": a(name, "bias")})
             put(stats, path + ("BatchNorm_0",), {
-                "mean": a(f"{name}.running_mean"),
-                "var": a(f"{name}.running_var")})
+                "mean": a(name, "running_mean"),
+                "var": a(name, "running_var")})
+        elif kind == "prelu":
+            put(params, path, {"alpha": a(name, "weight")})
+        elif kind == "angle":
+            put(params, path, {"angle": a(name, "angle")})
         else:
-            leaf = {"kernel": a(f"{name}.weight",
-                                (2, 3, 1, 0) if kind == "conv" else (1, 0)),
-                    "bias": a(f"{name}.bias")}
-            put(params, path + (("Conv_0",) if kind == "conv" else ()), leaf)
-    return {"params": params, "batch_stats": stats}
+            inner, perm = _KERNELS[kind]
+            leaf = {"kernel": a(name, "weight", tuple(np.argsort(perm)))}
+            if _key(name, "bias") in state_dict:
+                leaf["bias"] = a(name, "bias")
+            put(params, path + ((inner,) if inner else ()), leaf)
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
 
 
 def sdnet_state_dict_from_jax(variables) -> OrderedDict:

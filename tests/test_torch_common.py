@@ -202,7 +202,8 @@ def port_psrp_labels_full_pipeline(case):
 
 
 def test_registry():
-    assert list_models() == ["relaynet", "sdnet", "unet"]
+    assert list_models() == ["anogan", "edgeal", "fouriernet", "relaynet",
+                             "sdnet", "unet", "y_net_gen", "y_net_gen_ffc"]
     m = get_model("unet", num_classes=4, init_features=4)
     assert m.conv.out_channels == 4
     m = get_model("relaynet", num_classes=4, num_filters=8)
@@ -211,8 +212,13 @@ def test_registry():
     m = get_model("sdnet", num_classes=5, img_size=32, channels=(4, 8))
     assert m.layer_predictor.head.out_channels == 4
     assert m.surface_predictor.head.out_channels == 12 - 5
+    m = get_model("y_net_gen_ffc", num_classes=4, init_features=8)
+    assert m.conv.out_channels == 4 and m.ffc
+    m = get_model("edgeal", in_channels=1, num_classes=3, ngf=8,
+                  n_blocks=1, n_downsampling=2)
+    assert m.head.out_channels == 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("fouriernet")
+        get_model("mgunet")
 
 
 def test_config_defaults_match_jax():
@@ -241,3 +247,55 @@ def test_zscore_matches_jax():
         preprocess(torch.from_numpy(x), flatten=True).numpy(),
         np.asarray(jax_preprocess(jnp.asarray(x), flatten=True)),
         rtol=1e-5, atol=1e-5)
+
+
+# -- the zoo models (test_torch_ffc, _ynet, _edgeal, _anogan, _fouriernet) --
+
+
+def jax_variables(module, *inputs, seed=0, **kw):
+    """numpy variables in the tree of ``module.init(key, *inputs, **kw)``
+    (read by ``jax.eval_shape``, nothing compiled), drawn from ``seed``:
+    kernels U(+-1/sqrt(fan_in)) as torch draws them, BatchNorm affines and
+    statistics and biases random, so that a statistic, an affine or a bias
+    carried to the wrong layer shows; ``angle`` U(0, 80)."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
+                                                *inputs, **kw))
+    rng = np.random.default_rng(seed)
+    draw = {"mean": lambda s: rng.normal(0, 0.1, s),
+            "var": lambda s: rng.uniform(0.5, 1.5, s),
+            "scale": lambda s: rng.uniform(0.5, 1.5, s),
+            "bias": lambda s: rng.normal(0, 0.1, s),
+            "angle": lambda s: rng.uniform(0, 80, s),
+            "kernel": lambda s: rng.uniform(-1, 1, s) / np.sqrt(
+                np.prod(s[:-1]))}
+
+    def walk(tree):
+        return {k: walk(t) if isinstance(t, dict) else
+                draw[k](t.shape).astype(np.float32)
+                for k, t in tree.items()}
+
+    return {k: walk(dict(v)) for k, v in shapes.items()}
+
+
+def nchw(x):
+    """An NHWC numpy array (or None) as an NCHW torch tensor."""
+    return None if x is None else torch.from_numpy(
+        np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
+
+
+def scale_rel(got, want):
+    """max |got - want| / max |want|; ``got`` an NCHW torch tensor (or any
+    array) held to ``want``, its NHWC counterpart."""
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else \
+        np.asarray(got)
+    want = np.asarray(want)
+    if got.ndim == 4:
+        got = got.transpose(0, 2, 3, 1)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def tree_shapes(tree):
+    """{path: shape} of a variable tree (numpy or ``jax.eval_shape``)."""
+    return {jax.tree_util.keystr(k): tuple(leaf.shape) for k, leaf in
+            jax.tree_util.tree_leaves_with_path(tree)}

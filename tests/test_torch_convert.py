@@ -83,8 +83,8 @@ def test_checkpoint_block_spelling():
 def test_port_imports_without_jax():
     """A fresh interpreter with ``jax`` and the JAX package blocked imports
     every module of the port, the fused-loss, ReLayNet, fused-stem, packed
-    graph, artifact, metric, SDNet and CLI modules among them; neither is
-    loaded afterwards."""
+    graph, artifact, metric, SDNet, FFC-zoo and CLI modules among them;
+    neither is loaded afterwards."""
     code = (
         "import importlib, pkgutil, sys\n"
         "JAX_PKG = 'retinal_oct_image_segmentation_via_deep_learning_tpu'\n"
@@ -115,5 +115,9 @@ def test_port_imports_without_jax():
                  "ops.column_softargmax", "ops.resize", "models.sdnet",
                  "models.sdnet.common", "models.sdnet.unet",
                  "models.sdnet.modality", "models.sdnet.layer_engine",
-                 "models.sdnet.sdnet", "training.sdnet_pipeline", "cli"):
+                 "models.sdnet.sdnet", "training.sdnet_pipeline",
+                 "models.ffc", "models.edgeal", "models.anogan",
+                 "models.fouriernet", "ops.fd", "ops.sampling",
+                 "training.adversarial", "training.fouriernet_pipeline",
+                 "cli"):
         assert pkg + name in mods, name

@@ -346,7 +346,9 @@ def test_cli_smoke_sdnet(capsys):
 
 def test_cli_smoke_all_and_unported(capsys):
     lines = _smoke(capsys, "all")
-    assert [ln.split()[0] for ln in lines] == ["relaynet", "sdnet", "unet"]
+    assert [ln.split()[0] for ln in lines] == [
+        "anogan", "edgeal", "fouriernet", "relaynet", "sdnet", "unet",
+        "y_net_gen", "y_net_gen_ffc"]
     assert all(" ok " in ln for ln in lines)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _smoke(capsys, "fouriernet")
+        _smoke(capsys, "mgunet")
