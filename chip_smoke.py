@@ -3,8 +3,9 @@
 U-Net's w4a4 serving mode and fused head, its U-Net training path (with and
 without the fused Dice+CE loss), SDNet's forward and composite train step,
 the real-data path (Duke DME volumes through ``train --data`` and
-``eval --data``) and the zoo's first models (Y-Net plain and FFC, EdgeAL,
-FourierNet, AnoGAN) once on one NVIDIA GPU.
+``eval --data``), the zoo's first models (Y-Net plain and FFC, EdgeAL,
+FourierNet, AnoGAN) and MGU-Net (both variants), ISLAM and LightReSeg once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -134,11 +135,12 @@ Phases (any failure raises; the exit code is then non-zero):
     autograd through the plain version, a one-hot column (std = 0) without
     a std cotangent giving a finite gradient; K6 at SDNet's BatchNorm
     shapes (C = 1, the dense features' 4 rows, 16 channels);
-23. ``cli smoke --model all``, then SDNet at full width (channels 32-512, 4
-    classes, 512x512, batch 8, eval) built as the registry builds it: K12
-    once per forward, the forward against the same forward on the plain
-    versions (masks 1e-5, positions 1e-5 * H, hard-anatomy values that
-    round the other way counted), and the card against the CPU on two
+23. ``cli smoke --model all --strict`` (one ``ok`` line for every registry
+    name, a failing model raises), then SDNet at full width (channels
+    32-512, 4 classes, 512x512, batch 8, eval) built as the registry builds
+    it: K12 once per forward, the forward against the same forward on the
+    plain versions (masks 1e-5, positions 1e-5 * H, hard-anatomy values
+    that round the other way counted), and the card against the CPU on two
     128x128 crops with TF32 off;
 24. ``SDNetTrainer`` (Adam at its default 1e-4) five steps on one batch of
     4 synthetic B-scans and one noise draw, cuDNN deterministic: loss
@@ -180,8 +182,9 @@ Phases (any failure raises; the exit code is then non-zero):
     published layout (496x768x61 uint8, 11 annotated B-scans,
     ``manualLayers1`` (8, 768, 61), ``manualFluid1``) written from ``SEED``;
     ``cli train --data duke:DIR --packed`` (f=32, 512x512, batch 8, one
-    epoch; K4, K5 and K6 launched) and ``cli eval --data duke:DIR
-    --quantize psrp`` from the trained weights (K1, K2, K3 launched; the
+    epoch, ``--checkpoint-dir``; K4, K5 and K6 launched) and ``cli eval
+    --data duke:DIR --quantize psrp --checkpoint`` on the file that train
+    wrote (K1, K2, K3 launched; the
     metrics equal the same masks scored on the CPU within 1e-4, the
     confusion counts exactly); ``preprocess(flatten=True, denoise=True)``
     on one batch on the card and on the CPU (surfaces equal, values within
@@ -198,15 +201,32 @@ Phases (any failure raises; the exit code is then non-zero):
     output), the forward at batch 8 in bf16 (CUDA events, median of 5),
     one ``cli train`` epoch of 4 steps at batch 8 (K6 launched 70 / 52
     times a step), the step's ms, peak memory and a profile (K6 kernels a
-    step, idle share); for Y-Net-FFC one step from the trained state under
-    cuDNN deterministic with K6 against its plain version (``SDNET_GATE``)
-    and a planted K6 fault that must fail the gate; EdgeAL (ngf 64, 9
+    step, idle share); for Y-Net-FFC the K6 gate (``k6_gate``: a float32
+    step from the trained state, TF32 off, cuDNN deterministic, K6 against
+    its plain version at ``ZOO_K6_GATE``, the same step twice bit-equal,
+    the one-ulp floor beside it, and a planted K6 fault that must fail the
+    gate); EdgeAL (ngf 64, 9
     blocks, 3 classes): card vs CPU at 64x64, the forward and one
     ``cli train`` step at batch 4; FourierNet (features 16-256):
     ``prepare_dataset`` on 8 synthetic masks (host seconds),
     ``FourierNetTrainer.fit`` for 2 epochs at batch 4, ``predict``, card
     vs CPU at 128x128; AnoGAN: 5 + 5 ``AnoGANTrainer`` steps at 64x64,
-    batch 64, finite losses, ms a step, K6 launched.
+    batch 64, finite losses, ms a step, K6 launched;
+33. MGU-Net and MGU-Net-2 (feature_scale 4), ISLAM (single head) and
+    LightReSeg at the JAX defaults' full width from seed 0, 10 classes:
+    the eval forward on the card against the CPU with TF32 off (1e-4 of
+    the largest output; ``ZOO2_CARD_VS_CPU``: MGU-Net at 160x160 also
+    with ``is_deconv=False``, MGU-Net-2, ISLAM also with three heads and
+    the Gaussian pair, and LightReSeg with every ``gamma`` 0.5, at
+    128x128); the forward at batch 8 in bf16; one ``cli train`` epoch of 4
+    steps (MGU-Nets at batch 8, the others at 4) with K6's launches a step
+    equal to ``ZOO2``'s count (44, 44, 110, 38); the step's ms, peak
+    memory and profile; K6 against its plain version on seeded bf16
+    channels-last inputs at every shape the bf16 step gives a BatchNorm
+    whose channels are not a multiple of 8 (K6's one-channel-a-lane path;
+    ISLAM's 97, 81 and 27, LightReSeg's head at 10 classes), both modes,
+    relative error within 1e-6 and a bit-equal repeat; on ISLAM and
+    LightReSeg the K6 gate as in phase 32.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -2462,6 +2482,7 @@ def sdnet_phases(dev, card, time_ms):
     )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
         get_model,
+        list_models,
     )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.sdnet_pipeline import (
         SDNetTrainer,
@@ -2561,10 +2582,15 @@ def sdnet_phases(dev, card, time_ms):
     reset()
     smoke = io.StringIO()
     with contextlib.redirect_stdout(smoke):
-        cli.main(["smoke", "--model", "all", "--device", "cuda"])
+        cli.main(["smoke", "--model", "all", "--device", "cuda",
+                  "--strict"])
     torch.cuda.synchronize()
     print(smoke.getvalue().rstrip())
     print(f"cli smoke --model all: launches {counts()}")
+    oks = sum(" ok " in line for line in smoke.getvalue().splitlines())
+    if oks != len(list_models()):
+        raise RuntimeError(f"cli smoke: {oks} ok lines for "
+                           f"{len(list_models())} models")
     if counts()["column_softargmax"] != 1:
         raise RuntimeError("cli smoke's SDNet did not launch K12 once")
     model = get_model("sdnet", num_classes=SDNET_NC, img_size=HW,
@@ -3416,8 +3442,10 @@ def real_data_phase(dev, card):
         t0 = time.perf_counter()
         reset()
         log = os.path.join(tmp, "train.jsonl")
+        ckpt_dir = os.path.join(tmp, "ckpt")
         state = cli.main(["train", "--data", spec, "--packed", "--epochs",
-                          "1", "--log-file", log, *common, *width])
+                          "1", "--log-file", log, "--checkpoint-dir",
+                          ckpt_dir, *common, *width])
         torch.cuda.synchronize()
         train_counts = launched()
         step("cli train --data --packed, one epoch (data read included)",
@@ -3432,8 +3460,11 @@ def real_data_phase(dev, card):
         if state.step < 1 or not (math.isfinite(rec["train_loss"])
                                   and math.isfinite(rec["val_loss"])):
             raise RuntimeError("train --data: no step or a loss not finite")
-        ckpt = os.path.join(tmp, "unet.pt")
-        torch.save(state.model.state_dict(), ckpt)
+        # eval reads the file that train --checkpoint-dir wrote
+        ckpt = os.path.join(ckpt_dir, "ckpt_0.pt")
+        if sorted(os.listdir(ckpt_dir)) != ["ckpt_0.pt"]:
+            raise RuntimeError(f"train --checkpoint-dir wrote "
+                               f"{os.listdir(ckpt_dir)}")
         del state
         torch.cuda.empty_cache()
 
@@ -3703,18 +3734,133 @@ def _outputs(out):
     return [t for o in out for t in _outputs(o)]
 
 
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def card_vs_cpu(dev, bad, label, cpu_model, x):
+    """max |card - CPU| / max |CPU| over the eval forward's outputs,
+    float32 with TF32 off on the card; above 1e-4 it joins ``bad``."""
+    import copy
+
+    import torch
+
+    cpu_model.eval()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    with torch.no_grad():
+        want = _outputs(cpu_model(x))
+        model = copy.deepcopy(cpu_model).to(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got = _outputs(model(x.to(dev)))
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+    rel = max(float((g.cpu() - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    print(f"{label}: card vs CPU, eval forward {tuple(x.shape)}, TF32 "
+          f"off: max |difference| / max |CPU| {rel:.3e} over "
+          f"{len(want)} output(s) (limit 1e-4)", flush=True)
+    if not rel <= 1e-4:
+        bad.append(f"{label} card vs CPU {rel:.3e}")
+
+
+def forward_time(dev, time_ms, label, model, batch, nc):
+    """The eval forward's ms at ``batch`` under bf16 autocast (median of
+    5)."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
+        nhwc_logits,
+    )
+
+    xb, _ = train_batch(dev, batch, SEED + 90, nc)
+    model.eval()
+    with torch.no_grad():
+        ms = time_ms(lambda: nhwc_logits(model, xb, torch.bfloat16), 5)
+    print(f"{label} forward, batch {batch}, bf16 autocast: {ms:.3f} ms "
+          f"(median of 5), {batch / ms * 1e3:.1f} B-scans/s", flush=True)
+
+
+def trainer_epoch(dev, bad, name, nc, batch, steps, kwargs=None):
+    """One ``cli train`` epoch (Adam 1e-3, dice_ce, bf16 autocast) of
+    ``steps`` steps on synthetic B-scans; K6 counted from 0. -> (trainer,
+    state, K6 launches a step)."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
+        cli,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+
+    args = cli.parser().parse_args([
+        "train", "--model", name, "--image-size", str(HW),
+        "--num-classes", str(nc), "--batch-size", str(batch),
+        "--num-train", str(steps * batch), "--num-val", str(batch),
+        "--epochs", "1", "--device", str(dev),
+        "--model-kwargs", json.dumps(kwargs or {})])
+    trainer, train_ds, val_ds = cli.build_training(args)
+    k6.pair_sums.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.fit(train_ds, val_ds)
+    _sync(dev)
+    launches = k6.pair_sums.launches
+    rec = trainer.history[0]
+    print(f"{name}: cli train, one epoch of {steps} steps at batch "
+          f"{batch} in {time.perf_counter() - t0:.2f} s (validation "
+          f"included): train loss {rec['train_loss']:.6f}, val loss "
+          f"{rec['val_loss']:.6f}; K6 launches {launches} "
+          f"({launches / steps:g} a step)", flush=True)
+    if not (math.isfinite(rec["train_loss"])
+            and math.isfinite(rec["val_loss"])):
+        bad.append(f"{name} losses {rec}")
+    if dev.type == "cuda" and launches == 0:
+        bad.append(f"{name}: K6 not launched by the train steps")
+    return trainer, state, launches / steps
+
+
+def step_times(dev, label, trainer, state, batch, nc, host=False):
+    """ms per train step (host clock over 5 after 2), peak memory and a
+    profile with K6's kernels a step and the idle share; with ``host``,
+    the profile's host side. -> the step's (images, labels)."""
+    import torch
+
+    images, labels = train_batch(dev, batch, SEED + 92, nc)
+    step = trainer.train_step_fn()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, images, labels)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(state, images, labels)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if on_card else "not measured")
+    print(f"{label} train step, batch {batch}: {ms:.3f} ms, "
+          f"{batch / ms * 1e3:.1f} B-scans/s, peak memory {peak}",
+          flush=True)
+    if on_card:
+        profile_breakdown(lambda: step(state, images, labels), 3,
+                          f"{label} train steps at batch {batch}",
+                          {"K6 bn_pair_sums": "pair_sums"}, host=host)
+    return images, labels
+
 def zoo_phase(dev, card, time_ms):
     """Phase 32: the zoo's first models on the FFC stack (Y-Net-FFC, Y-Net,
     EdgeAL), FourierNet with its FD targets and trainer, and AnoGAN with
     its adversarial step, at the JAX defaults' full width from seed
     ``SEED``; K6 in every train-mode BatchNorm."""
-    import copy
-
     import torch
 
-    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
-        cli,
-    )
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
         fused_bn as k6,
     )
@@ -3728,106 +3874,12 @@ def zoo_phase(dev, card, time_ms):
         FourierNetTrainer,
         prepare_dataset,
     )
-    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
-        nhwc_logits,
-    )
 
     on_card = dev.type == "cuda"
     phase(f"32 the zoo's first models: Y-Net-FFC, Y-Net, EdgeAL, "
           f"FourierNet, AnoGAN ({HW}x{HW}, full width, seed {SEED}) on "
           f"{card}")
     bad = []
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    def card_vs_cpu(label, cpu_model, x):
-        """max |card - CPU| / max |CPU| over the eval forward's outputs,
-        float32 with TF32 off on the card."""
-        cpu_model.eval()
-        flags = (torch.backends.cudnn.allow_tf32,
-                 torch.backends.cuda.matmul.allow_tf32)
-        with torch.no_grad():
-            want = _outputs(cpu_model(x))
-            model = copy.deepcopy(cpu_model).to(dev)
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            try:
-                got = _outputs(model(x.to(dev)))
-            finally:
-                (torch.backends.cudnn.allow_tf32,
-                 torch.backends.cuda.matmul.allow_tf32) = flags
-        rel = max(float((g.cpu() - w).abs().max() / w.abs().max())
-                  for g, w in zip(got, want))
-        print(f"{label}: card vs CPU, eval forward {tuple(x.shape)}, TF32 "
-              f"off: max |difference| / max |CPU| {rel:.3e} (limit 1e-4)",
-              flush=True)
-        if not rel <= 1e-4:
-            bad.append(f"{label} card vs CPU {rel:.3e}")
-
-    def forward_time(label, model, batch, nc):
-        xb, _ = train_batch(dev, batch, SEED + 90, nc)
-        model.eval()
-        with torch.no_grad():
-            ms = time_ms(lambda: nhwc_logits(model, xb, torch.bfloat16), 5)
-        print(f"{label} forward, batch {batch}, bf16 autocast: {ms:.3f} ms "
-              f"(median of 5), {batch / ms * 1e3:.1f} B-scans/s", flush=True)
-
-    def trainer_epoch(name, nc, batch, steps, kwargs=None):
-        """One ``cli train`` epoch (Adam 1e-3, dice_ce, bf16 autocast) of
-        ``steps`` steps on synthetic B-scans; K6 counted from 0."""
-        args = cli.parser().parse_args([
-            "train", "--model", name, "--image-size", str(HW),
-            "--num-classes", str(nc), "--batch-size", str(batch),
-            "--num-train", str(steps * batch), "--num-val", str(batch),
-            "--epochs", "1", "--device", str(dev),
-            "--model-kwargs", json.dumps(kwargs or {})])
-        trainer, train_ds, val_ds = cli.build_training(args)
-        k6.pair_sums.launches = 0
-        t0 = time.perf_counter()
-        state = trainer.fit(train_ds, val_ds)
-        sync()
-        launches = k6.pair_sums.launches
-        rec = trainer.history[0]
-        print(f"{name}: cli train, one epoch of {steps} steps at batch "
-              f"{batch} in {time.perf_counter() - t0:.2f} s (validation "
-              f"included): train loss {rec['train_loss']:.6f}, val loss "
-              f"{rec['val_loss']:.6f}; K6 launches {launches} "
-              f"({launches / steps:g} a step)", flush=True)
-        if not (math.isfinite(rec["train_loss"])
-                and math.isfinite(rec["val_loss"])):
-            bad.append(f"{name} losses {rec}")
-        if on_card and launches == 0:
-            bad.append(f"{name}: K6 not launched by the train steps")
-        return trainer, state, launches / steps
-
-    def step_times(label, trainer, state, batch, nc, host=False):
-        """ms per train step (host clock over 5 after 2), peak memory and
-        a profile with K6's kernels a step and the idle share; with
-        ``host``, the profile's host side."""
-        images, labels = train_batch(dev, batch, SEED + 92, nc)
-        step = trainer.train_step_fn()
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        for _ in range(2):
-            step(state, images, labels)
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            step(state, images, labels)
-        sync()
-        ms = (time.perf_counter() - t0) / 5 * 1e3
-        peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
-                if on_card else "not measured")
-        print(f"{label} train step, batch {batch}: {ms:.3f} ms, "
-              f"{batch / ms * 1e3:.1f} B-scans/s, peak memory {peak}",
-              flush=True)
-        if on_card:
-            profile_breakdown(lambda: step(state, images, labels), 3,
-                              f"{label} train steps at batch {batch}",
-                              {"K6 bn_pair_sums": "pair_sums"}, host=host)
-        return images, labels
 
     # --------------------------------------------------------- Y-Net-FFC
     nc = NC
@@ -3840,18 +3892,20 @@ def zoo_phase(dev, card, time_ms):
         print(f"{label} (f=32, ratio 0.5, {nc} classes): "
               f"{sum(p.numel() for p in cpu_model.parameters()):,} "
               f"parameters", flush=True)
-        card_vs_cpu(label, cpu_model, xs)
-        forward_time(label, cpu_model.to(dev), ZOO_BATCH, nc)
+        card_vs_cpu(dev, bad, label, cpu_model, xs)
+        forward_time(dev, time_ms, label, cpu_model.to(dev), ZOO_BATCH,
+                     nc)
         del cpu_model
-        trainer, state, per_step = trainer_epoch(name, nc, ZOO_BATCH,
-                                                 ZOO_STEPS)
+        trainer, state, per_step = trainer_epoch(dev, bad, name, nc,
+                                                 ZOO_BATCH, ZOO_STEPS)
         want = (YNET_FFC_K6_PER_STEP if name == "y_net_gen_ffc"
                 else YNET_K6_PER_STEP)
         if on_card and per_step != want:
             bad.append(f"{label}: K6 {per_step:g} a step, expected {want}")
-        images, labels = step_times(label, trainer, state, ZOO_BATCH, nc)
+        images, labels = step_times(dev, label, trainer, state, ZOO_BATCH,
+                                    nc)
         if name == "y_net_gen_ffc":
-            ynet_ffc_gate(trainer, images, labels, k6, bad, on_card)
+            k6_gate(label, trainer, images, labels, k6, bad, on_card)
         del trainer, state, images, labels
         if on_card:
             torch.cuda.empty_cache()
@@ -3862,11 +3916,15 @@ def zoo_phase(dev, card, time_ms):
     print(f"EdgeAL (ngf 64, 9 blocks, 3 downsamplings, {EDGEAL_NC} "
           f"classes): {sum(p.numel() for p in cpu_model.parameters()):,} "
           f"parameters", flush=True)
-    card_vs_cpu("EdgeAL", cpu_model, xs[:, :, :64, :64].contiguous())
-    forward_time("EdgeAL", cpu_model.to(dev), EDGEAL_BATCH, EDGEAL_NC)
+    card_vs_cpu(dev, bad, "EdgeAL", cpu_model,
+                xs[:, :, :64, :64].contiguous())
+    forward_time(dev, time_ms, "EdgeAL", cpu_model.to(dev), EDGEAL_BATCH,
+                 EDGEAL_NC)
     del cpu_model
-    trainer, state, _ = trainer_epoch("edgeal", EDGEAL_NC, EDGEAL_BATCH, 1)
-    step_times("EdgeAL", trainer, state, EDGEAL_BATCH, EDGEAL_NC, host=True)
+    trainer, state, _ = trainer_epoch(dev, bad, "edgeal", EDGEAL_NC,
+                                      EDGEAL_BATCH, 1)
+    step_times(dev, "EdgeAL", trainer, state, EDGEAL_BATCH, EDGEAL_NC,
+               host=True)
     del trainer, state
     if on_card:
         torch.cuda.empty_cache()
@@ -3885,7 +3943,7 @@ def zoo_phase(dev, card, time_ms):
     k6.pair_sums.launches = 0
     t0 = time.perf_counter()
     best = fn.fit(data, tuple(a[:FOURIER_BATCH] for a in data))
-    sync()
+    _sync(dev)
     print(f"FourierNetTrainer.fit, 2 epochs of "
           f"{FOURIER_IMAGES // FOURIER_BATCH} steps at batch "
           f"{FOURIER_BATCH} (Adadelta 0.01, dropout 0.2): "
@@ -3903,7 +3961,7 @@ def zoo_phase(dev, card, time_ms):
         bad.append("FourierNet fit/predict")
     del fn, best
     cpu_model = get_model("fouriernet", seed=SEED)
-    card_vs_cpu("FourierNet", cpu_model, xs)
+    card_vs_cpu(dev, bad, "FourierNet", cpu_model, xs)
     del cpu_model
 
     # ------------------------------------------------------------ AnoGAN
@@ -3917,7 +3975,7 @@ def zoo_phase(dev, card, time_ms):
     t0 = time.perf_counter()
     losses = [{k: float(v) for k, v in step(state, x).items()}
               for _ in range(5)]
-    sync()
+    _sync(dev)
     ms = (time.perf_counter() - t0) / 5 * 1e3
     launches = k6.pair_sums.launches
     print(f"AnoGANTrainer: 5 steps at {ANOGAN_HW}x{ANOGAN_HW}, batch "
@@ -3927,7 +3985,7 @@ def zoo_phase(dev, card, time_ms):
     t0 = time.perf_counter()
     for _ in range(5):
         step(state, x)
-    sync()
+    _sync(dev)
     print(f"AnoGANTrainer: 5 more steps, {(time.perf_counter() - t0) / 5 * 1e3:.3f} "
           f"ms a step", flush=True)
     if not all(math.isfinite(v) for l in losses for v in l.values()):
@@ -3941,11 +3999,14 @@ def zoo_phase(dev, card, time_ms):
         torch.cuda.empty_cache()
 
 
-def ynet_ffc_gate(trainer, images, labels, k6, bad, on_card):
-    """The K6 gate on one Y-Net-FFC step from the trained state (cuDNN
-    deterministic): K6 against its plain version (``SDNET_GATE``: relative
-    loss and whole-gradient cosine), and a planted K6 fault (sums 0.5%
-    high) that must fail it."""
+def k6_gate(label, trainer, images, labels, k6, bad, on_card):
+    """The K6 gate on one float32 train step (TF32 off, cuDNN
+    deterministic) of ``trainer``'s model from its trained state: K6
+    against its plain version (``ZOO_K6_GATE``: relative loss and
+    whole-gradient cosine), the same step twice (which must be
+    bit-equal), and a planted K6 fault (sums 0.5% high) that must fail
+    the limits. Beside them it prints the floor: the plain version with
+    its sums one float32 ulp high, against the plain version."""
     import torch
 
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
@@ -3953,15 +4014,20 @@ def ynet_ffc_gate(trainer, images, labels, k6, bad, on_card):
     )
 
     model = trainer.model
+    limits = ZOO_K6_GATE
     saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    deterministic = torch.backends.cudnn.deterministic
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     def loss_and_grads():
         model.load_state_dict(saved)
         model.train()
         model.zero_grad(set_to_none=True)
-        loss = trainer.loss_fn(nhwc_logits(model, images, trainer.dtype),
+        loss = trainer.loss_fn(nhwc_logits(model, images, torch.float32),
                                labels, trainer.class_weights)
         loss.backward()
         if on_card:
@@ -3975,7 +4041,7 @@ def ynet_ffc_gate(trainer, images, labels, k6, bad, on_card):
                 float(a[1] @ b[1] / (a[1].norm() * b[1].norm())))
 
     def passes(c):
-        return c[0] < SDNET_GATE["loss"] and c[1] > SDNET_GATE["cosine"]
+        return c[0] < limits["loss"] and c[1] > limits["cosine"]
 
     sums = k6.pair_sums
 
@@ -3983,32 +4049,189 @@ def ynet_ffc_gate(trainer, images, labels, k6, bad, on_card):
         """K6 with its sums 0.5% high."""
         return sums(a, b) * 1.005
 
+    def plain_one_ulp_high(a, b=None):
+        s = k6.pair_sums_reference(a, b)
+        return torch.nextafter(s, torch.full_like(s, math.inf))
+
     k6_sums_high.launches = 0  # the wrapper counts under its module name
     try:
         kern = loss_and_grads()
         again = loss_and_grads()
         with swapped(k6, pair_sums=k6.pair_sums_reference):
             ref = loss_and_grads()
+        with swapped(k6, pair_sums=plain_one_ulp_high):
+            floor = compare(loss_and_grads(), ref)
         with swapped(k6, pair_sums=k6_sums_high):
             fault = compare(loss_and_grads(), ref)
     finally:
-        torch.backends.cudnn.deterministic = deterministic
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
         model.load_state_dict(saved)
     every = compare(kern, ref)
-    print(f"Y-Net-FFC step from the trained state (cuDNN deterministic): "
-          f"K6 vs its plain version: relative loss {every[0]:.3e}, "
-          f"whole-gradient cosine {every[1]:.9f}; the same step twice: "
-          f"loss equal {kern[0] == again[0]}, gradients equal "
-          f"{bool(torch.equal(kern[1], again[1]))}; planted fault (K6 sums "
-          f"0.5% high): relative loss {fault[0]:.3e}, cosine "
-          f"{fault[1]:.9f}; gate (SDNET_GATE) relative loss < "
-          f"{SDNET_GATE['loss']}, cosine > {SDNET_GATE['cosine']}",
-          flush=True)
+    same = kern[0] == again[0] and bool(torch.equal(kern[1], again[1]))
+    print(f"{label} step from the trained state (float32, TF32 off, cuDNN "
+          f"deterministic): K6 vs its plain version: relative loss "
+          f"{every[0]:.3e}, whole-gradient cosine {every[1]:.9f}; the same "
+          f"step twice: loss equal {kern[0] == again[0]}, gradients equal "
+          f"{bool(torch.equal(kern[1], again[1]))}; floor (the plain "
+          f"version's sums one ulp high): relative loss {floor[0]:.3e}, "
+          f"cosine {floor[1]:.9f}; planted fault (K6 sums 0.5% high): "
+          f"relative loss {fault[0]:.3e}, cosine {fault[1]:.9f}; gate "
+          f"relative loss < {limits['loss']}, cosine > {limits['cosine']}, "
+          f"bit-equal repeat", flush=True)
     if not passes(every):
-        bad.append("Y-Net-FFC: K6 and its plain version disagree")
+        bad.append(f"{label}: K6 and its plain version disagree")
+    if not same:
+        bad.append(f"{label}: the same step twice is not bit-equal")
     if passes(fault):
-        bad.append("Y-Net-FFC: the gate does not see a planted K6 fault")
+        bad.append(f"{label}: the gate does not see a planted K6 fault")
 
+
+def k6_odd_channels(dev, label, trainer, images, labels, k6, bad):
+    """K6 against its plain version at every shape that one train step in
+    the trainer's dtype gives a BatchNorm whose channels are not a
+    multiple of 8 (K6's one-channel-a-lane path), in the dtype the kernel
+    sees there, on seeded inputs around 1: relative error within 1e-6 and
+    a second call bit-equal. The step is taken on a copy of the state,
+    which is put back."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.trainer import (
+        nhwc_logits,
+    )
+
+    model = trainer.model
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sums, seen = k6.pair_sums, {}
+
+    def record(a, b=None):
+        if a.shape[-1] % 8:
+            dtype = a.dtype if b is None or b.dtype == a.dtype \
+                else torch.float32  # the wrapper's cast
+            seen[(tuple(a.shape), dtype, b is not None)] = None
+        return sums(a, b)
+
+    record.launches = 0  # the wrapper counts under its module name
+    try:
+        with swapped(k6, pair_sums=record):
+            model.train()
+            trainer.loss_fn(nhwc_logits(model, images, trainer.dtype),
+                            labels, trainer.class_weights).backward()
+    finally:
+        model.load_state_dict(saved)
+        model.zero_grad(set_to_none=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 97)
+    for shape, dtype, two in seen:
+        a = (torch.randn(shape, generator=g, device=dev) + 1.0).to(dtype)
+        b = ((torch.randn(shape, generator=g, device=dev) + 1.0).to(dtype)
+             if two else None)
+        got, again = k6.pair_sums(a, b), k6.pair_sums(a, b)
+        want = k6.pair_sums_reference(a, b)
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs()).max())
+        same = torch.equal(got, again)
+        print(f"{label}: K6 at {shape} {str(dtype)[6:]} "
+              f"{'bwd' if two else 'fwd'} (plan {k6.launch_plan(a, b).text()}"
+              f"): relative error {rel:.3e} (limit 1e-6), a second call "
+              f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+        if not (rel <= 1e-6 and same):
+            bad.append(f"{label}: K6 at {shape} {dtype} two={two}")
+        del a, b, got, again, want
+    if not seen:
+        print(f"{label}: no BatchNorm with channels not a multiple of 8",
+              flush=True)
+
+
+# phase 33: (registry name, label, train batch, K6 launches a step: one
+# forward and one backward launch per train-mode BatchNorm)
+ZOO2 = (
+    # 14 in the seven UnetConvs + 8 Basconvs in the MGR module
+    ("mgunet", "MGU-Net", 8, 2 * (14 + 8)),
+    ("mgunet_2", "MGU-Net-2", 8, 2 * (14 + 8)),
+    # 2 stem + 15 in the five ResNetBlocks + 4 in ASPP(1024) + 30 in the
+    # five DecoderBlocks + 4 in ASPP(27)
+    ("islam", "ISLAM", 4, 2 * (2 + 15 + 4 + 30 + 4)),
+    # 8 in the contracting blocks + 8 in SeparableDown + 2 in the
+    # bottleneck + 1 at the head
+    ("lightreseg", "LightReSeg", 4, 2 * (8 + 8 + 2 + 1)),
+)
+# the K6 gate (``k6_gate``: Y-Net-FFC in phase 32, ISLAM and LightReSeg in
+# phase 33), on a float32 step with TF32 off, where the plain version's
+# sums one ulp high move the loss by at most ~7e-8; in bf16 such an ulp
+# flips roundings of the activations and moves it by 2e-6 to 1.3e-5,
+# depending on the state (PERF.md section 6)
+ZOO_K6_GATE = {"loss": 1e-6, "cosine": 0.99999}
+# card against CPU (phase 33): (label, name, kwargs, side)
+ZOO2_CARD_VS_CPU = (
+    ("MGU-Net", "mgunet", {}, 160),
+    ("MGU-Net, is_deconv=False", "mgunet", {"is_deconv": False}, 160),
+    ("MGU-Net-2", "mgunet_2", {}, 128),
+    ("ISLAM", "islam", {}, 128),
+    ("ISLAM, multi-head + Gaussian", "islam",
+     {"use_multi_head": True, "gaussian_output": True}, 128),
+    ("LightReSeg, gamma 0.5", "lightreseg", {}, 128),
+)
+
+
+def zoo2_phase(dev, card, time_ms):
+    """Phase 33: MGU-Net (both variants), ISLAM and LightReSeg at the JAX
+    defaults' full width from seed ``SEED``: the eval forward on the card
+    against the CPU, one ``cli train`` epoch each at 512^2 with K6 in every
+    train-mode BatchNorm (its launches a step against the count above),
+    the readings, and the K6 gate on ISLAM's and LightReSeg's steps (in
+    float32, TF32 off)."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.models.lightreseg import (
+        ChannelAttentionModule,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
+        get_model,
+    )
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    phase(f"33 MGU-Net (both variants), ISLAM, LightReSeg ({HW}x{HW}, full "
+          f"width, seed {SEED}) on {card}")
+    bad = []
+    xs, _ = train_batch(dev, 2, SEED + 96)
+    xs = xs.permute(0, 3, 1, 2).contiguous().cpu()
+    for label, name, kw, side in ZOO2_CARD_VS_CPU:
+        cpu_model = get_model(name, num_classes=NC, seed=SEED, **kw)
+        for m in cpu_model.modules():
+            if isinstance(m, ChannelAttentionModule):
+                with torch.no_grad():  # zero at init: put it on the path
+                    m.gamma.fill_(0.5)
+        card_vs_cpu(dev, bad, label, cpu_model,
+                    xs[:, :, :side, :side].contiguous())
+    del cpu_model
+    for name, label, batch, want in ZOO2:
+        model = get_model(name, num_classes=NC, seed=SEED, device=dev)
+        print(f"{label} ({NC} classes): "
+              f"{sum(p.numel() for p in model.parameters()):,} parameters",
+              flush=True)
+        forward_time(dev, time_ms, label, model, ZOO_BATCH, NC)
+        del model
+        trainer, state, per_step = trainer_epoch(dev, bad, name, NC, batch,
+                                                 ZOO_STEPS)
+        if on_card and per_step != want:
+            bad.append(f"{label}: K6 {per_step:g} a step, expected {want}")
+        images, labels = step_times(dev, label, trainer, state, batch, NC)
+        if on_card:
+            k6_odd_channels(dev, label, trainer, images, labels, k6, bad)
+        if name in ("islam", "lightreseg"):
+            k6_gate(label, trainer, images, labels, k6, bad, on_card)
+        del trainer, state, images, labels
+        if on_card:
+            torch.cuda.empty_cache()
+    print(f"phase 33: {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    if bad:
+        raise RuntimeError(f"phase 33: {bad}")
 
 
 def main() -> int:
@@ -4610,6 +4833,7 @@ def main() -> int:
     kernels += int4_phases(dev, card, time_ms, model, calib)
     real_data_phase(dev, card)
     zoo_phase(dev, card, time_ms)
+    zoo2_phase(dev, card, time_ms)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ suite, ``smoke`` every ported model with one forward.
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         serve --model unet|relaynet --quantize off|int8|psrp|int4 \\
         --image-size 512 --device cuda [--init-features F] \\
-        [--checkpoint state_dict.pt | --load-quantized q.npz] [--seed 0]
+        [--checkpoint ckpt.pt | --load-quantized q.npz] [--seed 0]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         train --packed --image-size 512 --device cuda [--epochs 10] \\
         [--data duke:DIR|retouch:DIR|png:DIR] ...
@@ -17,7 +17,7 @@ suite, ``smoke`` every ported model with one forward.
         eval --model NAME --quantize off|int8|psrp|int4 \\
         [--num-val 16 | --data duke:DIR|retouch:DIR|png:DIR]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
-        smoke --model all|NAME [--num-classes 10] --device cuda
+        smoke --model all|NAME [--num-classes 10] --device cuda [--strict]
 
 The int8 graphs are built by ``build_quantized_forward``: model -> BN fold
 -> calibration on a seeded standard-normal batch (after the same
@@ -83,6 +83,7 @@ from .inference.relaynet_psrp import (
 from .inference.server import ServingLoop
 from .ops.preprocess import preprocess
 from .registry import get_model, list_models
+from .training.checkpoint import model_state_dict
 from .training.data import (
     SyntheticOCTConfig,
     SyntheticOCTDataset,
@@ -109,10 +110,12 @@ NOT_ONE_TENSOR = (*OWN_TRAINERS, "sdnet")
 def build_model(name: str = "unet", *, num_classes: int,
                 init_features: int | None = None, seed: int = 0,
                 checkpoint: str | None = None, device) -> torch.nn.Module:
-    """The model to serve: random init from ``seed``, or a saved state
-    dict (``torch.save(model.state_dict(), path)``). ``init_features`` sets
-    the width (ReLayNet's ``num_filters``); ``None`` takes the model's
-    default (32 for the U-Net, 64 for ReLayNet)."""
+    """The model to serve: random init from ``seed``, or the weights of a
+    ``checkpoint`` (``training/checkpoint.model_state_dict``: a
+    ``train --checkpoint-dir`` file, a ``save_model`` file or a bare model
+    state dict). ``init_features`` sets the width (ReLayNet's
+    ``num_filters``); ``None`` takes the model's default (32 for the U-Net,
+    64 for ReLayNet)."""
     if name not in WIDTH_ARGS:
         raise ValueError(f"model {name!r}: the served models are "
                          f"{', '.join(WIDTH_ARGS)}")
@@ -120,9 +123,7 @@ def build_model(name: str = "unet", *, num_classes: int,
     model = get_model(name, in_channels=1, num_classes=num_classes,
                       seed=seed, **width)
     if checkpoint:
-        model.load_state_dict(
-            torch.load(checkpoint, map_location="cpu", weights_only=True)
-        )
+        model.load_state_dict(model_state_dict(checkpoint))
     return model.to(device).eval()
 
 
@@ -364,7 +365,8 @@ def _refuse_unported(args) -> None:
 def build_eval_trainer(args, num_classes: int = 0):
     """-> (trainer, state): the model of ``infer``/``eval``'s arguments as
     the JAX CLI builds it (``--model-kwargs``, random init from ``--seed``
-    or ``--checkpoint``, a torch state dict), in eval mode on
+    or the weights of ``--checkpoint``, read by
+    ``training/checkpoint.model_state_dict``), in eval mode on
     ``--device``; with ``num_classes`` classes where that is more than
     ``--num-classes``. A model whose forward is not one tensor of logits
     (AnoGAN, FourierNet, SDNet) exits."""
@@ -385,8 +387,7 @@ def build_eval_trainer(args, num_classes: int = 0):
     trainer = Trainer(_with_classes(cfg, num_classes), device)
     if args.checkpoint:
         trainer.model.load_state_dict(
-            torch.load(args.checkpoint, map_location=device,
-                       weights_only=True))
+            model_state_dict(args.checkpoint, map_location=device))
     else:
         print("note: no --checkpoint given; using random init from --seed")
     trainer.model.eval()
@@ -487,34 +488,42 @@ def _shapes(out):
 def cmd_smoke(args) -> None:
     """One forward of each ported model (``--model all``: the registry) on
     a seeded standard-normal one-channel B-scan, eval mode, random init, at
-    the JAX CLI's sizes (64x64; SDNet's channels; AnoGAN with one output
-    channel, its input's); prints the JAX CLI's line. A name not ported
-    raises."""
+    the JAX CLI's sizes (64x64, MGU-Net's 160x160; SDNet's channels; AnoGAN
+    with one output channel, its input's); prints the JAX CLI's line. A
+    model that fails prints ``NAME FAIL: Type: message`` and the loop goes
+    on; with ``--strict`` it raises."""
     device = _device(args.device)
     names = list_models() if args.model == "all" else [args.model]
     for name in names:
         t0 = time.time()
         size, kwargs, kw = 64, {}, {}
         num_classes = args.num_classes
+        if name in ("mgunet", "mgunet_2"):  # its pools need the room
+            size = 160
         if name == "sdnet":  # the JAX CLI's size and channels
             kwargs = {"img_size": size, "channels": (8, 16, 32, 64, 128)}
             kw = {"generator": torch.Generator(device=device).manual_seed(2)}
         if name == "anogan":  # D reads G's output: out == in channels
             num_classes = 1
-        model = get_model(name, in_channels=1, num_classes=num_classes,
-                          **kwargs).to(device)
-        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-            (1, 1, size, size)).astype(np.float32)).to(device)
-        with torch.no_grad():
-            out = model(x, **kw)
-        n_params = sum(p.numel() for p in model.parameters())
-        print(f"{name:16s} ok  params={n_params:>12,}  "
-              f"out={str(_shapes(out))[:80]}  ({time.time() - t0:.1f}s)")
+        try:
+            model = get_model(name, in_channels=1, num_classes=num_classes,
+                              **kwargs).to(device)
+            x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+                (1, 1, size, size)).astype(np.float32)).to(device)
+            with torch.no_grad():
+                out = model(x, **kw)
+            n_params = sum(p.numel() for p in model.parameters())
+            print(f"{name:16s} ok  params={n_params:>12,}  "
+                  f"out={str(_shapes(out))[:80]}  ({time.time() - t0:.1f}s)")
+        except Exception as e:  # noqa: BLE001 - smoke reporting
+            print(f"{name:16s} FAIL: {type(e).__name__}: {e}")
+            if args.strict:
+                raise
 
 
 def _eval_args(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's common flags, and ``--device``, ``--seed`` and
-    ``--checkpoint`` (a torch state dict)."""
+    ``--checkpoint`` (the model's weights)."""
     p.add_argument("--model", default="unet", choices=list_models(),
                    help="--quantize off: any model whose forward returns "
                         "one tensor; the int8 modes: unet, relaynet")
@@ -529,7 +538,8 @@ def _eval_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint", default=None,
-                   help="torch state dict of the model (.pt)")
+                   help="the model's weights (.pt): a train --checkpoint-dir "
+                        "file, a save_model file or a model state dict")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -551,7 +561,8 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--image-size", type=int, default=512)
     s.add_argument("--device", default="cuda")
     s.add_argument("--checkpoint", default=None,
-                   help="torch state dict of the model (.pt)")
+                   help="the model's weights (.pt): a train --checkpoint-dir "
+                        "file, a save_model file or a model state dict")
     s.add_argument("--load-quantized", default=None,
                    help="serve from a quantized artifact of the same "
                         "--quantize mode, written by infer --save-quantized "
@@ -639,6 +650,8 @@ def parser() -> argparse.ArgumentParser:
                    help="a registry name, or all (the ported models)")
     m.add_argument("--num-classes", type=int, default=10)
     m.add_argument("--device", default="cuda")
+    m.add_argument("--strict", action="store_true",
+                   help="raise on the first model that fails")
     m.set_defaults(fn=cmd_smoke)
     return p
 

@@ -34,10 +34,27 @@ def _init_(m: nn.Module, generator: torch.Generator) -> nn.Module:
     return m
 
 
-def conv(cin: int, cout: int, kernel_size: int, stride: int = 1,
-         padding: int = 0, dilation: int = 1, groups: int = 1,
+def redraw(m: nn.Module, std: float, generator: torch.Generator,
+           truncated: bool = False) -> nn.Module:
+    """``m``, made uninitialised (``skip_init``), with weights N(0, std^2)
+    (``truncated``: cut at +-2 std) and zero biases, for the JAX models
+    whose initialisers are not torch's."""
+    with torch.no_grad():
+        if truncated:
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+        else:
+            m.weight.normal_(0.0, std, generator=generator)
+        if m.bias is not None:
+            m.bias.zero_()
+    return m
+
+
+def conv(cin: int, cout: int, kernel_size, stride: int = 1,
+         padding=0, dilation: int = 1, groups: int = 1,
          bias: bool = True, *, generator: torch.Generator) -> nn.Conv2d:
-    """Any square-kernel conv with zero padding (the JAX ``Conv``)."""
+    """Any conv with zero padding (the JAX ``Conv``); ``kernel_size`` and
+    ``padding`` an int or an (h, w) pair."""
     return _init_(skip_init(nn.Conv2d, cin, cout, kernel_size, stride=stride,
                             padding=padding, dilation=dilation, groups=groups,
                             bias=bias), generator)
@@ -81,9 +98,10 @@ def conv3x3_stride2(cin: int, cout: int,
     return conv(cin, cout, 3, 2, 1, generator=generator)
 
 
-def linear(cin: int, cout: int, generator: torch.Generator) -> nn.Linear:
-    """Dense layer with bias."""
-    return _init_(skip_init(nn.Linear, cin, cout), generator)
+def linear(cin: int, cout: int, generator: torch.Generator,
+           bias: bool = True) -> nn.Linear:
+    """Dense layer, with bias unless ``bias`` is false."""
+    return _init_(skip_init(nn.Linear, cin, cout, bias=bias), generator)
 
 
 def conv_transpose2x2(cin: int, cout: int,

@@ -43,12 +43,15 @@ def max_unpool(x: torch.Tensor, idx: torch.Tensor, k: int = 2) -> torch.Tensor:
 
 
 def max_pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
-    """Non-overlapping k x k max-pool of an (N, C, H, W) tensor with H and W
-    multiples of k: the JAX package's reshape-max, whose gradient splits
-    evenly between tied maxima (``amax``'s, as ``jnp.max``'s)."""
+    """Non-overlapping k x k max-pool of an (N, C, H, W) tensor, as the
+    JAX package's: where H and W are multiples of k its reshape-max, whose
+    gradient splits evenly between tied maxima (``amax``'s, as
+    ``jnp.max``'s); otherwise the 'VALID' window (the trailing H % k rows
+    and W % k columns dropped) with the gradient to the first maximum of
+    each window (``max_pool2d``'s, as XLA's select-and-scatter)."""
     N, C, H, W = x.shape
     if H % k or W % k:
-        raise ValueError(f"max_pool: H, W = {H}, {W} not multiples of {k}")
+        return F.max_pool2d(x, k)
     return x.reshape(N, C, H // k, k, W // k, k).amax(dim=(3, 5))
 
 

@@ -1,7 +1,8 @@
 """Model registry: name -> PyTorch module constructor.
 
-Eight names of the JAX package's zoo are ported: the U-Net, ReLayNet,
-SDNet, Y-Net (plain and FFC), FourierNet, AnoGAN and EdgeAL; every other
+Twelve names of the JAX package's zoo are ported: the U-Net, ReLayNet,
+SDNet, Y-Net (plain and FFC), FourierNet, AnoGAN, EdgeAL, MGU-Net (both
+variants), ISLAM and LightReSeg; every other
 name raises ``NotImplementedError`` until its slice lands (ROADMAP.md,
 Queue A). Each builder takes ``in_channels``, ``num_classes``, ``seed`` and
 ``device``.
@@ -14,6 +15,9 @@ from typing import Any, Callable
 from .models.anogan import build_anogan
 from .models.edgeal import build_edgeal
 from .models.fouriernet import build_fouriernet
+from .models.islam import build_islam
+from .models.lightreseg import build_lightreseg
+from .models.mgunet import build_mgunet, build_mgunet_2
 from .models.relaynet import build_relaynet
 from .models.sdnet import build_sdnet
 from .models.unet import build_unet, build_ynet, build_ynet_ffc
@@ -22,6 +26,10 @@ _MODELS: dict[str, Callable[..., Any]] = {
     "anogan": build_anogan,
     "edgeal": build_edgeal,
     "fouriernet": build_fouriernet,
+    "islam": build_islam,
+    "lightreseg": build_lightreseg,
+    "mgunet": build_mgunet,
+    "mgunet_2": build_mgunet_2,
     "relaynet": build_relaynet,
     "sdnet": build_sdnet,
     "unet": build_unet,

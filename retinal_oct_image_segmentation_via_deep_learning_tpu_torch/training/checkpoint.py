@@ -1,13 +1,15 @@
-"""Checkpoints with best-metric retention, and early stopping (the JAX
-package's ``training/checkpoint.py``).
+"""Checkpoints with best-metric retention, one-call whole-state saves, and
+early stopping (the JAX package's ``training/checkpoint.py``).
 
 A checkpoint is one ``torch.save`` file per step holding the train state
 (model, optimizer, schedule, step) and its metrics. The manager keeps the
 ``keep`` checkpoints with the lowest ``val_loss`` (a checkpoint saved
 without one ranks last), as the Orbax manager there does with
-``best_fn=val_loss, best_mode="min"``. Files are read back with
-``torch.load(weights_only=True)``: a checkpoint can hold tensors and plain
-containers, never pickled code.
+``best_fn=val_loss, best_mode="min"``. ``save_model`` / ``load_model``
+write and read one train state without metrics, and ``model_state_dict``
+reads the model's weights out of either file or out of a bare model state
+dict. Files are read back with ``torch.load(weights_only=True)``: a
+checkpoint can hold tensors and plain containers, never pickled code.
 """
 
 from __future__ import annotations
@@ -73,6 +75,39 @@ class CheckpointManager:
 
     def restore_latest(self, state):
         return self._restore(self.latest_step(), state)
+
+
+def save_model(path: str, state) -> None:
+    """One-call whole-state save: ``state.state_dict()`` (a
+    ``TrainState``: model, optimizer, schedule, step) in one file."""
+    torch.save(state.state_dict(), path)
+
+
+def load_model(path: str, state):
+    """Load a ``save_model`` file into ``state`` (a ``TrainState`` of the
+    same model and optimizer) and return it."""
+    state.load_state_dict(torch.load(path, map_location="cpu",
+                                     weights_only=True))
+    return state
+
+
+def model_state_dict(path: str, map_location="cpu") -> dict:
+    """The model's state dict in ``path``: a ``CheckpointManager`` file
+    ({"state": {"model": ...}, "metrics": ...}), a ``save_model`` file
+    ({"model": ..., "optimizer": ..., "step": ...}) or a bare model state
+    dict (every value a tensor). Anything else raises, naming its keys."""
+    obj = torch.load(path, map_location=map_location, weights_only=True)
+    if isinstance(obj, dict):
+        if isinstance(obj.get("state"), dict) and "model" in obj["state"]:
+            return obj["state"]["model"]
+        if isinstance(obj.get("model"), dict) and "step" in obj:
+            return obj["model"]
+        if obj and all(isinstance(v, torch.Tensor) for v in obj.values()):
+            return obj
+    keys = sorted(obj) if isinstance(obj, dict) else type(obj).__name__
+    raise ValueError(
+        f"{path}: not a checkpoint, a save_model file or a model state "
+        f"dict (found {keys})")
 
 
 class EarlyStopping:

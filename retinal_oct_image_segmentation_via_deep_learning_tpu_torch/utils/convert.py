@@ -9,15 +9,16 @@ variable tree, so that a model trained here can be held against the JAX
 package). The U-Net's and ReLayNet's maps are fixed (``unet_layer_map``,
 whose ``remat_stages`` spelling names the blocks ``CheckpointUNetBlock_N``;
 ``relaynet_layer_map``), SDNet's follows its levels, and ``layer_map`` reads
-the map of Y-Net, EdgeAL, AnoGAN, FourierNet or an FFC unit off the built
-port module. ``unet_state_dict_from_jax`` and the other named pairs wrap
-the two directions.
+the map of Y-Net, EdgeAL, AnoGAN, FourierNet, MGU-Net, ISLAM, LightReSeg
+or an FFC unit off the built port module. ``unet_state_dict_from_jax``
+and the other named pairs wrap the two directions.
 
 Layouts: conv kernel (kh, kw, in, out) -> weight (out, in, kh, kw);
 ConvTranspose kernel (k, k, in, out) -> weight (in, out, k, k) (the JAX
 package stores it like torch, flipped at use); Dense (in, out) -> (out,
 in); BatchNorm scale, bias, mean, var -> weight, bias, running_mean,
-running_var; PReLU alpha -> weight.
+running_var; GroupNorm and LayerNorm scale, bias -> weight, bias; PReLU
+alpha -> weight; a bare parameter (``cls_token``, ``gamma``) as it is.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ from ..models import ffc
 from ..models.anogan import AnoGAN
 from ..models.edgeal import EdgeAL
 from ..models.fouriernet import FourierNet
+from ..models.islam import ISLAM
+from ..models.lightreseg import LightReSeg
+from ..models.mgunet import MGUNet
 from ..models.relaynet import BLOCK_NAMES as RELAYNET_BLOCKS
 from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES, YNet
 
@@ -358,9 +362,176 @@ def _fouriernet_map(m, prefix, path) -> list:
                    ["head"]))
 
 
+def _basconv_map(prefix, path) -> list:
+    """An MGU-Net ``Basconv``: its BatchNorm is a bare flax one."""
+    return [(f"{prefix}conv", path + ("Conv_0",), "conv"),
+            (f"{prefix}bn", path + ("BatchNorm_0",), "bare_bn")]
+
+
+def _unet_conv_map(prefix, path) -> list:
+    return [(f"{prefix}conv{j + 1}.{name}", path + (f"{layer}_{j}",), kind)
+            for j in (0, 1)
+            for name, layer, kind in (("conv", "Conv", "conv"),
+                                      ("bn", "BatchNorm", "bare_bn"))]
+
+
+def _glore_map(prefix, path) -> list:
+    return [(f"{prefix}{name}", path + (f"Conv_{j}",), "conv")
+            for j, name in enumerate(("state", "proj", "extend"))]
+
+
+def _mgunet_map(m, prefix, path) -> list:
+    out = []
+    for i in range(3):
+        out += _unet_conv_map(f"{prefix}encoders.{i}.", path + (
+            f"UnetConv_{i}",))
+    mgr, mp = f"{prefix}mgr.", path + ("MGRModule_0",)
+    out += _basconv_map(f"{mgr}branch0.", mp + ("Basconv_0",))
+    out += _glore_map(f"{mgr}glore0.", mp + ("GloReUnit_0",))
+    for i in range(3):  # flax numbers the branches' Basconvs in call order
+        out += _basconv_map(f"{mgr}pre.{i}.", mp + (f"Basconv_{2 * i + 1}",))
+        out += _basconv_map(f"{mgr}post.{i}.", mp + (f"Basconv_{2 * i + 2}",))
+        out += _glore_map(f"{mgr}glore.{i}.", mp + (f"GloReUnit_{i + 1}",))
+    out += _basconv_map(f"{mgr}fuse.", mp + ("Basconv_7",))
+    out += _unet_conv_map(f"{prefix}center.", path + ("UnetConv_3",))
+    for k in range(3):
+        out.append((f"{prefix}ups.{k}", path + (
+            (f"ConvTranspose_{k}",) if m.is_deconv else (f"Conv_{k}",)),
+            "ct" if m.is_deconv else "conv"))
+        out += _unet_conv_map(f"{prefix}decoders.{k}.",
+                              path + (f"UnetConv_{k + 4}",))
+    head = "Conv_0" if m.is_deconv else "Conv_3"
+    return out + [(f"{prefix}head", path + (head,), "conv")]
+
+
+def _se_map(prefix, path) -> list:
+    return [(f"{prefix}fc{j + 1}", path + (f"Dense_{j}",), "dense")
+            for j in (0, 1)]
+
+
+def _islam_res_map(prefix, path, stem=False) -> list:
+    """A ``StemBlock`` or ``ResNetBlock``, in its flax call order."""
+    if stem:
+        names = (("conv1", "Conv_0", "conv"), ("bn1", "BatchNorm_0", "bn"),
+                 ("conv2", "Conv_1", "conv"), ("short", "Conv_2", "conv"),
+                 ("bn_short", "BatchNorm_1", "bn"))
+    else:
+        names = (("bn1", "BatchNorm_0", "bn"), ("conv1", "Conv_0", "conv"),
+                 ("bn2", "BatchNorm_1", "bn"), ("conv2", "Conv_1", "conv"),
+                 ("short", "Conv_2", "conv"),
+                 ("bn_short", "BatchNorm_2", "bn"))
+    return ([(f"{prefix}{n}", path + (layer,), kind)
+             for n, layer, kind in names]
+            + _se_map(f"{prefix}se.", path + ("SqueezeExcitation_0",)))
+
+
+def _aspp_map(m, prefix, path) -> list:
+    gn = isinstance(m.norms[0], torch.nn.GroupNorm)
+    out = []
+    for i in range(len(m.convs)):
+        out += [(f"{prefix}convs.{i}", path + (f"Conv_{i}",), "conv"),
+                (f"{prefix}norms.{i}", path + (
+                    (f"GroupNorm_{i}",) if gn else (f"BatchNorm_{i}",)),
+                 "norm" if gn else "bn")]
+    return out + [(f"{prefix}out", path + (f"Conv_{len(m.convs)}",), "conv")]
+
+
+def _islam_decoder_map(prefix, path) -> list:
+    a, ap = f"{prefix}att.", path + ("AttentionBlock_0",)
+    out = [(f"{a}{n}", ap + (f"{layer}_{j}",), kind)
+           for j, (bn, cv) in enumerate((("bn_g", "conv_g"),
+                                         ("bn_x", "conv_x"),
+                                         ("bn_gc", "conv_gc")))
+           for n, layer, kind in ((bn, "BatchNorm", "bn"),
+                                  (cv, "Conv", "conv"))]
+    return out + _islam_res_map(f"{prefix}res.", path + ("ResNetBlock_0",))
+
+
+def _islam_map(m, prefix, path) -> list:
+    out = _islam_res_map(f"{prefix}stem.", path + ("StemBlock_0",), True)
+    for i in range(5):
+        out += _islam_res_map(f"{prefix}stages.{i}.",
+                              path + (f"ResNetBlock_{i}",))
+    out += _aspp_map(m.aspp, f"{prefix}aspp.", path + ("ASPP_0",))
+    for i in range(3):
+        out += _islam_decoder_map(f"{prefix}decoders.{i}.",
+                                  path + (f"DecoderBlock_{i}",))
+    out += _islam_decoder_map(f"{prefix}dec5.", path + ("DecoderBlock_3",))
+    if m.use_multi_head:
+        heads = [f"heads.{i}" for i in range(3)]
+        if m.gaussian_output:
+            heads += [f"var_heads.{i}" for i in range(3)]
+        for i, h in enumerate(heads):
+            hp = path + (f"CustomHead_{i}",)
+            out += _islam_decoder_map(f"{prefix}{h}.dec.",
+                                      hp + ("DecoderBlock_0",))
+            out += _aspp_map(m.heads[0].aspp, f"{prefix}{h}.aspp.",
+                             hp + ("ASPP_0",))
+            out.append((f"{prefix}{h}.out", hp + ("Conv_0",), "conv"))
+        return out
+    out += _islam_decoder_map(f"{prefix}dec6.", path + ("DecoderBlock_4",))
+    out += _aspp_map(m.aspp_out, f"{prefix}aspp_out.", path + ("ASPP_1",))
+    out.append((f"{prefix}conv9", path + ("Conv_0",), "conv"))
+    if m.gn is not None:
+        out.append((f"{prefix}gn", path + ("GroupNorm_0",), "norm"))
+    return out + [(f"{prefix}head", path + ("Conv_1",), "conv")]
+
+
+def _contracting_map(prefix, path) -> list:
+    return [(f"{prefix}{n}{j + 1}", path + (f"{layer}_{j}",), kind)
+            for j in (0, 1)
+            for n, layer, kind in (("conv", "Conv", "conv"),
+                                   ("bn", "BatchNorm", "bn"))]
+
+
+def _separable_map(prefix, path) -> list:
+    out = [(f"{prefix}{n}", path + (f"Conv_{j}",), "conv")
+           for j, n in enumerate(("dw1", "pw1", "dw2", "pw2"))]
+    return out + [(f"{prefix}bn{j + 1}", path + (f"BatchNorm_{j}",), "bn")
+                  for j in (0, 1)]
+
+
+def _lightreseg_map(m, prefix, path) -> list:
+    out = []
+    for i in range(4):
+        out += _contracting_map(f"{prefix}contract.{i}.",
+                                path + (f"ContractingBlock_{i}",))
+        out += _separable_map(f"{prefix}down.{i}.",
+                              path + (f"SeparableDown_{i}",))
+    out += [(f"{prefix}embed", path + ("Dense_0",), "dense"),
+            (f"{prefix}cls_token", path + ("cls_token",), "param"),
+            (f"{prefix}pos_embedding", path + ("pos_embedding",), "param")]
+    vp = path + ("ViTBlockStack_0",)
+    for i in range(len(m.vit)):  # flax numbers each kind across the layers
+        v = f"{prefix}vit.{i}."
+        out += [(f"{v}norm1", vp + (f"LayerNorm_{2 * i}",), "norm"),
+                (f"{v}attn.qkv", vp + (f"ViTAttention_{i}", "Dense_0"),
+                 "dense"),
+                (f"{v}attn.out", vp + (f"ViTAttention_{i}", "Dense_1"),
+                 "dense"),
+                (f"{v}norm2", vp + (f"LayerNorm_{2 * i + 1}",), "norm"),
+                (f"{v}fc1", vp + (f"Dense_{2 * i}",), "dense"),
+                (f"{v}fc2", vp + (f"Dense_{2 * i + 1}",), "dense")]
+    out += _contracting_map(f"{prefix}bottleneck.",
+                            path + ("ContractingBlock_4",))
+    for i in range(4):
+        e, ep = f"{prefix}expand.{i}.", path + (f"ExpansiveBlock_{i}",)
+        ap = ep + ("AttentionModule_0",)
+        out.append((f"{e}up", ep + ("ConvTranspose_0",), "ct"))
+        out += [(f"{e}att.dw.{j}", ap + (f"Conv_{j}",), "conv")
+                for j in range(7)]
+        out += [(f"{e}att.cam.{j}.gamma",
+                 ap + (f"ChannelAttentionModule_{j}", "gamma"), "param")
+                for j in range(4)]
+        out.append((f"{e}att.gate", ap + ("Conv_7",), "conv"))
+    return out + [(f"{prefix}head", path + ("Conv_0",), "conv"),
+                  (f"{prefix}head_bn", path + ("BatchNorm_0",), "bn")]
+
+
 def layer_map(module, prefix: str = "", path: tuple = ()) -> list:
     """The layer map of a port module of the FFC stack or the zoo (Y-Net,
-    EdgeAL, AnoGAN, FourierNet, an FFC unit, a wrapper), its names under
+    EdgeAL, AnoGAN, FourierNet, MGU-Net, ISLAM, LightReSeg, an FFC unit, a
+    wrapper), its names under
     ``prefix`` and its Flax modules under ``path``, read off the module:
     which paths exist follows the channel splits it was built with, and
     Flax numbers each kind of submodule in call order."""
@@ -380,7 +551,10 @@ _MAPS = ((ffc.FourierUnit, _fourier_unit_map),
          (YNet, _ynet_map),
          (EdgeAL, _edgeal_map),
          (AnoGAN, _anogan_map),
-         (FourierNet, _fouriernet_map))
+         (FourierNet, _fouriernet_map),
+         (MGUNet, _mgunet_map),
+         (ISLAM, _islam_map),
+         (LightReSeg, _lightreseg_map))
 
 
 # -- the two directions ------------------------------------------------------
@@ -398,7 +572,7 @@ def _node(tree, path):
 
 
 def _key(name: str, leaf: str) -> str:
-    return f"{name}.{leaf}" if name else leaf
+    return ".".join(part for part in (name, leaf) if part)
 
 
 def state_dict_from_jax(variables, layer_map) -> OrderedDict:
@@ -407,25 +581,34 @@ def state_dict_from_jax(variables, layer_map) -> OrderedDict:
     module path, kind)], kind "conv" (a ``Conv`` wrapper: kernel (kh, kw,
     in, out) -> (out, in, kh, kw)), "dense" ((in, out) -> (out, in)), "ct"
     (a ``ConvTranspose``: (k, k, in, out) -> (in, out, k, k)), "bn"
-    (a ``BatchNorm`` wrapper), "prelu" (``alpha`` -> weight) or "angle"
-    (the spatial-transform wrapper's ``angle``)."""
+    (a ``BatchNorm`` wrapper), "bare_bn" (a flax ``BatchNorm`` itself),
+    "norm" (a flax ``GroupNorm`` or ``LayerNorm``: scale, bias -> weight,
+    bias), "prelu" (``alpha`` -> weight), "angle" (the spatial-transform
+    wrapper's ``angle``) or "param" (a bare parameter, the path's last
+    entry, under the port name itself)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd = OrderedDict()
     for name, path, kind in layer_map:
         p = _node(params, path)
-        if kind == "bn":
-            s = _node(stats, path)["BatchNorm_0"]
-            p = p["BatchNorm_0"]
+        if kind in ("bn", "bare_bn"):
+            s = _node(stats, path)
+            if kind == "bn":
+                s, p = s["BatchNorm_0"], p["BatchNorm_0"]
             for leaf, v in (("weight", p["scale"]), ("bias", p["bias"]),
                             ("running_mean", s["mean"]),
                             ("running_var", s["var"])):
                 sd[_key(name, leaf)] = _t(v)
             sd[_key(name, "num_batches_tracked")] = torch.tensor(0)
+        elif kind == "norm":
+            sd[_key(name, "weight")] = _t(p["scale"])
+            sd[_key(name, "bias")] = _t(p["bias"])
         elif kind == "prelu":
             sd[_key(name, "weight")] = _t(p["alpha"])
         elif kind == "angle":
             sd[_key(name, "angle")] = _t(p["angle"])
+        elif kind == "param":
+            sd[_key(name, "")] = _t(p)
         else:
             inner, perm = _KERNELS[kind]
             if inner is not None:
@@ -451,12 +634,18 @@ def variables_from_state_dict(state_dict, layer_map) -> dict:
 
     params, stats = {}, {}
     for name, path, kind in layer_map:
-        if kind == "bn":
-            put(params, path + ("BatchNorm_0",), {
+        if kind in ("bn", "bare_bn"):
+            inner = ("BatchNorm_0",) if kind == "bn" else ()
+            put(params, path + inner, {
                 "scale": a(name, "weight"), "bias": a(name, "bias")})
-            put(stats, path + ("BatchNorm_0",), {
+            put(stats, path + inner, {
                 "mean": a(name, "running_mean"),
                 "var": a(name, "running_var")})
+        elif kind == "norm":
+            put(params, path, {"scale": a(name, "weight"),
+                               "bias": a(name, "bias")})
+        elif kind == "param":
+            put(params, path[:-1], {path[-1]: a(name, "")})
         elif kind == "prelu":
             put(params, path, {"alpha": a(name, "weight")})
         elif kind == "angle":

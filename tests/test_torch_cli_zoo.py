@@ -1,0 +1,135 @@
+"""The port's CLI around checkpoints and the zoo, on the CPU:
+``--checkpoint`` reads the file that ``train --checkpoint-dir`` writes, a
+``save_model`` file and a bare state dict (anything else raises, naming its
+keys); ``smoke`` reports a failing model and goes on, and raises under
+``--strict``, as the JAX CLI's; ``smoke`` runs MGU-Net, ISLAM and LightReSeg
+at the JAX CLI's sizes with the JAX models' parameter counts; ``train``
+and ``infer`` run each of them through ``Trainer``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import cli
+
+NC = 5
+
+
+def _port(argv):
+    return cli.main([argv[0], *argv[1:], "--device", "cpu"])
+
+
+def test_eval_reads_the_checkpoint_train_wrote(tmp_path):
+    """``train --checkpoint-dir d`` writes ``d/ckpt_0.pt`` (the manager's
+    train state and metrics); ``eval --checkpoint`` on it builds the
+    trained weights and scores them: the same confusion as from a
+    ``save_model`` file and from a bare model state dict of the same state.
+    A file of another shape raises, naming its keys."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.checkpoint import (
+        load_model,
+        save_model,
+    )
+
+    d = tmp_path / "ckpt"
+    width = ["--model-kwargs", '{"init_features": 4}']
+    state = _port(["train", "--image-size", "32", "--epochs", "1",
+                   "--batch-size", "2", "--num-train", "4", "--num-val",
+                   "2", "--num-classes", str(NC), "--dtype", "float32",
+                   "--checkpoint-dir", str(d), *width])
+    assert sorted(p.name for p in d.iterdir()) == ["ckpt_0.pt"]
+    save_model(str(tmp_path / "whole.pt"), state)
+    torch.save(state.model.state_dict(), tmp_path / "bare.pt")
+    evals = ["eval", "--image-size", "32", "--num-val", "2", "--num-classes",
+             str(NC), "--batch-size", "2", "--dtype", "float32", *width]
+    files = (d / "ckpt_0.pt", tmp_path / "whole.pt", tmp_path / "bare.pt")
+    for f in files:
+        trainer, _ = cli.build_eval_trainer(cli.parser().parse_args(
+            [*evals, "--device", "cpu", "--checkpoint", str(f)]))
+        for k, v in state.model.state_dict().items():
+            assert torch.equal(trainer.model.state_dict()[k], v), (f, k)
+    got = [_port([*evals, "--checkpoint", str(f)])["confusion"]
+           for f in files]
+    assert all(np.array_equal(g, got[0]) for g in got)
+    # load_model restores the whole state
+    twin = cli.build_training(cli.parser().parse_args([
+        "train", "--device", "cpu", "--image-size", "32",
+        "--num-classes", str(NC), *width]))[0].init_state()
+    load_model(str(tmp_path / "whole.pt"), twin)
+    assert twin.step == state.step
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(twin.model.state_dict()[k], v), k
+    torch.save({"weights": {"a": 1}, "epoch": 3}, tmp_path / "other.pt")
+    with pytest.raises(ValueError, match=r"\['epoch', 'weights'\]"):
+        _port([*evals, "--checkpoint", str(tmp_path / "other.pt")])
+
+
+def test_smoke_reports_a_failing_model_and_goes_on(monkeypatch, capsys):
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
+        registry,
+    )
+
+    def broken(**kw):
+        raise RuntimeError("planted")
+
+    monkeypatch.setitem(registry._MODELS, "unet", broken)
+    argv = ["smoke", "--model", "unet", "--device", "cpu"]
+    assert cli.main(argv) is None
+    assert capsys.readouterr().out.split() == ["unet", "FAIL:",
+                                               "RuntimeError:", "planted"]
+    with pytest.raises(RuntimeError, match="planted"):
+        cli.main([*argv, "--strict"])
+
+
+@pytest.mark.parametrize("name,size", [("mgunet", 160), ("mgunet_2", 160),
+                                       ("islam", 64), ("lightreseg", 64)])
+def test_smoke_new_models_at_the_jax_sizes(name, size, capsys):
+    """``smoke`` runs MGU-Net at 160x160 (the JAX CLI's size for it) and
+    the others at 64x64, with the JAX model's parameter count
+    (``jax.eval_shape`` of the JAX CLI's init)."""
+    import jax
+    import jax.numpy as jnp
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu.registry import (
+        get_model as jax_get_model,
+    )
+
+    cli.main(["smoke", "--model", name, "--num-classes", "4", "--device",
+              "cpu", "--strict"])
+    (line,) = capsys.readouterr().out.splitlines()
+    assert line.startswith(name) and " ok " in line
+    assert f"(1, 4, {size}, {size})" in line
+    shapes = jax.eval_shape(jax_get_model(name, num_classes=4).init,
+                            jax.random.PRNGKey(0),
+                            jnp.zeros((1, size, size, 1)))
+    n = sum(int(np.prod(t.shape)) for t in jax.tree.leaves(shapes["params"]))
+    assert f"params={n:>12,}" in line
+
+
+@pytest.mark.parametrize("name,size,kwargs", [
+    ("mgunet", 160, '{"feature_scale": 16}'),
+    ("mgunet_2", 64, '{"feature_scale": 16}'),
+    ("islam", 32, "{}"),
+    ("lightreseg", 32, "{}"),
+])
+def test_train_then_infer_new_models(name, size, kwargs, tmp_path):
+    """``train`` runs each new model through ``Trainer`` (one epoch of two
+    steps, finite losses, its BatchNorms' running statistics moved) and
+    ``infer`` writes its masks (the checkpoint round trip is
+    ``test_eval_reads_the_checkpoint_train_wrote``'s)."""
+    common = ["--model", name, "--image-size", str(size), "--batch-size",
+              "2", "--num-classes", "4", "--dtype", "float32",
+              "--model-kwargs", kwargs]
+    log = tmp_path / "log.jsonl"
+    state = _port(["train", *common, "--epochs", "1", "--num-train", "4",
+                   "--num-val", "2", "--log-file", str(log)])
+    assert state.step == 2
+    rec = log.read_text().splitlines()
+    assert len(rec) == 1
+    assert np.isfinite(float(rec[0].split('"train_loss": ')[1].split(",")[0]))
+    stats = [m.running_var for m in state.model.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+    assert stats and all(not torch.all(v == 1) for v in stats)
+    masks = _port(["infer", *common, "--out-dir", str(tmp_path / "o")])
+    assert tuple(masks.shape) == (2, size, size)
+    assert np.load(tmp_path / "o" / "masks.npy").shape == (2, size, size)

@@ -5,6 +5,8 @@ Inputs come from numpy generators and cross between the two frameworks as
 numpy arrays; JAX runs on the CPU (tests/conftest.py).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -202,7 +204,8 @@ def port_psrp_labels_full_pipeline(case):
 
 
 def test_registry():
-    assert list_models() == ["anogan", "edgeal", "fouriernet", "relaynet",
+    assert list_models() == ["anogan", "edgeal", "fouriernet", "islam",
+                             "lightreseg", "mgunet", "mgunet_2", "relaynet",
                              "sdnet", "unet", "y_net_gen", "y_net_gen_ffc"]
     m = get_model("unet", num_classes=4, init_features=4)
     assert m.conv.out_channels == 4
@@ -217,8 +220,10 @@ def test_registry():
     m = get_model("edgeal", in_channels=1, num_classes=3, ngf=8,
                   n_blocks=1, n_downsampling=2)
     assert m.head.out_channels == 3
+    m = get_model("mgunet_2", num_classes=4, feature_scale=8)
+    assert m.pools == (2, 2, 2) and m.head.out_channels == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("mgunet")
+        get_model("msnet")
 
 
 def test_config_defaults_match_jax():
@@ -257,7 +262,9 @@ def jax_variables(module, *inputs, seed=0, **kw):
     (read by ``jax.eval_shape``, nothing compiled), drawn from ``seed``:
     kernels U(+-1/sqrt(fan_in)) as torch draws them, BatchNorm affines and
     statistics and biases random, so that a statistic, an affine or a bias
-    carried to the wrong layer shows; ``angle`` U(0, 80)."""
+    carried to the wrong layer shows; ``angle`` U(0, 80); the channel
+    attentions' ``gamma`` U(0.5, 1) (zero at init, which would hide them);
+    ``cls_token`` and ``pos_embedding`` N(0, 1)."""
     shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
                                                 *inputs, **kw))
     rng = np.random.default_rng(seed)
@@ -266,6 +273,9 @@ def jax_variables(module, *inputs, seed=0, **kw):
             "scale": lambda s: rng.uniform(0.5, 1.5, s),
             "bias": lambda s: rng.normal(0, 0.1, s),
             "angle": lambda s: rng.uniform(0, 80, s),
+            "gamma": lambda s: rng.uniform(0.5, 1.0, s),
+            "cls_token": lambda s: rng.normal(0, 1, s),
+            "pos_embedding": lambda s: rng.normal(0, 1, s),
             "kernel": lambda s: rng.uniform(-1, 1, s) / np.sqrt(
                 np.prod(s[:-1]))}
 
@@ -299,3 +309,96 @@ def tree_shapes(tree):
     """{path: shape} of a variable tree (numpy or ``jax.eval_shape``)."""
     return {jax.tree_util.keystr(k): tuple(leaf.shape) for k, leaf in
             jax.tree_util.tree_leaves_with_path(tree)}
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_train_fn(jm, grad):
+    """The jitted ``jax_eval_train`` of the JAX module ``jm``, kept so that
+    a second input of the same shape reuses its compile."""
+
+    def both(v, x, cot):
+        def loss(params):
+            out, mut = jm.apply({"params": params,
+                                 "batch_stats": v["batch_stats"]}, x,
+                                train=True, mutable=["batch_stats"])
+            return jnp.sum(out * cot) if grad else 0.0, (out, mut)
+
+        if grad:
+            (_, (train, mut)), grads = jax.value_and_grad(
+                loss, has_aux=True)(v["params"])
+        else:
+            _, (train, mut) = loss(v["params"])
+        out = (jm.apply(v, x, train=False), train, mut["batch_stats"])
+        return out + ((grads,) if grad else ())
+
+    return jax.jit(both)
+
+
+def jax_eval_train(jm, x, v, cot=None):
+    """(eval output, train output, batch_stats after the train call[,
+    gradient of sum(train output * cot) over the params]) of the JAX
+    module ``jm`` on the NHWC input ``x``, one compile per module."""
+    return _eval_train_fn(jm, cot is not None)(v, jnp.asarray(x), cot)
+
+
+def load_jax(tm, v):
+    """The port module ``tm`` with the JAX variables ``v`` loaded through
+    ``utils/convert.layer_map``."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.utils.convert import (
+        layer_map,
+        state_dict_from_jax,
+    )
+
+    tm.load_state_dict(state_dict_from_jax(v, layer_map(tm)))
+    return tm
+
+
+def check_zoo_forward(tm, v, x, want, stats, train, tol=1e-4):
+    """Load ``v`` into the port module ``tm`` through ``layer_map``, run
+    it on ``x`` (NHWC numpy) in eval or train mode, and hold each output
+    to ``want`` (an NHWC array or a tuple of them) at ``tol``
+    scale-relative; after a train call, its running statistics too."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.utils.convert import (
+        layer_map,
+        variables_from_state_dict,
+    )
+
+    with torch.no_grad():
+        got = load_jax(tm, v).train(train)(nchw(x))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert scale_rel(g, w) <= tol
+    if train:
+        back = variables_from_state_dict(tm.state_dict(), layer_map(tm))
+        want_stats = dict(jax.tree_util.tree_leaves_with_path(stats))
+        got_stats = jax.tree_util.tree_leaves_with_path(back["batch_stats"])
+        assert len(got_stats) == len(want_stats)
+        for path, leaf in got_stats:
+            assert scale_rel(leaf, want_stats[path]) <= tol, path
+    return got
+
+
+def default_tree_matches(jm, tm, hw):
+    """The port module ``tm``'s layer-map tree equals ``jax.eval_shape``
+    of the JAX module ``jm``'s init on a (1, hw, hw, 1) input, leaf for
+    leaf, and the tree carried back gives the state dict again; -> the
+    parameter count, which must also agree."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.utils.convert import (
+        layer_map,
+        state_dict_from_jax,
+        variables_from_state_dict,
+    )
+
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, hw, hw, 1)))
+    sd = tm.state_dict()
+    back = variables_from_state_dict(sd, layer_map(tm))
+    assert tree_shapes(back) == tree_shapes(shapes)
+    again = state_dict_from_jax(back, layer_map(tm))
+    assert sorted(again) == sorted(sd)
+    assert all(torch.equal(again[k], sd[k]) for k in sd)
+    n = sum(int(np.prod(t.shape)) for t in jax.tree.leaves(shapes["params"]))
+    assert sum(p.numel() for p in tm.parameters()) == n
+    return n

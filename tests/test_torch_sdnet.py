@@ -345,10 +345,22 @@ def test_cli_smoke_sdnet(capsys):
 
 
 def test_cli_smoke_all_and_unported(capsys):
+    """``smoke --model all`` prints an ok line for each of the 12 ported
+    names; a name not ported prints its FAIL line (the JAX CLI's
+    reporting) and raises under ``--strict``."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
+        cli,
+    )
+
     lines = _smoke(capsys, "all")
     assert [ln.split()[0] for ln in lines] == [
-        "anogan", "edgeal", "fouriernet", "relaynet", "sdnet", "unet",
-        "y_net_gen", "y_net_gen_ffc"]
+        "anogan", "edgeal", "fouriernet", "islam", "lightreseg", "mgunet",
+        "mgunet_2", "relaynet", "sdnet", "unet", "y_net_gen",
+        "y_net_gen_ffc"]
     assert all(" ok " in ln for ln in lines)
+    (line,) = _smoke(capsys, "msnet")
+    assert line.split()[:3] == ["msnet", "FAIL:", "NotImplementedError:"]
+    assert "ROADMAP" in line
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _smoke(capsys, "mgunet")
+        cli.main(["smoke", "--model", "msnet", "--device", "cpu",
+                  "--strict"])
