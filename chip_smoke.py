@@ -4,8 +4,9 @@ U-Net's w4a4 serving mode and fused head, its U-Net training path (with and
 without the fused Dice+CE loss), SDNet's forward and composite train step,
 the real-data path (Duke DME volumes through ``train --data`` and
 ``eval --data``), the zoo's first models (Y-Net plain and FFC, EdgeAL,
-FourierNet, AnoGAN) and MGU-Net (both variants), ISLAM and LightReSeg once
-on one NVIDIA GPU.
+FourierNet, AnoGAN), MGU-Net (both variants), ISLAM and LightReSeg, and
+MSNet, M2SNet, BioNet, WAT-Net, Masood and RetiFluidNet once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -227,6 +228,23 @@ Phases (any failure raises; the exit code is then non-zero):
     ISLAM's 97, 81 and 27, LightReSeg's head at 10 classes), both modes,
     relative error within 1e-6 and a bit-equal repeat; on ISLAM and
     LightReSeg the K6 gate as in phase 32.
+34. MSNet and M2SNet (Res2Net-50), BioNet (ResNet-18), WAT-Net, Masood
+    and RetiFluidNet at the JAX defaults' full width from seed 0, 10
+    classes: the eval forward on the card against the CPU at 128x128 with
+    TF32 off (1e-4 of the largest output; BioNet's three outputs;
+    RetiFluidNet, its SDA convs redrawn off the saturation of the published
+    ones, on its probability channels, its one-hot bicon maps equal where
+    the CPU's top two probabilities are more than 1e-5 apart); Masood's
+    GLCM features of 8 B-scans at 512^2, levels and matrices equal; the
+    bf16 forward at batch 8 with its peak memory; one ``cli train`` epoch
+    of 4 steps (RetiFluidNet at batch 4, the others at 8) with K6's
+    launches a step equal to ``ZOO3``'s count (218, 298, 40, 40, 36);
+    BioNet, which no trainer takes, one train-mode forward and backward
+    of its outputs' mean in the phase (K6 96); each step's ms, peak
+    memory and profile; ``k6_odd_channels`` on the M2SNet step (Res2Net's
+    26- and 52-channel BatchNorms); the K6 gate on M2SNet (its shared
+    filters' BatchNorms run four times a unit) and WAT-Net (1024-channel
+    BatchNorms, shared WAT gates).
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -4234,6 +4252,270 @@ def zoo2_phase(dev, card, time_ms):
         raise RuntimeError(f"phase 33: {bad}")
 
 
+# phase 34: (registry name, label, train batch, K6 launches a step: one
+# forward and one backward launch per train-mode BatchNorm)
+ZOO3 = (
+    # Res2Net-50: 3 in the stem, 5 in each of the 16 Bottle2necks and 4
+    # downsamples; 22 ConvBRs
+    ("msnet", "MSNet", 8, 2 * (87 + 22)),
+    # and the two shared CNN1 filters, called 4 times in each of 10 units
+    ("m2snet", "M2SNet", 8, 2 * (87 + 22 + 40)),
+    ("watnet", "WAT-Net", 8, 2 * 20),  # 10 X2Convs x 2
+    ("masood", "Masood", 8, 2 * 20),  # 4 CNNBranches x 5
+    # 9 ConvStages x 2; its two full-size SDAs hold a (128^2)^2 float32
+    # pixel attention, 1 GiB an image, and its softmax
+    ("retifluidnet", "RetiFluidNet", 4, 2 * 18),
+)
+# BioNet (three outputs, no trainer in either package): one train-mode
+# forward and backward in the phase; the two BioUNets' 28 BatchNorms and
+# ResNet-18's 20
+BIONET_K6_PER_STEP = 2 * (28 + 20)
+# card against CPU (phase 34, 128^2): (label, name); RetiFluidNet apart
+ZOO3_CARD_VS_CPU = (("MSNet", "msnet"), ("M2SNet", "m2snet"),
+                    ("BioNet", "bionet"), ("WAT-Net", "watnet"),
+                    ("Masood", "masood"))
+ZOO3_SIDE = 128
+
+
+def retifluid_off_saturation(model):
+    """``model`` with its SDAs' 1x1 convs redrawn torch's default way
+    (seed ``SEED + 1``) instead of the published 1.0: a conv of ones sums
+    every channel into each, the features grow stage by stage, and at
+    128^2 every probability of the model at its init is exactly 0 or 1,
+    which no comparison can read."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.models.retifluidnet import (
+        SDA,
+    )
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    for m in model.modules():
+        if isinstance(m, SDA):
+            for c in (m.pixel_conv, m.chan_conv):
+                torch.nn.init.kaiming_uniform_(c.weight, a=math.sqrt(5),
+                                               generator=g)
+    return model
+
+
+def retifluid_card_vs_cpu(dev, bad, cpu_model, x, nc):
+    """RetiFluidNet's eval forward on the card against the CPU (float32,
+    TF32 off): the 5 * nc probability channels within 1e-4 of the largest
+    CPU output; the 40 bicon channels equal wherever the CPU's top two
+    probabilities of the head each map comes from differ by more than
+    1e-5 (an argmax at a near-tie may flip), the other pixels counted."""
+    import copy
+
+    import torch
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    with torch.no_grad():
+        want = cpu_model.eval()(x)
+        model = copy.deepcopy(cpu_model).to(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got = model(x.to(dev)).cpu()
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+    n, _, h, w = want.shape
+    rel = float((got[:, 40:] - want[:, 40:]).abs().max()
+                / want[:, 40:].abs().max())
+    # heads in bicon order: main, output1, output2, output3, output4
+    probs = want[:, 40:].reshape(n, 5, nc, h, w)[:, [0, 4, 3, 2, 1]]
+    top2 = probs.topk(2, dim=2).values
+    clear = (top2[:, :, 0] - top2[:, :, 1]) > 1e-5  # (n, 5, h, w)
+    g = got[:, :40].reshape(n, 5, 8, h, w)
+    wb = want[:, :40].reshape(n, 5, 8, h, w)
+    differ = int(((g != wb).any(dim=2) & clear).sum())
+    inner = float(((want[:, 40:] > 1e-6) & (want[:, 40:] < 1 - 1e-6))
+                  .float().mean())
+    print(f"RetiFluidNet, SDA convs redrawn: card vs CPU, eval forward "
+          f"{tuple(x.shape)}, TF32 off ({inner:.2%} of the CPU's "
+          f"probabilities off 0 and 1): probabilities max |difference| / "
+          f"max |CPU| {rel:.3e} "
+          f"(limit 1e-4); bicon maps: {differ} pixels differ where the top "
+          f"two probabilities are more than 1e-5 apart (limit 0), "
+          f"{int((~clear).sum())} of {clear.numel()} head pixels at a "
+          f"near-tie not compared", flush=True)
+    if not rel <= 1e-4 or differ:
+        bad.append(f"RetiFluidNet card vs CPU {rel:.3e}, bicon {differ}")
+
+
+def glcm_card_vs_cpu(dev, bad):
+    """Masood's GLCM features of a batch of 8 B-scans at 512^2 on the card
+    against the CPU: the quantised levels and the eight co-occurrence
+    matrices of each image equal, the 64 features within 1e-5 of each
+    feature's largest CPU value."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        glcm,
+    )
+
+    xb, _ = train_batch(dev, ZOO_BATCH, SEED + 98)
+    img = xb[..., 0].float()
+    q, q_cpu = glcm.quantize_reference(img), glcm.quantize_reference(
+        img.cpu())
+    same = bool((q.cpu() == q_cpu).all())
+    for r, c in glcm.reference_offsets():
+        same &= bool((glcm.glcm_single(q, r, c).cpu()
+                      == glcm.glcm_single(q_cpu, r, c)).all())
+    got = glcm.glcm_feature_vector(img).cpu()
+    want = glcm.glcm_feature_vector(img.cpu())
+    rel = max(float((got[:, k::8] - want[:, k::8]).abs().max()
+                    / want[:, k::8].abs().max()) for k in range(8))
+    print(f"GLCM features, {tuple(img.shape)}: levels and co-occurrence "
+          f"matrices equal on the card and the CPU: {same}; features max "
+          f"|difference| / max |CPU| {rel:.3e} (limit 1e-5, per feature)",
+          flush=True)
+    if not (same and rel <= 1e-5):
+        bad.append(f"GLCM card vs CPU: equal {same}, {rel:.3e}")
+
+
+def bionet_step(dev, bad, time_ms, batch, nc):
+    """BioNet at ``batch``: the bf16 eval forward's ms, then one
+    train-mode forward and backward of the mean of its three outputs
+    (bf16 autocast; no loss or trainer exists for it) with K6 counted
+    from 0, its ms, peak memory and profile."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
+        get_model,
+    )
+
+    on_card = dev.type == "cuda"
+    model = get_model("bionet", in_channels=1, num_classes=nc, seed=SEED,
+                      device=dev)
+    print(f"BioNet ({nc} classes): "
+          f"{sum(p.numel() for p in model.parameters()):,} parameters",
+          flush=True)
+    xb, _ = train_batch(dev, batch, SEED + 90, nc)
+    xb = xb.permute(0, 3, 1, 2)
+
+    def forward():
+        with torch.autocast(dev.type, torch.bfloat16):
+            return model(xb)
+
+    with torch.no_grad():
+        ms = time_ms(forward, 5)
+    print(f"BioNet forward, batch {batch}, bf16 autocast: {ms:.3f} ms "
+          f"(median of 5), {batch / ms * 1e3:.1f} B-scans/s", flush=True)
+
+    def step():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out = forward()
+        sum(o.float().mean() for o in out).backward()
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    k6.pair_sums.launches = 0
+    step()
+    _sync(dev)
+    launches = k6.pair_sums.launches
+    print(f"BioNet step (forward and backward of the mean of its three "
+          f"outputs), batch {batch}: K6 launches {launches} (expected "
+          f"{BIONET_K6_PER_STEP})", flush=True)
+    if on_card and launches != BIONET_K6_PER_STEP:
+        bad.append(f"BioNet: K6 {launches} a step, expected "
+                   f"{BIONET_K6_PER_STEP}")
+    grads = [p.grad for p in model.parameters()]
+    if any(g is None or not bool(torch.isfinite(g).all()) for g in grads):
+        bad.append("BioNet: a gradient is missing or not finite")
+    for _ in range(2):
+        step()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    _sync(dev)
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = (f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if on_card else "not measured")
+    print(f"BioNet train step, batch {batch}: {ms:.3f} ms, "
+          f"{batch / ms * 1e3:.1f} B-scans/s, peak memory {peak}",
+          flush=True)
+    if on_card:
+        profile_breakdown(step, 3, f"BioNet steps at batch {batch}",
+                          {"K6 bn_pair_sums": "pair_sums"})
+
+
+def zoo3_phase(dev, card, time_ms):
+    """Phase 34: MSNet and M2SNet on Res2Net-50, BioNet on ResNet-18,
+    WAT-Net, Masood (Gabor, Haar and GLCM features) and RetiFluidNet at
+    the JAX defaults' full width from seed ``SEED``: the eval forward on
+    the card against the CPU, bf16 forwards, one ``cli train`` epoch each
+    at 512^2 (BioNet: one step in the phase) with K6 in every train-mode
+    BatchNorm (its launches a step against the counts above), the
+    readings, K6 against float64 at M2SNet's 26- and 52-channel
+    BatchNorms, and the K6 gate on M2SNet's and WAT-Net's steps (float32,
+    TF32 off)."""
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
+        get_model,
+    )
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    phase(f"34 MSNet, M2SNet, BioNet, WAT-Net, Masood, RetiFluidNet "
+          f"({HW}x{HW}, full width, seed {SEED}) on {card}")
+    bad = []
+    xs, _ = train_batch(dev, 2, SEED + 96)
+    xs = xs.permute(0, 3, 1, 2)[:, :, :ZOO3_SIDE, :ZOO3_SIDE].contiguous()
+    xs = xs.cpu()
+    for label, name in ZOO3_CARD_VS_CPU:
+        cpu_model = get_model(name, in_channels=1, num_classes=NC, seed=SEED)
+        if name == "masood":  # GLCM contrast and variance reach ~1e4:
+            with torch.no_grad():  # off saturation, the sigmoid shows all
+                cpu_model.head.weight[:, -64:] *= 1e-4
+            label += ", GLCM head weights x1e-4"
+        card_vs_cpu(dev, bad, label, cpu_model, xs)
+    glcm_card_vs_cpu(dev, bad)
+    retifluid_card_vs_cpu(dev, bad, retifluid_off_saturation(get_model(
+        "retifluidnet", num_classes=NC, seed=SEED)), xs, NC)
+    bionet_step(dev, bad, time_ms, ZOO_BATCH, NC)
+    if on_card:
+        torch.cuda.empty_cache()
+    for name, label, batch, want in ZOO3:
+        model = get_model(name, in_channels=1, num_classes=NC, seed=SEED,
+                          device=dev)
+        print(f"{label} ({NC} classes): "
+              f"{sum(p.numel() for p in model.parameters()):,} parameters",
+              flush=True)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        forward_time(dev, time_ms, label, model, ZOO_BATCH, NC)
+        if on_card:
+            print(f"{label} forward, batch {ZOO_BATCH}: peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+                  flush=True)
+        del model
+        trainer, state, per_step = trainer_epoch(dev, bad, name, NC, batch,
+                                                 ZOO_STEPS)
+        if on_card and per_step != want:
+            bad.append(f"{label}: K6 {per_step:g} a step, expected {want}")
+        images, labels = step_times(dev, label, trainer, state, batch, NC)
+        if on_card and name == "m2snet":
+            k6_odd_channels(dev, label, trainer, images, labels, k6, bad)
+        if name in ("m2snet", "watnet"):
+            k6_gate(label, trainer, images, labels, k6, bad, on_card)
+        del trainer, state, images, labels
+        if on_card:
+            torch.cuda.empty_cache()
+    print(f"phase 34: {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    if bad:
+        raise RuntimeError(f"phase 34: {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -4834,6 +5116,7 @@ def main() -> int:
     real_data_phase(dev, card)
     zoo_phase(dev, card, time_ms)
     zoo2_phase(dev, card, time_ms)
+    zoo3_phase(dev, card, time_ms)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

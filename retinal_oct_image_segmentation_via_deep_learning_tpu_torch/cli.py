@@ -27,7 +27,7 @@ graph) and ``packed`` run on the CUDA kernels; ``int8`` is the all-int8
 oracle graph in plain PyTorch (the JAX package runs it in XLA); ``off`` is
 the float model (``build_float_forward``), which ``infer`` and ``eval``
 run for any registry model whose forward returns one tensor of logits
-(not AnoGAN, FourierNet, SDNet); the int8 modes take the U-Net and
+(not AnoGAN, FourierNet, SDNet, BioNet); the int8 modes take the U-Net and
 ReLayNet. ``serve`` serves any of them
 but ``packed``, from the model or a quantized artifact. ``train`` builds its
 trainer and datasets with ``build_training``. Without ``--data`` and
@@ -36,8 +36,8 @@ made on the device from ``--seed`` (eval's from seed 99, as ``train``'s
 validation data); ``--data`` reads a real dataset (``training/data.py``,
 eval scoring its validation split), ``--image-dir`` a folder of B-scans.
 ``train`` runs any such model through ``Trainer``; FourierNet and AnoGAN
-have their own trainers. ``chip_smoke.py`` builds all of them the same
-way.
+have their own trainers, BioNet none (as in JAX). ``chip_smoke.py``
+builds all of them the same way.
 """
 
 from __future__ import annotations
@@ -104,7 +104,9 @@ OWN_TRAINERS = {
     "fouriernet": "training/fouriernet_pipeline.FourierNetTrainer",
     "anogan": "training/adversarial.AnoGANTrainer",
 }
-NOT_ONE_TENSOR = (*OWN_TRAINERS, "sdnet")
+# a forward of several tensors that no trainer of either package takes
+OUTPUTS = {"bionet": "(seg_pred, gms_out, bio_out)"}
+NOT_ONE_TENSOR = (*OWN_TRAINERS, "sdnet", *OUTPUTS)
 
 
 def build_model(name: str = "unet", *, num_classes: int,
@@ -260,11 +262,17 @@ def build_training(args):
     config as the JAX CLI builds it; ``--data``'s dataset split by volume
     (``training/data.make_datasets``), or synthetic Duke-DME-shaped data
     made on the device (validation from seed 99). FourierNet and AnoGAN
-    train through their own trainers: they raise ``ValueError``."""
+    train through their own trainers, and BioNet (three outputs) through
+    none: they raise ``ValueError``."""
     if args.model in OWN_TRAINERS:
         raise ValueError(
             f"train --model {args.model}: its forward is not a segmentation "
             f"map; it trains through {OWN_TRAINERS[args.model]}")
+    if args.model in OUTPUTS:
+        raise ValueError(
+            f"train --model {args.model}: its forward returns "
+            f"{OUTPUTS[args.model]}, and neither package has a loss or a "
+            "trainer for it")
     device = _device(args.device)
     cfg = TrainConfig(
         model=ModelConfig(
@@ -369,7 +377,7 @@ def build_eval_trainer(args, num_classes: int = 0):
     ``training/checkpoint.model_state_dict``), in eval mode on
     ``--device``; with ``num_classes`` classes where that is more than
     ``--num-classes``. A model whose forward is not one tensor of logits
-    (AnoGAN, FourierNet, SDNet) exits."""
+    (AnoGAN, FourierNet, SDNet, BioNet) exits."""
     if args.model in NOT_ONE_TENSOR:
         raise SystemExit(f"--model {args.model}: infer and eval take a model "
                          "whose forward returns one tensor of logits")

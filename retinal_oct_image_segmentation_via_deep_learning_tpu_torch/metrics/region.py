@@ -48,11 +48,19 @@ def recall(y_true, y_pred) -> torch.Tensor:
 def per_class_dice(y_true_labels: torch.Tensor, y_pred_labels: torch.Tensor,
                    num_classes: int) -> torch.Tensor:
     """(num_classes,) float32 Dice per class, 2|T∩P| / (|T| + |P|), over
-    the whole batch in one pass of per-class sums."""
+    the whole batch in one pass of per-class sums. A label of num_classes
+    or more adds nothing, as JAX's scatter drops it (an argmax over a
+    model's extra channels, RetiFluidNet's)."""
     yt = y_true_labels.reshape(-1).long()
     yp = y_pred_labels.reshape(-1).long()
     zeros = torch.zeros(num_classes, dtype=torch.float32, device=yt.device)
-    inter = zeros.index_add(0, yt, (yt == yp).float())
-    st = zeros.index_add(0, yt, torch.ones_like(yt, dtype=torch.float32))
-    sp = zeros.index_add(0, yp, torch.ones_like(yp, dtype=torch.float32))
+
+    def add(idx, w):  # drops idx >= num_classes without a host sync
+        keep = idx < num_classes
+        return zeros.index_add(0, idx.clamp(max=num_classes - 1),
+                               w * keep)
+
+    inter = add(yt, (yt == yp).float())
+    st = add(yt, torch.ones_like(yt, dtype=torch.float32))
+    sp = add(yp, torch.ones_like(yp, dtype=torch.float32))
     return 2.0 * inter / (st + sp + _EPS)

@@ -60,6 +60,16 @@ def conv(cin: int, cout: int, kernel_size, stride: int = 1,
                             bias=bias), generator)
 
 
+def he_conv(cin: int, cout: int, kernel_size: int, stride: int = 1,
+            padding: int = 0, *, generator: torch.Generator) -> nn.Conv2d:
+    """A bias-free conv with weights N(0, 2 / fan_in) (the JAX package's
+    ``kaiming_normal_init``), as the ResNet and Res2Net backbones draw
+    them."""
+    return redraw(skip_init(nn.Conv2d, cin, cout, kernel_size, stride=stride,
+                            padding=padding, bias=False),
+                  math.sqrt(2.0 / (cin * kernel_size ** 2)), generator)
+
+
 def conv_transpose(cin: int, cout: int, kernel_size: int, stride: int = 2,
                    padding: int = 0, output_padding: int = 0,
                    bias: bool = True, *,

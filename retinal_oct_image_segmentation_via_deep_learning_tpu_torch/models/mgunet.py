@@ -35,7 +35,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from ..ops.pooling import max_pool
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize_bilinear_nchw
 from .blocks import BatchNorm, conv_transpose, redraw
 
 
@@ -51,11 +51,6 @@ def _bn(c: int, generator: torch.Generator) -> BatchNorm:
     with torch.no_grad():
         bn.weight.normal_(1.0, 0.02, generator=generator)
     return bn
-
-
-def _resize(x: torch.Tensor, hw) -> torch.Tensor:
-    """NCHW bilinear resize with align_corners (``ops/resize`` is NHWC)."""
-    return resize_bilinear(x.movedim(1, -1), hw, True).movedim(-1, 1)
 
 
 class Basconv(nn.Module):
@@ -123,7 +118,7 @@ class MGRModule(nn.Module):
         for pool, pre, post, glore in zip(self.pools, self.pre, self.post,
                                           self.glore):
             b = post(max_pool(pre(x), pool))
-            outs.append(_resize(glore(b), hw))
+            outs.append(resize_bilinear_nchw(glore(b), hw, True))
         return self.fuse(torch.cat(outs, dim=1))
 
 
@@ -165,7 +160,8 @@ class MGUNet(nn.Module):
         for lvl, p, up, dec in zip((2, 1, 0), reversed(self.pools), self.ups,
                                    self.decoders):
             if not self.is_deconv:
-                h = _resize(h, (h.shape[-2] * p, h.shape[-1] * p))
+                hw = (h.shape[-2] * p, h.shape[-1] * p)
+                h = resize_bilinear_nchw(h, hw, True)
             h = dec(torch.cat([skips[lvl], up(h)], dim=1))
         return self.head(h)
 

@@ -1,6 +1,7 @@
 """Index max-pool and max-unpool for NHWC tensors, and the plain max-pool of
-the float models, the average pool and the adaptive average pool on NCHW
-tensors (the JAX package's ``ops/pooling.py``), in plain PyTorch.
+the float models (strided, padded with -inf), the average pool and the
+adaptive average pool on NCHW tensors (the JAX package's
+``ops/pooling.py``), in plain PyTorch.
 
 ReLayNet pools with indices and decodes by unpooling to them. The indices
 here are window-local: ``idx`` in [0, k*k) is the flat position ``dy*k + dx``
@@ -11,6 +12,8 @@ graph and its kernel (``ops/conv7x3_int8``) emit.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -42,16 +45,23 @@ def max_unpool(x: torch.Tensor, idx: torch.Tensor, k: int = 2) -> torch.Tensor:
             .reshape(N, Ho * k, Wo * k, C))
 
 
-def max_pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
-    """Non-overlapping k x k max-pool of an (N, C, H, W) tensor, as the
-    JAX package's: where H and W are multiples of k its reshape-max, whose
-    gradient splits evenly between tied maxima (``amax``'s, as
-    ``jnp.max``'s); otherwise the 'VALID' window (the trailing H % k rows
-    and W % k columns dropped) with the gradient to the first maximum of
-    each window (``max_pool2d``'s, as XLA's select-and-scatter)."""
+def max_pool(x: torch.Tensor, k: int = 2, stride: int | None = None,
+             padding: int = 0) -> torch.Tensor:
+    """k x k max-pool of an (N, C, H, W) tensor at ``stride`` (default k)
+    after ``padding`` rows and columns of -inf on each side, as the JAX
+    package's: where the windows tile the padded map (stride k, H and W
+    multiples of k) its reshape-max, whose gradient splits evenly between
+    tied maxima (``amax``'s, as ``jnp.max``'s); otherwise the 'VALID'
+    windows (trailing rows and columns that no window reaches dropped)
+    with the gradient to the first maximum of each window
+    (``max_pool2d``'s, as XLA's select-and-scatter), overlapping windows
+    included."""
+    stride = stride or k
+    if padding:
+        x = F.pad(x, (padding,) * 4, value=-math.inf)
     N, C, H, W = x.shape
-    if H % k or W % k:
-        return F.max_pool2d(x, k)
+    if stride != k or H % k or W % k:
+        return F.max_pool2d(x, k, stride)
     return x.reshape(N, C, H // k, k, W // k, k).amax(dim=(3, 5))
 
 

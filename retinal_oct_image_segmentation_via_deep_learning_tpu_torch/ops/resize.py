@@ -96,3 +96,15 @@ def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     xf = top + (bot - top) * rw[:, None]
     left, right = xf[..., clo], xf[..., chi]
     return (left + (right - left) * cw).to(x.dtype)
+
+
+def resize_bilinear_nchw(x: torch.Tensor, out_hw,
+                         align_corners: bool = False) -> torch.Tensor:
+    """``resize_bilinear`` of an NCHW tensor."""
+    return resize_bilinear(x.movedim(1, -1), out_hw,
+                           align_corners).movedim(-1, 1)
+
+
+def resize_nearest_nchw(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``resize_nearest`` of an NCHW tensor."""
+    return resize_nearest(x.movedim(1, -1), out_hw).movedim(-1, 1)

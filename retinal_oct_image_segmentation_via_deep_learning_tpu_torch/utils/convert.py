@@ -9,9 +9,11 @@ variable tree, so that a model trained here can be held against the JAX
 package). The U-Net's and ReLayNet's maps are fixed (``unet_layer_map``,
 whose ``remat_stages`` spelling names the blocks ``CheckpointUNetBlock_N``;
 ``relaynet_layer_map``), SDNet's follows its levels, and ``layer_map`` reads
-the map of Y-Net, EdgeAL, AnoGAN, FourierNet, MGU-Net, ISLAM, LightReSeg
-or an FFC unit off the built port module. ``unet_state_dict_from_jax``
-and the other named pairs wrap the two directions.
+the map of Y-Net, EdgeAL, AnoGAN, FourierNet, MGU-Net, ISLAM, LightReSeg,
+MSNet/M2SNet (and LossNet), BioNet, WAT-Net, RetiFluidNet, Masood, their
+backbones and attention units, or an FFC unit off the built port module.
+``unet_state_dict_from_jax`` and the other named pairs wrap the two
+directions.
 
 Layouts: conv kernel (kh, kw, in, out) -> weight (out, in, kh, kw);
 ConvTranspose kernel (k, k, in, out) -> weight (in, out, k, k) (the JAX
@@ -30,11 +32,18 @@ import torch
 
 from ..models import ffc
 from ..models.anogan import AnoGAN
+from ..models.bionet import BioNet
 from ..models.edgeal import EdgeAL
 from ..models.fouriernet import FourierNet
 from ..models.islam import ISLAM
 from ..models.lightreseg import LightReSeg
+from ..models.masood import Masood2024
 from ..models.mgunet import MGUNet
+from ..models.msnet import LossNet, MSNet
+from ..models.res2net import Bottle2neck, Res2Net50Features
+from ..models.resnet import BasicBlock, ResNetFeatures
+from ..models.retifluidnet import SDA, RetiFluidNet
+from ..models.watnet import WAT, WATNet
 from ..models.relaynet import BLOCK_NAMES as RELAYNET_BLOCKS
 from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES, YNet
 
@@ -528,10 +537,172 @@ def _lightreseg_map(m, prefix, path) -> list:
                   (f"{prefix}head_bn", path + ("BatchNorm_0",), "bn")]
 
 
+def _pairs(prefix, path, convs, bns) -> list:
+    """The j-th name of ``convs`` at ``Conv_j`` and of ``bns`` at
+    ``BatchNorm_j`` (a block whose Flax convs and BatchNorms are numbered
+    in the same order)."""
+    return ([(f"{prefix}{n}", path + (f"Conv_{j}",), "conv")
+             for j, n in enumerate(convs)]
+            + [(f"{prefix}{n}", path + (f"BatchNorm_{j}",), "bn")
+               for j, n in enumerate(bns)])
+
+
+def _conv_bn_map(prefix, path) -> list:
+    """A conv-BN block (``ConvBR``, ``CNN1``)."""
+    return _pairs(prefix, path, ("conv",), ("bn",))
+
+
+def _double_conv_map(prefix, path) -> list:
+    """(conv, BN) x 2 as ``conv1``/``bn1``, ``conv2``/``bn2`` (BioNet's
+    ``ConvBlock``, WAT-Net's ``X2Conv``, RetiFluidNet's ``ConvStage``)."""
+    return _pairs(prefix, path, ("conv1", "conv2"), ("bn1", "bn2"))
+
+
+def _downsampled(m, names):
+    return names + (("down",) if m.down is not None else ())
+
+
+def _bn_names(convs):
+    """The BatchNorm beside each conv of a residual block."""
+    return [n.replace("conv", "bn").replace("down", "down_bn") for n in convs]
+
+
+def _bottle2neck_map(m, prefix, path) -> list:
+    convs = _downsampled(m, ("conv1",) + tuple(
+        f"convs.{t}" for t in range(len(m.convs))) + ("conv3",))
+    return _pairs(prefix, path, convs, _bn_names(convs))
+
+
+def _res2net_map(m, prefix, path) -> list:
+    out = _pairs(prefix, path, [f"stem.{j}" for j in range(3)],
+                 [f"stem_bns.{j}" for j in range(3)])
+    blocks = [b for layer in m.layers for b in layer]
+    names = [f"layers.{i}.{j}" for i, layer in enumerate(m.layers)
+             for j in range(len(layer))]
+    for k, (b, name) in enumerate(zip(blocks, names)):
+        out += _bottle2neck_map(b, f"{prefix}{name}.",
+                                path + (f"Bottle2neck_{k}",))
+    return out
+
+
+def _msnet_map(m, prefix, path) -> list:
+    out = _res2net_map(m.backbone, f"{prefix}backbone.",
+                       path + ("Res2Net50Features_0",))
+    if m.multi_kernel:
+        out += _conv_bn_map(f"{prefix}conv_3.", path + ("CNN1_0",))
+        out += _conv_bn_map(f"{prefix}conv_5.", path + ("CNN1_1",))
+    for j in range(len(m.convbr)):
+        out += _conv_bn_map(f"{prefix}convbr.{j}.", path + (f"ConvBR_{j}",))
+    return out + [(f"{prefix}head", path + ("Conv_0",), "conv")]
+
+
+def _lossnet_map(m, prefix, path) -> list:
+    return [(f"{prefix}vgg.convs.{j}", path + ("VGG16Slices_0", f"Conv_{j}"),
+             "conv") for j in range(len(m.vgg.convs))]
+
+
+def _resnet_unit_map(m, prefix, path) -> list:
+    """A ``BasicBlock`` or ``Bottleneck``."""
+    convs = _downsampled(m, ("conv1", "conv2") if isinstance(m, BasicBlock)
+                         else ("conv1", "conv2", "conv3"))
+    return _pairs(prefix, path, convs, _bn_names(convs))
+
+
+def _resnet_map(m, prefix, path) -> list:
+    out = _pairs(prefix, path, ("stem",), ("stem_bn",))
+    blocks = [b for layer in m.layers for b in layer]
+    names = [f"layers.{i}.{j}" for i, layer in enumerate(m.layers)
+             for j in range(len(layer))]
+    for k, (b, name) in enumerate(zip(blocks, names)):
+        kind = "BasicBlock" if isinstance(b, BasicBlock) else "Bottleneck"
+        out += _resnet_unit_map(b, f"{prefix}{name}.",
+                                path + (f"{kind}_{k}",))
+    return out
+
+
+def _bio_unet_map(m, prefix, path) -> list:
+    out = []
+    for j in range(4):
+        out += _double_conv_map(f"{prefix}encoders.{j}.",
+                                path + (f"_ConvBlock_{j}",))
+    for k in range(3):
+        out.append((f"{prefix}ups.{k}", path + (f"ConvTranspose_{k}",),
+                    "ct"))
+        out += _double_conv_map(f"{prefix}decoders.{k}.",
+                                path + (f"_ConvBlock_{k + 4}",))
+    return out + [(f"{prefix}head", path + ("Conv_0",), "conv")]
+
+
+def _bionet_map(m, prefix, path) -> list:
+    bp = path + ("BioRegularization_0",)
+    return (_bio_unet_map(m.gms, f"{prefix}gms.", path + ("BioUNet_0",))
+            + _bio_unet_map(m.lcs, f"{prefix}lcs.", path + ("BioUNet_1",))
+            + [(f"{prefix}bio.proj", bp + ("Conv_0",), "conv")]
+            + _resnet_map(m.bio.resnet, f"{prefix}bio.resnet.",
+                          bp + ("ResNetFeatures_0",))
+            + [(f"{prefix}bio.fc", bp + ("Dense_0",), "dense")])
+
+
+def _wat_map(m, prefix, path) -> list:
+    return [(f"{prefix}fc{j + 1}", path + (f"Dense_{j}",), "dense")
+            for j in (0, 1)]
+
+
+def _watnet_map(m, prefix, path) -> list:
+    """Flax's ``setup`` names: ``start_conv``, ``convs_0``, ..."""
+    out = _double_conv_map(f"{prefix}start_conv.", path + ("start_conv",))
+    for name in ("convs", "dec_convs"):
+        for j in range(len(getattr(m, name))):
+            out += _double_conv_map(f"{prefix}{name}.{j}.",
+                                    path + (f"{name}_{j}",))
+    out += _double_conv_map(f"{prefix}middle_conv.", path + ("middle_conv",))
+    for j in range(len(m.wats)):
+        out += _wat_map(m.wats[j], f"{prefix}wats.{j}.",
+                        path + (f"wats_{j}",))
+    out += [(f"{prefix}uppools.{j}", path + (f"uppools_{j}",), "ct")
+            for j in range(len(m.uppools))]
+    return out + [(f"{prefix}final_conv", path + ("final_conv",), "conv")]
+
+
+def _sda_map(m, prefix, path) -> list:
+    return [(f"{prefix}pixel_conv", path + ("Conv_0",), "conv"),
+            (f"{prefix}chan_conv", path + ("Conv_1",), "conv")]
+
+
+def _retifluidnet_map(m, prefix, path) -> list:
+    """Flax numbers the stages, SDAs and 1x1 convs in call order: the
+    initial conv, the five encoder stages, the bottom head, then each
+    decoder stage with its head (the last: the main head)."""
+    out = [(f"{prefix}initial", path + ("Conv_0",), "conv")]
+    for j in range(5):
+        out += _double_conv_map(f"{prefix}enc.{j}.",
+                                path + (f"_ConvStage_{j}",))
+        out += _sda_map(None, f"{prefix}enc_sda.{j}.", path + (f"SDA_{j}",))
+    heads = [f"heads.{j}" for j in range(4)] + ["main"]
+    for k in range(4):
+        out += _double_conv_map(f"{prefix}dec.{k}.",
+                                path + (f"_ConvStage_{k + 5}",))
+        out += _sda_map(None, f"{prefix}dec_sda.{k}.",
+                        path + (f"SDA_{k + 5}",))
+    return out + [(f"{prefix}{h}", path + (f"Conv_{j + 1}",), "conv")
+                  for j, h in enumerate(heads)]
+
+
+def _masood_map(m, prefix, path) -> list:
+    out = []
+    for i, b in enumerate(m.branches):
+        n = len(b.convs)
+        out += _pairs(f"{prefix}branches.{i}.", path + (f"CNNBranch_{i}",),
+                      [f"convs.{j}" for j in range(n)],
+                      [f"bns.{j}" for j in range(n)])
+    return out + [(f"{prefix}head", path + ("Conv_0",), "conv")]
+
+
 def layer_map(module, prefix: str = "", path: tuple = ()) -> list:
     """The layer map of a port module of the FFC stack or the zoo (Y-Net,
-    EdgeAL, AnoGAN, FourierNet, MGU-Net, ISLAM, LightReSeg, an FFC unit, a
-    wrapper), its names under
+    EdgeAL, AnoGAN, FourierNet, MGU-Net, ISLAM, LightReSeg, MSNet, LossNet,
+    BioNet, WAT-Net, RetiFluidNet, Masood, their backbones and attention
+    units, an FFC unit, a wrapper), its names under
     ``prefix`` and its Flax modules under ``path``, read off the module:
     which paths exist follows the channel splits it was built with, and
     Flax numbers each kind of submodule in call order."""
@@ -554,7 +725,19 @@ _MAPS = ((ffc.FourierUnit, _fourier_unit_map),
          (FourierNet, _fouriernet_map),
          (MGUNet, _mgunet_map),
          (ISLAM, _islam_map),
-         (LightReSeg, _lightreseg_map))
+         (LightReSeg, _lightreseg_map),
+         (Bottle2neck, _bottle2neck_map),
+         (Res2Net50Features, _res2net_map),
+         (MSNet, _msnet_map),
+         (LossNet, _lossnet_map),
+         (BasicBlock, _resnet_unit_map),
+         (ResNetFeatures, _resnet_map),
+         (BioNet, _bionet_map),
+         (WAT, _wat_map),
+         (WATNet, _watnet_map),
+         (SDA, _sda_map),
+         (RetiFluidNet, _retifluidnet_map),
+         (Masood2024, _masood_map))
 
 
 # -- the two directions ------------------------------------------------------

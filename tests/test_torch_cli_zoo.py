@@ -2,9 +2,10 @@
 ``--checkpoint`` reads the file that ``train --checkpoint-dir`` writes, a
 ``save_model`` file and a bare state dict (anything else raises, naming its
 keys); ``smoke`` reports a failing model and goes on, and raises under
-``--strict``, as the JAX CLI's; ``smoke`` runs MGU-Net, ISLAM and LightReSeg
-at the JAX CLI's sizes with the JAX models' parameter counts; ``train``
-and ``infer`` run each of them through ``Trainer``.
+``--strict``, as the JAX CLI's; ``smoke`` runs MGU-Net, ISLAM, LightReSeg,
+MSNet, M2SNet, BioNet, WAT-Net, Masood and RetiFluidNet at the JAX CLI's
+sizes with the JAX models' parameter counts; ``train`` and ``infer`` run
+each of them but BioNet through ``Trainer``, and refuse BioNet.
 """
 
 import numpy as np
@@ -106,11 +107,59 @@ def test_smoke_new_models_at_the_jax_sizes(name, size, capsys):
     assert f"params={n:>12,}" in line
 
 
+# the six names of the last slice: the output's shape at 64x64, 4 classes
+ZOO3_SMOKE = {"msnet": "(1, 4, 64, 64)", "m2snet": "(1, 4, 64, 64)",
+              "bionet": "((1, 4, 64, 64), (1, 2, 64, 64), (1, 1))",
+              "watnet": "(1, 4, 64, 64)", "masood": "(1, 4, 64, 64)",
+              "retifluidnet": "(1, 60, 64, 64)"}
+
+
+@pytest.mark.parametrize("name", list(ZOO3_SMOKE))
+def test_smoke_zoo3_at_the_jax_sizes(name, capsys):
+    """``smoke`` runs MSNet, M2SNet, BioNet, WAT-Net, Masood and
+    RetiFluidNet at 64x64 (the JAX CLI's size) with the JAX model's
+    parameter count; BioNet prints its three outputs' shapes,
+    RetiFluidNet its 40 + 5 * 4 channels."""
+    import jax
+    import jax.numpy as jnp
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu.registry import (
+        get_model as jax_get_model,
+    )
+
+    cli.main(["smoke", "--model", name, "--num-classes", "4", "--device",
+              "cpu", "--strict"])
+    (line,) = capsys.readouterr().out.splitlines()
+    assert line.startswith(name) and " ok " in line
+    assert f"out={ZOO3_SMOKE[name]}" in line
+    shapes = jax.eval_shape(jax_get_model(name, num_classes=4).init,
+                            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 1)))
+    n = sum(int(np.prod(t.shape)) for t in jax.tree.leaves(shapes["params"]))
+    assert f"params={n:>12,}" in line
+
+
+def test_bionet_train_and_infer_refused():
+    """BioNet's forward is three tensors and neither package trains it:
+    ``train`` raises naming them, ``infer`` and ``eval`` exit."""
+    common = ["--model", "bionet", "--image-size", "32", "--batch-size",
+              "2", "--num-classes", "4"]
+    with pytest.raises(ValueError, match=r"\(seg_pred, gms_out, bio_out\)"):
+        _port(["train", *common, "--epochs", "1", "--num-train", "2"])
+    for cmd in ("infer", "eval"):
+        with pytest.raises(SystemExit, match="one tensor of logits"):
+            _port([cmd, *common])
+
+
 @pytest.mark.parametrize("name,size,kwargs", [
     ("mgunet", 160, '{"feature_scale": 16}'),
     ("mgunet_2", 64, '{"feature_scale": 16}'),
     ("islam", 32, "{}"),
     ("lightreseg", 32, "{}"),
+    ("msnet", 32, "{}"),
+    ("m2snet", 32, "{}"),
+    ("watnet", 32, "{}"),
+    ("masood", 32, "{}"),
+    ("retifluidnet", 64, '{"base_channels": 8}'),
 ])
 def test_train_then_infer_new_models(name, size, kwargs, tmp_path):
     """``train`` runs each new model through ``Trainer`` (one epoch of two

@@ -204,9 +204,16 @@ def port_psrp_labels_full_pipeline(case):
 
 
 def test_registry():
-    assert list_models() == ["anogan", "edgeal", "fouriernet", "islam",
-                             "lightreseg", "mgunet", "mgunet_2", "relaynet",
-                             "sdnet", "unet", "y_net_gen", "y_net_gen_ffc"]
+    from retinal_oct_image_segmentation_via_deep_learning_tpu.registry import (
+        get_model as jax_get_model,
+        list_models as jax_list_models,
+    )
+
+    assert list_models() == jax_list_models() == [
+        "anogan", "bionet", "edgeal", "fouriernet", "islam", "lightreseg",
+        "m2snet", "masood", "mgunet", "mgunet_2", "msnet", "relaynet",
+        "retifluidnet", "sdnet", "unet", "watnet", "y_net_gen",
+        "y_net_gen_ffc"]
     m = get_model("unet", num_classes=4, init_features=4)
     assert m.conv.out_channels == 4
     m = get_model("relaynet", num_classes=4, num_filters=8)
@@ -222,8 +229,12 @@ def test_registry():
     assert m.head.out_channels == 3
     m = get_model("mgunet_2", num_classes=4, feature_scale=8)
     assert m.pools == (2, 2, 2) and m.head.out_channels == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("msnet")
+    m = get_model("m2snet", in_channels=1, num_classes=4)
+    assert m.multi_kernel and m.head.out_channels == 4
+    # an unknown name raises ValueError listing the names, as in JAX
+    for get in (get_model, jax_get_model):
+        with pytest.raises(ValueError, match="Available: anogan, bionet"):
+            get("no_such_model")
 
 
 def test_config_defaults_match_jax():
@@ -257,21 +268,24 @@ def test_zscore_matches_jax():
 # -- the zoo models (test_torch_ffc, _ynet, _edgeal, _anogan, _fouriernet) --
 
 
-def jax_variables(module, *inputs, seed=0, **kw):
+def jax_variables(module, *inputs, seed=0, bias_std=0.1, conv_bias_std=None,
+                  **kw):
     """numpy variables in the tree of ``module.init(key, *inputs, **kw)``
     (read by ``jax.eval_shape``, nothing compiled), drawn from ``seed``:
     kernels U(+-1/sqrt(fan_in)) as torch draws them, BatchNorm affines and
     statistics and biases random, so that a statistic, an affine or a bias
     carried to the wrong layer shows; ``angle`` U(0, 80); the channel
     attentions' ``gamma`` U(0.5, 1) (zero at init, which would hide them);
-    ``cls_token`` and ``pos_embedding`` N(0, 1)."""
+    ``cls_token`` and ``pos_embedding`` N(0, 1); biases N(0,
+    ``bias_std``^2), those of a flax ``Conv`` N(0, ``conv_bias_std``^2)
+    where it is given."""
     shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0),
                                                 *inputs, **kw))
     rng = np.random.default_rng(seed)
     draw = {"mean": lambda s: rng.normal(0, 0.1, s),
             "var": lambda s: rng.uniform(0.5, 1.5, s),
             "scale": lambda s: rng.uniform(0.5, 1.5, s),
-            "bias": lambda s: rng.normal(0, 0.1, s),
+            "bias": lambda s: rng.normal(0, bias_std, s),
             "angle": lambda s: rng.uniform(0, 80, s),
             "gamma": lambda s: rng.uniform(0.5, 1.0, s),
             "cls_token": lambda s: rng.normal(0, 1, s),
@@ -279,9 +293,14 @@ def jax_variables(module, *inputs, seed=0, **kw):
             "kernel": lambda s: rng.uniform(-1, 1, s) / np.sqrt(
                 np.prod(s[:-1]))}
 
-    def walk(tree):
-        return {k: walk(t) if isinstance(t, dict) else
-                draw[k](t.shape).astype(np.float32)
+    if conv_bias_std is not None:
+        draw["conv_bias"] = lambda s: rng.normal(0, conv_bias_std, s)
+
+    def walk(tree, parent=""):
+        return {k: walk(t, k) if isinstance(t, dict) else
+                draw["conv_bias" if k == "bias" and parent.startswith("Conv")
+                     and "conv_bias" in draw else k](t.shape).astype(
+                         np.float32)
                 for k, t in tree.items()}
 
     return {k: walk(dict(v)) for k, v in shapes.items()}
@@ -321,7 +340,10 @@ def _eval_train_fn(jm, grad):
             out, mut = jm.apply({"params": params,
                                  "batch_stats": v["batch_stats"]}, x,
                                 train=True, mutable=["batch_stats"])
-            return jnp.sum(out * cot) if grad else 0.0, (out, mut)
+            if not grad:
+                return 0.0, (out, mut)
+            return sum(jnp.sum(o * c) for o, c in zip(
+                jax.tree.leaves(out), jax.tree.leaves(cot))), (out, mut)
 
         if grad:
             (_, (train, mut)), grads = jax.value_and_grad(
@@ -337,19 +359,20 @@ def _eval_train_fn(jm, grad):
 def jax_eval_train(jm, x, v, cot=None):
     """(eval output, train output, batch_stats after the train call[,
     gradient of sum(train output * cot) over the params]) of the JAX
-    module ``jm`` on the NHWC input ``x``, one compile per module."""
+    module ``jm`` on the NHWC input ``x``, one compile per module; for a
+    tuple of outputs ``cot`` is a tuple, one cotangent each."""
     return _eval_train_fn(jm, cot is not None)(v, jnp.asarray(x), cot)
 
 
-def load_jax(tm, v):
+def load_jax(tm, v, lmap=None):
     """The port module ``tm`` with the JAX variables ``v`` loaded through
-    ``utils/convert.layer_map``."""
+    ``lmap``, by default ``utils/convert.layer_map``'s."""
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.utils.convert import (
         layer_map,
         state_dict_from_jax,
     )
 
-    tm.load_state_dict(state_dict_from_jax(v, layer_map(tm)))
+    tm.load_state_dict(state_dict_from_jax(v, lmap or layer_map(tm)))
     return tm
 
 
@@ -365,7 +388,7 @@ def check_zoo_forward(tm, v, x, want, stats, train, tol=1e-4):
 
     with torch.no_grad():
         got = load_jax(tm, v).train(train)(nchw(x))
-    got = got if isinstance(got, tuple) else (got,)
+    got = tuple(got) if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -402,3 +425,50 @@ def default_tree_matches(jm, tm, hw):
     n = sum(int(np.prod(t.shape)) for t in jax.tree.leaves(shapes["params"]))
     assert sum(p.numel() for p in tm.parameters()) == n
     return n
+
+
+def check_zoo_gradient(tm, v, x, cot, grads, tol=1e-4, lmap=None):
+    """The train-mode gradient of sum(output * cot) of the port module
+    ``tm`` (JAX's variables ``v`` loaded), held to ``grads`` (``jax.grad``
+    of the JAX twin) tensor by tensor at ``tol`` of the tensor's largest
+    JAX entry. The biases of convs whose output meets a train-mode
+    BatchNorm before any nonlinearity have a gradient of zero in exact
+    arithmetic (the batch mean takes their constant out), so both sides
+    hold rounding there: a tensor below 1e-4 of the largest gradient
+    entry of all must be such a bias, held to ``tol`` of that entry (a
+    parameter off the path has a gradient of exactly 0 on both sides). ->
+    the number of such biases. ``lmap``: as ``load_jax``'s."""
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.utils.convert import (
+        layer_map,
+        variables_from_state_dict,
+    )
+
+    lmap = lmap or layer_map(tm)
+    tm = load_jax(tm, v, lmap).train()
+    out = tm(nchw(x))
+    out = out if isinstance(out, tuple) else (out,)
+    cot = cot if isinstance(cot, tuple) else (cot,)
+    sum(torch.sum(o * (nchw(c) if o.ndim == 4 else torch.from_numpy(c)))
+        for o, c in zip(out, cot)).backward()
+    g = {n: torch.zeros_like(p) if p.grad is None else p.grad
+         for n, p in tm.named_parameters()}
+    got = variables_from_state_dict({**tm.state_dict(), **g},
+                                    lmap)["params"]
+    want = dict(jax.tree_util.tree_leaves_with_path(grads))
+    assert len(want) == len(jax.tree_util.tree_leaves(got))
+    top = max(float(np.abs(np.asarray(w)).max()) for w in want.values())
+    zero = 0
+    for path, leaf in jax.tree_util.tree_leaves_with_path(got):
+        w = np.asarray(want[path])
+        err = float(np.abs(leaf - w).max())
+        scale = float(np.abs(w).max())
+        if scale == 0 and err == 0:  # a parameter off the path: both 0
+            continue
+        if scale < 1e-4 * top:
+            zero += 1
+            assert path[-1].key == "bias", jax.tree_util.keystr(path)
+            assert err <= tol * top, jax.tree_util.keystr(path)
+        else:
+            assert err <= tol * scale, (jax.tree_util.keystr(path),
+                                        err / scale)
+    return zero

@@ -344,23 +344,24 @@ def test_cli_smoke_sdnet(capsys):
     assert "'prob_map': (1, 3, 64, 64)" in line
 
 
-def test_cli_smoke_all_and_unported(capsys):
-    """``smoke --model all`` prints an ok line for each of the 12 ported
-    names; a name not ported prints its FAIL line (the JAX CLI's
-    reporting) and raises under ``--strict``."""
+def test_cli_smoke_all_and_unknown(capsys):
+    """``smoke --model all`` prints an ok line for each of the 18 names;
+    an unknown name prints its FAIL line (the JAX CLI's reporting) and
+    raises under ``--strict``."""
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
         cli,
     )
 
     lines = _smoke(capsys, "all")
     assert [ln.split()[0] for ln in lines] == [
-        "anogan", "edgeal", "fouriernet", "islam", "lightreseg", "mgunet",
-        "mgunet_2", "relaynet", "sdnet", "unet", "y_net_gen",
+        "anogan", "bionet", "edgeal", "fouriernet", "islam", "lightreseg",
+        "m2snet", "masood", "mgunet", "mgunet_2", "msnet", "relaynet",
+        "retifluidnet", "sdnet", "unet", "watnet", "y_net_gen",
         "y_net_gen_ffc"]
     assert all(" ok " in ln for ln in lines)
-    (line,) = _smoke(capsys, "msnet")
-    assert line.split()[:3] == ["msnet", "FAIL:", "NotImplementedError:"]
-    assert "ROADMAP" in line
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["smoke", "--model", "msnet", "--device", "cpu",
+    (line,) = _smoke(capsys, "no_such_model")
+    assert line.split()[:3] == ["no_such_model", "FAIL:", "ValueError:"]
+    assert "Available: anogan" in line
+    with pytest.raises(ValueError, match="Unknown model 'no_such_model'"):
+        cli.main(["smoke", "--model", "no_such_model", "--device", "cpu",
                   "--strict"])
