@@ -12,7 +12,7 @@ suite, ``smoke`` every ported model with one forward.
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         infer --model NAME --quantize off|int8|packed|psrp|int4 \\
         --out-dir DIR [--image-dir DIR] [--export-probs] \\
-        [--save-quantized q.npz | --load-quantized q.npz]
+        [--save-quantized q.npz | --load-quantized q.npz] [--spatial N]
     python -m retinal_oct_image_segmentation_via_deep_learning_tpu_torch.cli \\
         eval --model NAME --quantize off|int8|psrp|int4 \\
         [--num-val 16 | --data duke:DIR|retouch:DIR|png:DIR]
@@ -82,6 +82,9 @@ from .inference.relaynet_psrp import (
 )
 from .inference.server import ServingLoop
 from .ops.preprocess import preprocess
+from .parallel.halo import spatial_shard_infer
+from .parallel.launch import run_ranks
+from .parallel.mesh import create_mesh, world
 from .registry import get_model, list_models
 from .training.checkpoint import model_state_dict
 from .training.data import (
@@ -361,13 +364,78 @@ def cmd_serve(args) -> None:
     serve_forever(build_serving(args), host=args.host, port=args.port)
 
 
-def _refuse_unported(args) -> None:
-    """``--spatial`` (not ported yet) raises, naming the ROADMAP.md item
-    (Queue A) it waits for."""
-    if getattr(args, "spatial", 1) > 1:
-        raise NotImplementedError(
-            "--spatial: spatially sharded inference is not ported yet "
-            "(ROADMAP.md, Queue A item 12)")
+SPATIAL_MODES = ("off", "int8")
+# the models whose every operation sees a bounded window of rows, so that
+# halo rows make a shard's logits the whole image's: the U-Net. FFC's FFT,
+# squeeze-excitation's global pooling and whole-image attention would see
+# one shard alone.
+SPATIAL_MODELS = ("unet",)
+# the U-Net's four 2x2 pools: a shard's height must be a multiple
+SPATIAL_ROWS = 16
+
+
+def _check_spatial(args) -> None:
+    """``--spatial N`` takes ``--quantize off|int8``, as in JAX (the
+    packed and psrp layouts shard over data, ``parallel/serving``), and
+    raises for a model outside ``SPATIAL_MODELS``, whose sharded masks
+    would differ from ``--spatial 1``'s."""
+    if args.quantize not in SPATIAL_MODES:
+        raise SystemExit(
+            "--spatial supports --quantize off|int8 (the packed/psrp "
+            "layouts shard over data, not space — see parallel/serving)")
+    if args.model == "relaynet" and args.quantize != "off":
+        raise SystemExit("--model relaynet supports --quantize int8|psrp "
+                         "(single-device)")
+    if args.model not in SPATIAL_MODELS:
+        raise SystemExit(
+            f"--spatial shards {', '.join(SPATIAL_MODELS)} only: --model "
+            f"{args.model} is not known to be local in H (an FFT, a global "
+            "pooling or a whole-image attention would see one shard alone)")
+
+
+def _spatial_infer_rank(args):
+    """One rank of ``infer --spatial N``: ``cmd_infer`` inside the process
+    group; rank 0's masks."""
+    preds = cmd_infer(args)
+    return preds.cpu() if torch.distributed.get_rank() == 0 else None
+
+
+def _run_spatial(args):
+    """Start the N ranks of ``infer --spatial N`` (``parallel/launch``):
+    NCCL with a card each where the host has N cards, else gloo with
+    every rank on ``--device`` (two ranks share one card)."""
+    device = _device(args.device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    backend = "nccl" if device.type == "cuda" and cards >= args.spatial \
+        else "gloo"
+    return run_ranks(_spatial_infer_rank, args.spatial, args,
+                     backend=backend)[0]
+
+
+def _spatial_preds(args, trainer, images):
+    """Labels of ``images`` with H sharded over the N ranks of the
+    process group (``parallel.halo.spatial_shard_infer``): the float
+    model or the all-int8 oracle, equal to the unsharded forward's."""
+    if images.shape[1] % (SPATIAL_ROWS * args.spatial):
+        raise SystemExit(f"--spatial {args.spatial}: the image height "
+                         f"{images.shape[1]} must be a multiple of "
+                         f"{SPATIAL_ROWS * args.spatial} (a shard takes "
+                         f"the U-Net's {SPATIAL_ROWS}x pooling)")
+    mesh = create_mesh(data=1, space=args.spatial)
+    xs = trainer._preprocess(images.float())
+    if args.quantize == "off":
+        logits = spatial_shard_infer(
+            lambda m, t: nhwc_logits(m, t, trainer.dtype), trainer.model,
+            xs, mesh)
+        return logits.argmax(-1), None
+    loaded = (load_qparams(args.load_quantized, args.quantize)
+              if args.load_quantized else None)
+    _, calib = build_quantized_forward(
+        trainer.model, args.model, args.quantize, image_size=args.image_size,
+        device=trainer.device, seed=args.seed, qparams=loaded)
+    logits = spatial_shard_infer(unet_int8_forward, calib["qparams"], xs,
+                                 mesh)
+    return logits.argmax(-1), calib
 
 
 def build_eval_trainer(args, num_classes: int = 0):
@@ -412,8 +480,17 @@ def cmd_infer(args):
     """Masks for the B-scans of ``--image-dir`` (every image, grey levels)
     or a batch of synthetic ones -> ``--out-dir/masks.npy`` (int32
     labels), with ``--export-probs`` also the float model's class-1
-    probability maps (``prob_0000.txt``, ..., or the images' names)."""
-    _refuse_unported(args)
+    probability maps (``prob_0000.txt``, ..., or the images' names).
+
+    ``--spatial N`` shards the B-scans' height over N ranks that this
+    command starts (``--quantize off|int8``); rank 0 writes the masks,
+    which equal ``--spatial 1``'s."""
+    spatial = getattr(args, "spatial", 1)
+    if spatial > 1:
+        _check_spatial(args)
+        if world()[1] != spatial:
+            return _run_spatial(args)
+    writer = world()[0] == 0
     _check_artifact_args(args)
     trainer, state = build_eval_trainer(args)
     names = None
@@ -425,7 +502,10 @@ def cmd_infer(args):
         images, _ = synth_batch(g, args.batch_size,
                                 _synthetic_config(args, args.seed))
     with torch.inference_mode():
-        if args.quantize == "off":
+        calib = None
+        if spatial > 1:
+            preds, calib = _spatial_preds(args, trainer, images)
+        elif args.quantize == "off":
             preds = trainer.predict(state, images)
         else:
             loaded = (load_qparams(args.load_quantized, args.quantize)
@@ -435,10 +515,12 @@ def cmd_infer(args):
                 image_size=args.image_size, device=trainer.device,
                 seed=args.seed, qparams=loaded)
             preds = forward(images)
-            if args.save_quantized:
-                save_qparams(args.save_quantized, calib["qparams"],
-                             args.quantize)
-                print(f"wrote quantized artifact to {args.save_quantized}")
+        if not writer:
+            return preds
+        if calib is not None and args.save_quantized:
+            save_qparams(args.save_quantized, calib["qparams"],
+                         args.quantize)
+            print(f"wrote quantized artifact to {args.save_quantized}")
         os.makedirs(args.out_dir, exist_ok=True)
         np.save(os.path.join(args.out_dir, "masks.npy"),
                 preds.cpu().numpy().astype(np.int32))
@@ -638,7 +720,10 @@ def parser() -> argparse.ArgumentParser:
     i.add_argument("--out-dir", default="./inference_out")
     i.add_argument("--export-probs", action="store_true")
     i.add_argument("--spatial", type=int, default=1,
-                   help="spatial sharding (not ported yet: > 1 raises)")
+                   help="shard the B-scans' height over N ranks started "
+                        "here (--model unet, --quantize off|int8; gloo "
+                        "with every rank on --device unless the host has N "
+                        "cards)")
     i.add_argument("--save-quantized", default=None,
                    help="write the quantized artifact (.npz) after "
                         "calibration (unet)")

@@ -1,11 +1,11 @@
-"""Configuration dataclasses: the JAX package's ``config.py``, with the
-same names and defaults, for the fields the ported paths read. The mesh
-(``mesh_shape``) waits for the parallel slice."""
+"""Configuration dataclasses and ``flat_update``: the JAX package's
+``config.py``, with the same names and defaults, for the fields the ported
+paths read."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Mapping, Sequence
 
 
 @dataclasses.dataclass
@@ -66,3 +66,23 @@ class TrainConfig:
     # the U-Net's training forward on the CUDA kernels
     # (training/packed_unet.py); "remat" also checkpoints each block
     packed_train: bool | str = False
+    # mesh axis sizes ({"data": d, "space": s}); data parallelism over
+    # "data" (parallel/mesh.py)
+    mesh_shape: Mapping[str, int] | None = None
+
+
+def flat_update(cfg: Any, updates: Mapping[str, Any]) -> Any:
+    """A copy of a (nested) dataclass with dotted-key updates:
+    ``flat_update(cfg, {"optim.learning_rate": 3e-4})``."""
+    for key, value in updates.items():
+        parts = key.split(".")
+        chain = []
+        node = cfg
+        for p in parts[:-1]:
+            chain.append((node, p))
+            node = getattr(node, p)
+        node = dataclasses.replace(node, **{parts[-1]: value})
+        for parent, attr in reversed(chain):
+            node = dataclasses.replace(parent, **{attr: node})
+        cfg = node
+    return cfg

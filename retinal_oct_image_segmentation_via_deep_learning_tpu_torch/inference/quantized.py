@@ -10,6 +10,13 @@
    ``round((acc*(s_in*s_w) + b)/s_out)`` with two float32 roundings, as the
    JAX package's eager ``_qconv``). It is the port's int8 oracle: the
    served graph (``inference/psrp.py``) is held against it.
+5. ``quantize_unet_mixed`` / ``unet_mixed_forward``: the mixed graph, its
+   shallow stages in bf16 or int8 and its deep region (blk2..blk6, ct0,
+   ct1) in int8, the ten deep 3x3 convs on K1 (``ops/conv_int8``).
+
+Under ``parallel.halo.spatial_partitioning`` every 3x3 ``_qconv`` first
+takes its padding rows from its neighbours in H (zeros at the image's
+border), as the JAX package's does.
 
 Layers are a dict ``{name: {"w", "b"}}`` with names ``blk{i}_conv{j}``
 (weights (cout, cin, 3, 3)), ``ct{i}`` ((cin, cout, 2, 2), the
@@ -26,6 +33,12 @@ import torch.nn.functional as F
 
 from ..models.blocks import BN_EPS
 from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES
+from ..ops.conv_int8 import (
+    conv3x3_int8,
+    pack_conv3x3_mma_weights,
+    pack_conv3x3_weights,
+)
+from ..parallel.halo import current_spatial_axis, halo_exchange
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +196,16 @@ def _qconv(xq, s_in, layer, s_out, *, relu=True, transpose=False):
     is None."""
     w = layer["w_q"].double()
     if transpose:
+        # k = s = 2: each output row reads one input row, a local op under
+        # spatial partitioning
         acc = F.conv_transpose2d(xq.double(), w, stride=2)
     else:
-        acc = F.conv2d(xq.double(), w, padding=(w.shape[-1] - 1) // 2)
+        pad = (w.shape[-1] - 1) // 2
+        padding = (pad, pad)
+        if pad and current_spatial_axis() is not None:
+            xq = halo_exchange(xq, pad, current_spatial_axis(), dim=2)
+            padding = (0, pad)
+        acc = F.conv2d(xq.double(), w, padding=padding)
     y = acc.float() * _chan(s_in * layer["s_w"]) + _chan(layer["b"])
     if s_out is None:
         return y
@@ -233,6 +253,159 @@ def unet_int8_forward(qparams: dict, x: torch.Tensor) -> torch.Tensor:
         hq = _qconv(hq, cat_s, qparams[f"blk{blk}_conv0"],
                     s[f"blk{blk}_conv1_in"])
         nxt = f"ct{ct + 1}_in" if ct < 3 else "head_in"
+        hq = _qconv(hq, s[f"blk{blk}_conv1_in"], qparams[f"blk{blk}_conv1"],
+                    s[nxt])
+        hs = s[nxt]
+    y = _qconv(hq, s["head_in"], qparams["head"], None, relu=False)
+    return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# 5. the mixed graph (JAX ``inference/quantized.py:222-380``)
+# ---------------------------------------------------------------------------
+
+# the deep region: everything between pool(blk1) and ct2's input
+DEEP_BLOCKS = (2, 3, 4, 5, 6)
+DEEP_STAGES = tuple(f"blk{i}_conv{j}" for i in DEEP_BLOCKS for j in (0, 1))
+# ``deep``: "pallas" (JAX's name for its kernel route) runs the ten deep
+# 3x3 convs on K1, "xla" on ``_qconv`` as JAX's graph does off the TPU
+DEEP_IMPLS = ("pallas", "xla")
+SHALLOW_MODES = ("bf16", "int8")
+
+
+def quantize_unet_mixed(layers: dict, taps: dict) -> dict:
+    """qparams of ``unet_mixed_forward``: ``quantize_unet``'s, the deep
+    3x3 convs' weights also in K1's orders (``w_k``, ``w_m``, packed once
+    here), and every layer's folded weights in bf16 (``w_bf16``) with its
+    float32 bias (``b_f32``) for the bf16 shallow stages."""
+    q = quantize_unet(layers, taps)
+    for name in DEEP_STAGES:
+        lw = q[name]
+        lw["w_k"] = pack_conv3x3_weights(lw["w_q"])
+        lw["w_m"] = pack_conv3x3_mma_weights(lw["w_q"])
+    for name, lw in layers.items():
+        q[name]["w_bf16"] = lw["w"].to(torch.bfloat16)
+        q[name]["b_f32"] = lw["b"].float()
+    return q
+
+
+def _bconv(layer, x, relu=True, transpose=False):
+    """bf16 conv (bf16 out, as XLA's), then the bias added in bf16."""
+    w = layer["w_bf16"]
+    if transpose:
+        y = F.conv_transpose2d(x, w, stride=2)
+    else:
+        y = F.conv2d(x, w, padding=(w.shape[-1] - 1) // 2)
+    y = y + layer["b_f32"].to(y.dtype).view(1, -1, 1, 1)
+    return F.relu(y) if relu else y
+
+
+def _quant_in(h, s):
+    return torch.round(h.float() / s).clamp(-127, 127).to(torch.int8)
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+def unet_mixed_forward(qparams: dict, x: torch.Tensor, *,
+                       shallow: str = "bf16",
+                       deep: str = "pallas") -> torch.Tensor:
+    """The mixed U-Net: (N, H, W, 1) float -> (N, H, W, nc) logits, bf16
+    for ``shallow="bf16"``, float32 for ``"int8"``.
+
+    Shallow stages (blk0/1, ct2/3 + blk7/8, the head) run in ``shallow``
+    precision: bf16 convs of the folded weights, or ``_qconv``. The deep
+    region runs int8; with ``deep="pallas"`` its ten 3x3 convs are K1 with
+    the epilogue ``fmaf(acc, (s_in*s_w)/s_out, b/s_out)`` (one rounding,
+    as JAX's Pallas route), with ``deep="xla"`` they are ``_qconv`` (two
+    roundings, JAX's graph off the TPU). ct0/ct1 are ``_qconv`` in both."""
+    if shallow not in SHALLOW_MODES:
+        raise ValueError(f"shallow={shallow!r}: one of {SHALLOW_MODES}")
+    if deep not in DEEP_IMPLS:
+        raise ValueError(f"deep={deep!r}: one of {DEEP_IMPLS}")
+    s = qparams["_act_scales"]
+
+    def dconv(inputs, in_key, name, out_key, pool=False):
+        """A deep 3x3 conv over the channel concat of ``inputs`` (NCHW
+        int8); with ``pool`` also its 2x2 max-pool."""
+        layer = qparams[name]
+        s_in, s_out = s[in_key], s[out_key]
+        if deep == "xla":
+            y = _qconv(torch.cat(inputs, dim=1) if len(inputs) > 1
+                       else inputs[0], s_in, layer, s_out)
+            return (y, _pool(y)) if pool else y
+        scale = ((s_in * layer["s_w"]) / s_out).contiguous()
+        bias = (layer["b"] / s_out).contiguous()
+        out = conv3x3_int8(tuple(_nhwc(t) for t in inputs), layer["w_k"],
+                           scale, bias, pool=pool, w_mma=layer["w_m"])
+        if pool:
+            return tuple(t.permute(0, 3, 1, 2) for t in out)
+        return out.permute(0, 3, 1, 2)
+
+    h = x.permute(0, 3, 1, 2)
+    if shallow == "bf16":
+        h = h.to(torch.bfloat16)
+        enc = []
+        for i in (0, 1):
+            h = _bconv(qparams[f"blk{i}_conv0"], h)
+            h = _bconv(qparams[f"blk{i}_conv1"], h)
+            enc.append(h)
+            h = _pool(h)
+        hq = _quant_in(h, s["blk2_conv0_in"])
+    else:
+        hq = _quant_in(h, s["blk0_conv0_in"])
+        enc = []
+        for i in (0, 1):
+            hq = _qconv(hq, s[f"blk{i}_conv0_in"], qparams[f"blk{i}_conv0"],
+                        s[f"blk{i}_conv1_in"])
+            nxt = f"blk{i + 1}_conv0_in"
+            hq = _qconv(hq, s[f"blk{i}_conv1_in"], qparams[f"blk{i}_conv1"],
+                        s[nxt])
+            enc.append((hq, s[nxt]))
+            hq = _pool(hq)
+
+    # the int8 deep region: blk2 -> blk3 -> blk4 -> ct0 -> blk5 -> ct1 -> blk6
+    deep_enc = []
+    for i in (2, 3):
+        hq = dconv((hq,), f"blk{i}_conv0_in", f"blk{i}_conv0",
+                   f"blk{i}_conv1_in")
+        nxt = f"blk{i + 1}_conv0_in"
+        hq, pooled = dconv((hq,), f"blk{i}_conv1_in", f"blk{i}_conv1", nxt,
+                           pool=True)
+        deep_enc.append((hq, s[nxt]))
+        hq = pooled
+    hq = dconv((hq,), "blk4_conv0_in", "blk4_conv0", "blk4_conv1_in")
+    hq = dconv((hq,), "blk4_conv1_in", "blk4_conv1", "ct0_in")
+    hs = s["ct0_in"]
+    for ct, blk in ((0, 5), (1, 6)):
+        cat_s = s[f"blk{blk}_cat"]
+        up = _qconv(hq, hs, qparams[f"ct{ct}"], cat_s, relu=False,
+                    transpose=True)
+        sk_q, sk_s = deep_enc[1 - ct]
+        hq = dconv((up, _requant(sk_q, sk_s, cat_s)), f"blk{blk}_cat",
+                   f"blk{blk}_conv0", f"blk{blk}_conv1_in")
+        nxt = f"ct{ct + 1}_in"
+        hq = dconv((hq,), f"blk{blk}_conv1_in", f"blk{blk}_conv1", nxt)
+        hs = s[nxt]
+
+    if shallow == "bf16":
+        h = hq.to(torch.bfloat16) * hs.to(torch.bfloat16)
+        for ct, blk, skip in ((2, 7, enc[1]), (3, 8, enc[0])):
+            h = _bconv(qparams[f"ct{ct}"], h, relu=False, transpose=True)
+            h = torch.cat([h, skip], dim=1)
+            h = _bconv(qparams[f"blk{blk}_conv0"], h)
+            h = _bconv(qparams[f"blk{blk}_conv1"], h)
+        return _bconv(qparams["head"], h, relu=False).permute(0, 2, 3, 1)
+    for ct, blk, skip in ((2, 7, 1), (3, 8, 0)):
+        cat_s = s[f"blk{blk}_cat"]
+        up = _qconv(hq, hs, qparams[f"ct{ct}"], cat_s, relu=False,
+                    transpose=True)
+        sk_q, sk_s = enc[skip]
+        hq = torch.cat([up, _requant(sk_q, sk_s, cat_s)], dim=1)
+        hq = _qconv(hq, cat_s, qparams[f"blk{blk}_conv0"],
+                    s[f"blk{blk}_conv1_in"])
+        nxt = "ct3_in" if ct == 2 else "head_in"
         hq = _qconv(hq, s[f"blk{blk}_conv1_in"], qparams[f"blk{blk}_conv1"],
                     s[nxt])
         hs = s[nxt]

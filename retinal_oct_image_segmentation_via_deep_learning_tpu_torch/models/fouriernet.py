@@ -25,12 +25,13 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from ..ops.pooling import max_pool
+from .blocks import Conv2d
 
 
 def he_conv(cin: int, cout: int, kernel_size: int) -> nn.Conv2d:
     """'same' conv with bias (odd kernel), left uninitialised for
     ``_he_init_``."""
-    return skip_init(nn.Conv2d, cin, cout, kernel_size,
+    return skip_init(Conv2d, cin, cout, kernel_size,
                      padding=kernel_size // 2)
 
 

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
-from .blocks import BatchNorm, conv, conv_transpose, redraw
+from .blocks import BatchNorm, Conv2d, conv, conv_transpose, redraw
 
 LN_EPS = 1e-6
 
@@ -53,7 +53,7 @@ def _sep_conv(cin: int, cout: int, k: int, stride: int = 1,
               padding: int = 0, groups: int = 1, *,
               generator: torch.Generator) -> nn.Conv2d:
     """A bias-free conv with weights N(0, 2 / fan_out)."""
-    return redraw(skip_init(nn.Conv2d, cin, cout, k, stride=stride,
+    return redraw(skip_init(Conv2d, cin, cout, k, stride=stride,
                             padding=padding, groups=groups, bias=False),
                   math.sqrt(2.0 / (cout * k * k)), generator)
 

@@ -36,13 +36,13 @@ from torch.nn.utils import skip_init
 
 from ..ops.pooling import max_pool
 from ..ops.resize import resize_bilinear_nchw
-from .blocks import BatchNorm, conv_transpose, redraw
+from .blocks import BatchNorm, Conv2d, conv_transpose, redraw
 
 
 def _he_conv(cin: int, cout: int, k: int, padding: int = 0, *,
              generator: torch.Generator) -> nn.Conv2d:
     """A conv with weights N(0, 2 / fan_in) and zero biases."""
-    return redraw(skip_init(nn.Conv2d, cin, cout, k, padding=padding),
+    return redraw(skip_init(Conv2d, cin, cout, k, padding=padding),
                   math.sqrt(2.0 / (cin * k * k)), generator)
 
 

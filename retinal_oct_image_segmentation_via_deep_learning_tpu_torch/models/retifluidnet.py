@@ -34,13 +34,13 @@ from torch.nn.utils import skip_init
 
 from ..ops.pooling import max_pool
 from ..ops.resize import resize_bilinear_nchw, resize_nearest_nchw
-from .blocks import BatchNorm, conv
+from .blocks import BatchNorm, Conv2d, conv
 
 BICON = 8  # classes of each one-hot "bicon" map
 
 
 def _ones_conv(c: int) -> nn.Conv2d:
-    m = skip_init(nn.Conv2d, c, c, 1, bias=False)
+    m = skip_init(Conv2d, c, c, 1, bias=False)
     with torch.no_grad():
         m.weight.fill_(1.0)
     return m

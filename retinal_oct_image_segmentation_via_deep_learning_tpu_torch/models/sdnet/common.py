@@ -10,8 +10,9 @@
   reference's ``Attention_block`` cannot be constructed as written):
   x * sigmoid(BN(psi(relu(BN(W_g g) + BN(W_x x))))).
 
-The JAX blocks take a dropout rate that every caller leaves at 0, where
-they are the identity; these blocks have no dropout.
+``drop_rate`` is JAX's ``Drop2d``: in train mode whole channels are
+dropped (``F.dropout2d``) after each BatchNorm; at 0, the default of every
+caller, it is the identity.
 """
 
 from __future__ import annotations
@@ -28,11 +29,16 @@ def straight_through_round(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x).detach()
 
 
+def _drop(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    return F.dropout2d(x, rate, training) if rate else x
+
+
 class ResConvBlock(nn.Module):
-    def __init__(self, cin: int, features: int, kernel_size: int = 3, *,
-                 generator: torch.Generator):
+    def __init__(self, cin: int, features: int, kernel_size: int = 3,
+                 drop_rate: float = 0.0, *, generator: torch.Generator):
         super().__init__()
         k, g = (kernel_size, kernel_size), generator
+        self.drop_rate = drop_rate
         self.init_conv = conv_same(cin, features, k, g)
         self.conv1 = conv_same(features, features, k, g)
         self.bn1 = batch_norm(features)
@@ -41,21 +47,24 @@ class ResConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         init = self.init_conv(x)
-        h = F.relu(self.bn1(self.conv1(init)))
-        h = self.bn2(self.conv2(h))
+        h = _drop(self.bn1(self.conv1(init)), self.drop_rate, self.training)
+        h = _drop(self.bn2(self.conv2(F.relu(h))), self.drop_rate,
+                  self.training)
         return F.relu(h + init)
 
 
 class UpConv(nn.Module):
-    def __init__(self, cin: int, features: int, *,
+    def __init__(self, cin: int, features: int, drop_rate: float = 0.0, *,
                  generator: torch.Generator):
         super().__init__()
+        self.drop_rate = drop_rate
         self.conv = conv_same(cin, features, (3, 3), generator)
         self.bn = batch_norm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = upsample_bilinear(x, 2)
-        return F.relu(self.bn(self.conv(x)))
+        return F.relu(_drop(self.bn(self.conv(x)), self.drop_rate,
+                            self.training))
 
 
 class AttentionGate(nn.Module):

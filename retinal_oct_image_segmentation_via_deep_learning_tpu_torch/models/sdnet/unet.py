@@ -5,6 +5,11 @@
 levels; on the way up an ``UpConv``, the skip (through an ``AttentionGate``
 when ``attention``), ``cat([skip, up])`` and a ``ResConvBlock``; a 1x1 head.
 SDNet builds it with attention and five levels (the JAX ``AttU_Net``).
+
+``U_Net``, ``AttU_Net`` and ``AttU_Net4`` are SD_Layer_Net's public
+builders, with JAX's defaults (``models/sdnet/unet.py:54-66``): seeded on
+the CPU, then moved to ``device``, in eval mode. ``drop_rate`` is JAX's
+channel dropout (``common.ResConvBlock``).
 """
 
 from __future__ import annotations
@@ -22,21 +27,22 @@ from .common import AttentionGate, ResConvBlock, UpConv
 class UNetBackbone(nn.Module):
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  channels: Sequence[int] = (64, 128, 256, 512, 1024),
-                 attention: bool = False, *, generator: torch.Generator):
+                 attention: bool = False, drop_rate: float = 0.0, *,
+                 generator: torch.Generator):
         super().__init__()
-        g, chans = generator, list(channels)
+        g, chans, d = generator, list(channels), drop_rate
         self.enc = nn.ModuleList(
-            ResConvBlock(cin, c, 3, generator=g)
+            ResConvBlock(cin, c, 3, d, generator=g)
             for cin, c in zip([in_channels] + chans[:-1], chans))
         ups = range(len(chans) - 2, -1, -1)  # decoder levels, deepest first
         self.up = nn.ModuleList(
-            UpConv(chans[lvl + 1], chans[lvl], generator=g)
+            UpConv(chans[lvl + 1], chans[lvl], d, generator=g)
             for lvl in ups)
         self.att = nn.ModuleList(
             AttentionGate(chans[lvl], chans[lvl], chans[lvl] // 2,
                           generator=g) for lvl in ups) if attention else None
         self.dec = nn.ModuleList(
-            ResConvBlock(2 * chans[lvl], chans[lvl], 3, generator=g)
+            ResConvBlock(2 * chans[lvl], chans[lvl], 3, d, generator=g)
             for lvl in ups)
         self.head = conv1x1(chans[0], out_channels, g)
 
@@ -52,3 +58,35 @@ class UNetBackbone(nn.Module):
                 skip = self.att[k](h, skip)
             h = dec(torch.cat([skip, h], dim=1))
         return self.head(h)
+
+
+def _backbone(output_ch, channels, attention, drop_rate, in_channels, seed,
+              device) -> UNetBackbone:
+    g = torch.Generator().manual_seed(seed)
+    model = UNetBackbone(in_channels, output_ch, tuple(channels), attention,
+                         drop_rate, generator=g)
+    return model.to(device).eval()
+
+
+def U_Net(output_ch=1, channels=(64, 128, 256, 512, 1024), drop_rate=0.0,
+          *, in_channels: int = 1, seed: int = 0,
+          device: torch.device | str = "cpu") -> UNetBackbone:
+    """The residual U-Net, without attention gates."""
+    return _backbone(output_ch, channels, False, drop_rate, in_channels,
+                     seed, device)
+
+
+def AttU_Net(output_ch=1, channels=(64, 128, 256, 512, 1024), drop_rate=0.0,
+             *, in_channels: int = 1, seed: int = 0,
+             device: torch.device | str = "cpu") -> UNetBackbone:
+    """The U-Net with an attention gate on every skip."""
+    return _backbone(output_ch, channels, True, drop_rate, in_channels,
+                     seed, device)
+
+
+def AttU_Net4(output_ch=1, channels=(64, 128, 256, 512), drop_rate=0.0,
+              *, in_channels: int = 1, seed: int = 0,
+              device: torch.device | str = "cpu") -> UNetBackbone:
+    """``AttU_Net`` with four levels."""
+    return _backbone(output_ch, channels, True, drop_rate, in_channels,
+                     seed, device)

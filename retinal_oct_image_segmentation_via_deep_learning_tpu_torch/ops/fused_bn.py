@@ -17,6 +17,13 @@ mean and var carry no gradient; the caller applies the running-stat update
 no counterpart here. The normalize and dx passes stay plain torch
 elementwise ops, as they are XLA in JAX.
 
+Under ``parallel.collectives.data_parallel`` the statistics are those of
+the global batch, as JAX's step over a batch sharded on "data": K6's
+[sum x, sum x^2] and, in the backward, [sum dy, sum dy * x] are summed
+over the data group before use (m the global row count); the gamma and
+beta gradients stay this rank's share, which the trainer sums over the
+ranks with the other gradients.
+
 ``pair_sums`` runs K6 (``csrc/bn_pair_sums.cu``) for a CUDA tensor and its
 plain version (float64 sums, rounded to float32) only for a CPU tensor.
 K6 is one cooperative launch a call; ``pair_sums_plan`` cuts its rows and
@@ -31,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.collectives import all_reduce_sum, current_data_group
 from . import _build
 from .conv_int8 import _check, _stream
 
@@ -181,8 +189,17 @@ def pair_sums(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
 pair_sums.launches = 0
 
 
-def _stats(x: torch.Tensor, m: int):
-    sums = pair_sums(x)
+def _global(sums: torch.Tensor, m: int, group):
+    """K6's sums and the row count over the data group (as they are
+    without one)."""
+    if group is None:
+        return sums, m
+    return all_reduce_sum(sums, group), m * torch.distributed.get_world_size(
+        group)
+
+
+def _stats(x: torch.Tensor, m: int, group=None):
+    sums, m = _global(pair_sums(x), m, group)
     mean = sums[0] / m
     var = torch.clamp_min(sums[1] / m - mean * mean, 0.0)
     return mean, var, torch.rsqrt(var + EPS)
@@ -195,7 +212,8 @@ class _BNTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta):
         m = x.numel() // x.shape[-1]
-        mean, var, inv = _stats(x, m)
+        ctx.group = current_data_group()
+        mean, var, inv = _stats(x, m, ctx.group)
         scale = gamma.float() * inv
         shift = beta.float() - mean * scale
         y = (x.float() * scale + shift).to(x.dtype)
@@ -207,13 +225,17 @@ class _BNTrain(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, inv, gamma = ctx.saved_tensors
         m = x.numel() // x.shape[-1]
-        sums = pair_sums(dy, x)
+        local = pair_sums(dy, x)
+        sums, m = _global(local, m, ctx.group)
         dbeta = sums[0]
         dgamma = (sums[1] - mean * dbeta) * inv
         g = gamma.float() * inv
         c1 = g * dgamma * inv / m
         c0 = g * (dbeta + dgamma * inv * (-mean)) / m
         dx = (dy.float() * g - x.float() * c1 - c0).to(x.dtype)
+        if ctx.group is not None:  # this rank's share of the gradients
+            dbeta = local[0]
+            dgamma = (local[1] - mean * dbeta) * inv
         return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 

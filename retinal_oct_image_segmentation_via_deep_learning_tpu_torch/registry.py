@@ -1,9 +1,12 @@
 """Model registry: name -> PyTorch module constructor, the JAX package's 18
 names. Each constructor takes ``in_channels``, ``num_classes``, ``seed`` and
-``device``; an unknown name raises ``ValueError`` listing the names."""
+``device``; an unknown name raises ``ValueError`` listing the names.
+``register_model`` (also a decorator) and ``register_lazy`` add names, as
+the JAX package's do."""
 
 from __future__ import annotations
 
+import importlib
 from typing import Any, Callable
 
 from .models.anogan import build_anogan
@@ -43,12 +46,37 @@ _MODELS: dict[str, Callable[..., Any]] = {
 }
 
 
+# name -> (module path under .models, attribute), imported on first use
+_LAZY: dict[str, tuple[str, str]] = {}
+
+
+def register_model(name: str, ctor: Callable[..., Any] | None = None):
+    """Register a model constructor under ``name``; without ``ctor``, a
+    decorator."""
+
+    def wrap(fn: Callable[..., Any]):
+        _MODELS[name] = fn
+        return fn
+
+    return wrap(ctor) if ctor is not None else wrap
+
+
+def register_lazy(name: str, module: str, attr: str) -> None:
+    """Register ``models.<module>.<attr>`` under ``name``, imported when
+    the model is first built."""
+    _LAZY[name] = (module, attr)
+
+
 def list_models() -> list[str]:
-    return sorted(_MODELS)
+    return sorted(set(_MODELS) | set(_LAZY))
 
 
 def get_model(name: str, **kwargs: Any):
     """Build a model by registry name (the JAX package's names)."""
+    if name not in _MODELS and name in _LAZY:
+        module, attr = _LAZY[name]
+        _MODELS[name] = getattr(importlib.import_module(
+            f".models.{module}", package=__package__), attr)
     if name not in _MODELS:
         raise ValueError(
             f"Unknown model {name!r}. Available: {', '.join(list_models())}")

@@ -3,6 +3,12 @@
 The segmentation losses take NHWC logits and integer (B, H, W) labels,
 compute in float32 and reduce to a scalar. A label outside [0, num_classes) has an all-zero
 one-hot row, as ``jax.nn.one_hot`` gives.
+
+Under ``parallel.collectives.data_parallel`` they are the losses of the
+global batch, as JAX's over a batch sharded on "data": the cross-entropy
+is the global mean, and the Dice intersections and denominators are summed
+over batch, space and the data group (``global_sum``, differentiable)
+before the ratio.
 """
 
 from __future__ import annotations
@@ -12,6 +18,8 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.collectives import data_size, global_sum
 
 _EPS = 1e-7
 
@@ -30,8 +38,18 @@ def _weights(class_weights, device) -> torch.Tensor:
 def _ce(ll: torch.Tensor, labels: torch.Tensor, class_weights) -> torch.Tensor:
     if class_weights is not None:
         w = _weights(class_weights, ll.device)[labels]
-        return -torch.sum(ll * w) / torch.clamp_min(torch.sum(w), _EPS)
-    return -torch.mean(ll)
+        return -global_sum(torch.sum(ll * w)) / torch.clamp_min(
+            global_sum(torch.sum(w)), _EPS)
+    if data_size() == 1:
+        return -torch.mean(ll)
+    return -global_sum(torch.sum(ll)) / (ll.numel() * data_size())
+
+
+def _dice_sums(probs, onehot, axes):
+    inter = global_sum(torch.sum(probs * onehot, dim=axes))
+    denom = global_sum(torch.sum(probs, dim=axes)) + global_sum(
+        torch.sum(onehot, dim=axes))
+    return inter, denom
 
 
 def _dice_term(inter, denom, class_weights) -> torch.Tensor:
@@ -56,9 +74,7 @@ def dice_loss(logits, labels, class_weights=None):
     logits = logits.float()
     probs = torch.softmax(logits, dim=-1)
     onehot = _onehot(labels, logits.shape[-1], -1)
-    axes = tuple(range(probs.dim() - 1))
-    inter = torch.sum(probs * onehot, dim=axes)
-    denom = torch.sum(probs, dim=axes) + torch.sum(onehot, dim=axes)
+    inter, denom = _dice_sums(probs, onehot, tuple(range(probs.dim() - 1)))
     return _dice_term(inter, denom, class_weights)
 
 
@@ -70,9 +86,7 @@ def _dice_ce_core_nchw(logits, labels, class_weights, dice_weight):
     probs = torch.exp(logp)
     onehot = _onehot(labels, t.shape[1], 1)
     ce = _ce(torch.sum(logp * onehot, dim=1), labels, class_weights)
-    axes = (0, 2, 3)
-    inter = torch.sum(probs * onehot, dim=axes)
-    denom = torch.sum(probs, dim=axes) + torch.sum(onehot, dim=axes)
+    inter, denom = _dice_sums(probs, onehot, (0, 2, 3))
     return dice_weight * _dice_term(inter, denom, class_weights) + ce
 
 
@@ -90,7 +104,10 @@ def dice_ce_loss(logits, labels, class_weights=None, dice_weight=1.0):
 
 def mse_loss(pred, target, class_weights=None):
     del class_weights  # uniform over pixels; keeps the trainer's contract
-    return torch.mean((pred.float() - target.float()) ** 2)
+    sq = (pred.float() - target.float()) ** 2
+    if data_size() == 1:
+        return torch.mean(sq)
+    return global_sum(torch.sum(sq)) / (sq.numel() * data_size())
 
 
 def bce_with_logits(logits, targets):

@@ -12,8 +12,22 @@ registry model runs in train mode under autocast to ``cfg.compute_dtype``
 dataset, through the model or any ``predict_fn`` (a quantized graph).
 
 The trainer runs on ``device``, a CUDA device unless the caller asks for the
-CPU. Not ported yet: the device mesh (the parallel slice) and
-``OCTSEG_TRAIN_REMAT`` (ROADMAP.md, Queue A item 8).
+CPU. Given a mesh (``mesh=`` or ``cfg.mesh_shape``) whose "data" axis has
+more than one rank, each rank of the process group runs this trainer on
+the same global batches: the step takes this rank's shard of the batch,
+runs the model under ``parallel.collectives.data_parallel`` (train-mode
+BatchNorm and the losses over the global batch), sums the gradients over
+the ranks and applies the same update everywhere; the parameters start
+from rank 0's. A step on two ranks with half the batch each is the
+one-rank step on the whole batch. Validation runs the whole batch on every
+rank; rank 0 writes the checkpoints.
+
+``remat="full"`` (or ``OCTSEG_TRAIN_REMAT=full``) recomputes the whole
+forward in the backward (``torch.utils.checkpoint``); the buffers are put
+back after the backward, so the running statistics move once a step. It
+keeps no activations between the forward and the backward, but the
+recompute holds them all again while the backward runs, so the step's
+peak memory does not fall (``chip_smoke.py`` phase 35 prints both peaks).
 """
 
 from __future__ import annotations
@@ -21,10 +35,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import itertools
+import os
 import time
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import TrainConfig
 from ..metrics.region import per_class_dice
@@ -34,6 +50,9 @@ from ..metrics.volume import (
     volume_confusion,
 )
 from ..ops.preprocess import preprocess
+from ..parallel.collectives import all_reduce_sum, data_parallel
+from ..parallel.mesh import DATA_AXIS, SPACE_AXIS, Mesh, create_mesh
+from ..parallel.sharding import shard_batch, shard_params
 from ..registry import get_model
 from ..utils.dtype import resolve_dtype
 from .checkpoint import CheckpointManager, EarlyStopping
@@ -55,17 +74,65 @@ def nhwc_logits(model, images: torch.Tensor,
         return model(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+REMATS = (None, "full")
+
+
+def _data_group(mesh: Mesh | None):
+    """The mesh's data group where its data axis has more than one rank."""
+    if mesh is None or mesh.axis_size(DATA_AXIS) == 1:
+        return None
+    return mesh.group(DATA_AXIS)
+
+
+def sum_gradients(model: torch.nn.Module, group) -> None:
+    """Sum the parameter gradients over ``group``, in one flat buffer."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
 def make_train_step(loss_fn: Callable, class_weights=None,
-                    dtype: torch.dtype = torch.bfloat16):
+                    dtype: torch.dtype = torch.bfloat16,
+                    remat: str | None = None, mesh: Mesh | None = None):
     """``train_step(state, images, labels) -> loss``: the model in train
-    mode, one optimizer step; BN running stats update in the forward."""
+    mode, one optimizer step; BN running stats update in the forward.
+
+    ``remat="full"`` (default ``OCTSEG_TRAIN_REMAT``) recomputes the whole
+    forward in the backward. With a ``mesh`` whose data axis has more than
+    one rank the step is data-parallel over the global batch it is given
+    (the module docstring)."""
+    remat = remat or os.environ.get("OCTSEG_TRAIN_REMAT") or None
+    if remat not in REMATS:
+        raise ValueError(f"remat={remat!r}: one of {REMATS}")
+    group = _data_group(mesh)
+
+    def forward(model, images):
+        if remat is None:
+            return nhwc_logits(model, images, dtype)
+        return checkpoint(nhwc_logits, model, images, dtype,
+                          use_reentrant=False)
 
     def train_step(state: TrainState, images, labels):
+        if group is not None:
+            images, labels = shard_batch(mesh, (images, labels))
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(nhwc_logits(state.model, images, dtype), labels,
-                       class_weights)
-        loss.backward()
+        with data_parallel(group):
+            logits = forward(state.model, images)
+            # the recompute runs train-mode BatchNorm again: the running
+            # statistics keep the forward's update
+            kept = [b.clone() for b in state.model.buffers()] if remat \
+                else []
+            loss = loss_fn(logits, labels, class_weights)
+            loss.backward()
+        with torch.no_grad():
+            for b, k in zip(state.model.buffers(), kept):
+                b.copy_(k)
+        if group is not None:
+            sum_gradients(state.model, group)
         state.apply_gradients()
         return loss.detach()
 
@@ -89,12 +156,22 @@ def make_eval_step(loss_fn: Callable, num_classes: int, class_weights=None,
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, device: torch.device | str = "cuda"):
+    def __init__(self, cfg: TrainConfig, device: torch.device | str = "cuda",
+                 mesh: Mesh | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device}: no CUDA device "
                                "available (ask for the CPU explicitly)")
+        if mesh is None and cfg.mesh_shape:
+            mesh = create_mesh(**dict(cfg.mesh_shape))
+        if mesh is not None and mesh.axis_size(SPACE_AXIS) > 1:
+            raise ValueError(
+                f"Trainer: mesh {mesh.shape}: the trainer shards the batch "
+                "over 'data' only; a space axis is for inference "
+                "(parallel.halo.spatial_shard_infer)")
+        self.mesh = mesh
+        self._group = _data_group(mesh)
         self.dtype = resolve_dtype(cfg.compute_dtype)
         self.model = get_model(
             cfg.model.name,
@@ -111,12 +188,17 @@ class Trainer:
         )
         self.ckpt = (
             CheckpointManager(cfg.checkpoint_dir, cfg.keep_checkpoints)
-            if cfg.checkpoint_dir else None
+            if cfg.checkpoint_dir and (self._group is None
+                                       or mesh.coords == (0, 0)) else None
         )
         self.history: list[dict] = []
 
     # -- setup ------------------------------------------------------------
     def init_state(self) -> TrainState:
+        """The train state of ``self.model``; under data parallelism its
+        parameters and buffers are rank 0's."""
+        if self._group is not None:
+            shard_params(self.mesh, self.model)
         return create_train_state(self.model, self.cfg.optim)
 
     def _preprocess(self, images: torch.Tensor) -> torch.Tensor:
@@ -139,13 +221,19 @@ class Trainer:
                     "packed_train supports only the flagship 'unet' model, "
                     f"got {cfg.model.name!r}"
                 )
+            if self._group is not None:
+                raise ValueError(
+                    "packed_train runs on one device: the packed U-Net "
+                    "step's K4/K5 convs and K6 statistics are not reduced "
+                    f"over a data axis (mesh {self.mesh.shape})")
             from .packed_unet import make_packed_train_step
 
             return make_packed_train_step(
                 self.loss_fn, self.class_weights,
                 remat=cfg.packed_train == "remat",
             )
-        return make_train_step(self.loss_fn, self.class_weights, self.dtype)
+        return make_train_step(self.loss_fn, self.class_weights, self.dtype,
+                               mesh=self.mesh)
 
     # -- loops ------------------------------------------------------------
     def fit(self, train_ds, val_ds=None, state: TrainState | None = None):

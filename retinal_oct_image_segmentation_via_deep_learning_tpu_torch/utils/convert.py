@@ -30,7 +30,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..models import ffc
+from ..models import blocks, ffc
 from ..models.anogan import AnoGAN
 from ..models.bionet import BioNet
 from ..models.edgeal import EdgeAL
@@ -43,6 +43,7 @@ from ..models.msnet import LossNet, MSNet
 from ..models.res2net import Bottle2neck, Res2Net50Features
 from ..models.resnet import BasicBlock, ResNetFeatures
 from ..models.retifluidnet import SDA, RetiFluidNet
+from ..models.sdnet.unet import UNetBackbone
 from ..models.watnet import WAT, WATNet
 from ..models.relaynet import BLOCK_NAMES as RELAYNET_BLOCKS
 from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES, YNet
@@ -698,11 +699,51 @@ def _masood_map(m, prefix, path) -> list:
     return out + [(f"{prefix}head", path + ("Conv_0",), "conv")]
 
 
+def _conv_bn_act_map(m, prefix, path) -> list:
+    out = [(f"{prefix}conv", path + ("Conv_0",), "conv")]
+    if m.bn is not None:
+        out.append((f"{prefix}bn", path + ("BatchNorm_0",), "bn"))
+    return out
+
+
+def _blocks_double_conv_map(m, prefix, path) -> list:
+    return [e for j, b in enumerate(m.blocks)
+            for e in _conv_bn_act_map(b, f"{prefix}blocks.{j}.",
+                                      path + (f"ConvBNAct_{j}",))]
+
+
+def _attention_gate_map(m, prefix, path) -> list:
+    return [e for j, n in enumerate(("w_g", "w_x", "psi"))
+            for e in _conv_bn_act_map(getattr(m, n), f"{prefix}{n}.",
+                                      path + (f"ConvBNAct_{j}",))]
+
+
+def _blocks_aspp_map(m, prefix, path) -> list:
+    out = [e for j, b in enumerate(m.branches)
+           for e in _conv_bn_act_map(b, f"{prefix}branches.{j}.",
+                                     path + (f"ConvBNAct_{j}",))]
+    return out + [(f"{prefix}project", path + ("Conv_0",), "conv")]
+
+
+def _separable_conv_map(m, prefix, path) -> list:
+    return [(f"{prefix}depthwise", path + ("Conv_0",), "conv"),
+            (f"{prefix}pointwise", path + ("Conv_1",), "conv")]
+
+
+def _prelu_map(m, prefix, path) -> list:
+    return [(prefix[:-1], path, "prelu")]
+
+
+def _backbone_map(m, prefix, path) -> list:
+    return backbone_layer_map(len(m.enc), m.att is not None, prefix, path)
+
+
 def layer_map(module, prefix: str = "", path: tuple = ()) -> list:
     """The layer map of a port module of the FFC stack or the zoo (Y-Net,
     EdgeAL, AnoGAN, FourierNet, MGU-Net, ISLAM, LightReSeg, MSNet, LossNet,
     BioNet, WAT-Net, RetiFluidNet, Masood, their backbones and attention
-    units, an FFC unit, a wrapper), its names under
+    units, an FFC unit, a wrapper), of a generic block of
+    ``models/blocks`` or of SD_Layer_Net's U-Net, its names under
     ``prefix`` and its Flax modules under ``path``, read off the module:
     which paths exist follows the channel splits it was built with, and
     Flax numbers each kind of submodule in call order."""
@@ -737,7 +778,15 @@ _MAPS = ((ffc.FourierUnit, _fourier_unit_map),
          (WATNet, _watnet_map),
          (SDA, _sda_map),
          (RetiFluidNet, _retifluidnet_map),
-         (Masood2024, _masood_map))
+         (Masood2024, _masood_map),
+         (blocks.ConvBNAct, _conv_bn_act_map),
+         (blocks.DoubleConv, _blocks_double_conv_map),
+         (blocks.SqueezeExcitation, lambda m, p, path: _se_map(p, path)),
+         (blocks.AttentionGate, _attention_gate_map),
+         (blocks.ASPP, _blocks_aspp_map),
+         (blocks.SeparableConv, _separable_conv_map),
+         (blocks.PReLU, _prelu_map),
+         (UNetBackbone, _backbone_map))
 
 
 # -- the two directions ------------------------------------------------------

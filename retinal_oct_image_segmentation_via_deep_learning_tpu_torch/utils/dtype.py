@@ -1,7 +1,17 @@
 """Dtype policy: float32 parameters, optional bf16 or fp16 compute (the JAX
-package's ``utils/dtype.resolve_dtype``)."""
+package's ``utils/dtype.py``).
+
+``DTypePolicy`` holds torch dtypes. JAX's ``flax_kwargs`` (``dtype=`` and
+``param_dtype=`` for every Flax layer) has no counterpart in the port's
+models, which take no dtype: their parameters are float32, and the
+compute dtype is applied around the forward as autocast
+(``training/trainer.nhwc_logits``, which the Trainer calls with
+``resolve_dtype(cfg.compute_dtype)``).
+"""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -16,3 +26,14 @@ _DTYPES = {
 
 def resolve_dtype(name: str | torch.dtype) -> torch.dtype:
     return _DTYPES[name] if isinstance(name, str) else name
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def create(cls, compute: str | torch.dtype = "float32") -> "DTypePolicy":
+        return cls(param_dtype=torch.float32,
+                   compute_dtype=resolve_dtype(compute))

@@ -132,11 +132,23 @@ def test_eval_off_prints_what_jax_prints(capsys):
     (["infer", "--image-dir", "/x"], "item 11"),
 ])
 def test_unported_flags_raise(tmp_path, argv, match):
-    """``--spatial`` (item 12) raises, naming its item. The flags of item
-    11 are ported: a missing directory raises what the JAX CLI raises."""
+    """The flags of items 11 and 12 are ported. ``--spatial`` (item 12)
+    refuses what the JAX CLI refuses, with its message (``cli.py:169-
+    175``, ``:183-190``): the packed and PSRP layouts, and ReLayNet's
+    int8 graphs; its runs are in tests/test_torch_parallel.py. A missing
+    directory (item 11) raises what the JAX CLI raises."""
     if match == "item 12":
-        with pytest.raises(NotImplementedError, match=match):
-            _port([argv[0], *_args("unet"), *argv[1:]])
+        for model, quantize, message in (
+                ("unet", "psrp", "--spatial supports --quantize off|int8 "
+                 "(the packed/psrp layouts shard over data, not space — "
+                 "see parallel/serving)"),
+                ("unet", "packed", "--spatial supports --quantize off|int8"),
+                ("relaynet", "int8", "--model relaynet supports --quantize "
+                 "int8|psrp (single-device)")):
+            with pytest.raises(SystemExit) as refused:
+                _port([argv[0], *_args(model), *argv[1:], "--quantize",
+                       quantize])
+            assert str(refused.value).startswith(message)
         return
     argv = [a.replace("/x", str(tmp_path / "missing")) for a in argv]
     with pytest.raises(Exception) as jax_error:

@@ -31,6 +31,16 @@ from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess i
     zscore,
 )
 
+# The tier-1 command runs six pytest workers on the host's cores, and
+# torch's default intra-op pool (a thread per core in every worker)
+# oversubscribes them: the same 69 tests of six of the heaviest port files
+# under six workers took 1167 test-seconds at the default against 261 at
+# two threads a worker, on an 8-core host. Every worker imports this
+# module when it collects the port's tests, so the cap holds for the
+# whole run.
+TORCH_THREADS = 2
+torch.set_num_threads(min(torch.get_num_threads(), TORCH_THREADS))
+
 
 def randomize_unet_variables(variables, seed=0, gain=2.0):
     """U-Net weights with random BN affines and statistics (the README's

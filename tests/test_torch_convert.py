@@ -83,7 +83,8 @@ def test_checkpoint_block_spelling():
 def test_port_imports_without_jax():
     """A fresh interpreter with ``jax`` and the JAX package blocked imports
     every module of the port, the fused-loss, ReLayNet, fused-stem, packed
-    graph, artifact, metric, SDNet, FFC-zoo and CLI modules among them;
+    graph, artifact, metric, SDNet, FFC-zoo, parallel, debug, profiling and
+    CLI modules among them;
     neither is loaded afterwards."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -119,5 +120,8 @@ def test_port_imports_without_jax():
                  "models.ffc", "models.edgeal", "models.anogan",
                  "models.fouriernet", "ops.fd", "ops.sampling",
                  "training.adversarial", "training.fouriernet_pipeline",
+                 "parallel.mesh", "parallel.collectives", "parallel.sharding",
+                 "parallel.halo", "parallel.serving", "parallel.launch",
+                 "parallel.dryrun", "utils.debug", "utils.profiling",
                  "cli"):
         assert pkg + name in mods, name
