@@ -6,8 +6,9 @@ the real-data path (Duke DME volumes through ``train --data`` and
 ``eval --data``), the zoo's first models (Y-Net plain and FFC, EdgeAL,
 FourierNet, AnoGAN), MGU-Net (both variants), ISLAM and LightReSeg, and
 MSNet, M2SNet, BioNet, WAT-Net, Masood and RetiFluidNet, the mixed int8
-graph, the parallel runtime on two ranks of the card, the remat step and
-the generic blocks once on one NVIDIA GPU.
+graph, the parallel runtime on two ranks of the card, the remat step, the
+generic blocks and the packed U-Net step data-parallel on two ranks once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
@@ -269,6 +270,20 @@ Phases (any failure raises; the exit code is then non-zero):
     plain step (U-Net f=32, batch 8, float32: loss, gradients and running
     statistics equal, K6 launches, peak memory); the generic blocks and
     AttU_Net4 card against CPU, eval and train, 1e-4.
+36. the packed U-Net step under a data axis of two ranks (gloo, both on
+    the one card; f=32, 10 classes, 512x512), from phase 7's trained
+    state: the step on 2 ranks x 4 against 1 rank x 8, unfused, with the
+    fused loss (K8/K9), with ``remat=True`` and with ``deep=mid="kernel"``,
+    each at ``PACKED_DP_GATE`` (relative loss, lowest gradient cosine,
+    largest norm change, running statistics), the one-ulp floor printed
+    and two planted faults refused (K6's sums and K8's statistics left
+    unreduced); both ranks' parameters and buffers equal; launches a rank
+    a step (K4 6, K5 3, K6 36; K8 1 and K9 1 fused; 34 / 17 / 36
+    ``"kernel"``); a step's time and peak memory a rank (two ranks share
+    the card: no multi-card speed); ``cli train --packed`` for one epoch
+    inside the two ranks (their ``local_mesh``): equal state, launches a
+    rank, one checkpoint written by rank 0, which ``eval --checkpoint``
+    reads.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -475,9 +490,9 @@ def relaynet_work(h, cins, pool, n, f=64):
 T_START = time.perf_counter()
 
 
-def train_batch(dev, n, seed, nc=NC):
+def train_batch(dev, n, seed, nc=NC, hw=None):
     """Seeded synthetic Duke-DME-shaped B-scans (z-scored) and labels of
-    ``nc`` classes."""
+    ``nc`` classes, ``hw`` (default ``HW``) square."""
     import torch
 
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
@@ -489,17 +504,18 @@ def train_batch(dev, n, seed, nc=NC):
     )
 
     gb = torch.Generator(device=dev).manual_seed(seed)
+    hw = hw or HW
     images, labels = synth_batch(gb, n, SyntheticOCTConfig(
-        height=HW, width=HW, num_layers=nc - 2))
+        height=hw, width=hw, num_layers=nc - 2))
     return preprocess(images), labels
 
 
-def seeded_unet(dev):
+def seeded_unet(dev, f=None, nc=None):
     from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.registry import (
         get_model,
     )
 
-    return get_model("unet", num_classes=NC, init_features=F,
+    return get_model("unet", num_classes=nc or NC, init_features=f or F,
                      seed=SEED).to(dev)
 
 
@@ -772,7 +788,7 @@ def swapped(module, **repl):
 
 def train_phases(dev, card, time_ms):
     """Phases 6-8: the training path. -> the K4-K6 entries of the kernels
-    line."""
+    line, and phase 7's trained state dict (on the host)."""
     import torch
     import torch.nn.functional as tnf
 
@@ -1342,7 +1358,7 @@ def train_phases(dev, card, time_ms):
     out[0].update(device_ms=k4["device"], plan=k4_plans)
     out[2].update(body="pair_sums_kernel (one cooperative launch a call)",
                   device_ms=k6_dev["fwd"] + k6_dev["bwd"], plan=k6_plans)
-    return out
+    return out, {k: v.cpu() for k, v in trained.items()}
 
 
 def k9_within_ulp(dx, exact):
@@ -4554,8 +4570,9 @@ DP_GATE = {"loss": 1e-6, "cosine": 0.99999, "stats": 1e-6}
 # problem's size, and at some conv shapes (phase 35 prints them) the
 # shard's takes another order of additions: the logits then differ by
 # float32 roundings, the labels not. The CPU is bit-equal
-# (tests/test_torch_parallel.py). This tolerance departs from a bit-equal
-# gate; ROADMAP.md Queue C4 holds it as an open fault.
+# (tests/test_torch_parallel.py). The JAX package holds the same function
+# to atol 1e-4, rtol 1e-4 (tests/test_parallel.py:116-117); ROADMAP.md
+# Queue C records C4 as a float32 note against that contract.
 SPATIAL_FLOAT_TOL = 1e-6
 REMAT_BATCH = 8  # the remat step (U-Net f=32)
 BLOCKS_SIDE = 128  # the generic blocks, card vs CPU
@@ -5141,6 +5158,312 @@ def parallel_phase(dev, card, time_ms, model, calib):
     print(f"phase 35 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     if bad:
         raise RuntimeError(f"phase 35: {bad}")
+
+
+PACKED_DP_BATCH = 8  # phase 36's global batch: 2 ranks x 4
+PACKED_DP_CASES = {"unfused": {}, "fused": {"fused_loss": True},
+                   "remat": {"remat": True},
+                   "kernel": {"deep": "kernel", "mid": "kernel"}}
+# the packed step on 2 ranks x 4 vs 1 rank x 8 from the trained state:
+# relative loss, lowest gradient cosine, largest change of a gradient's
+# norm, and the largest running-statistic difference relative to that
+# buffer's largest value, between the one-ulp floor and the nearest of two
+# planted faults (K6's sums and K8's statistics left unreduced; PERF.md
+# section 6). Every reading of the correct step sits at the floor's order
+# (its running statistics 9.8e-05 against the floor's 7.5e-05: the bf16
+# activations round the other way where a statistic moves by an ulp);
+# statistics at 5e-4, between those and the K6 fault's 4.9e-03
+PACKED_DP_GATE = {"loss": 1e-5, "cosine": 0.9999, "norm": 3e-3,
+                  "stats": 5e-4}
+PACKED_DP_STEPS = 5  # timed steps a rank, after two warm-up steps
+
+
+def state_digest(model):
+    """sha256 of every parameter and buffer of ``model``, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_agreement(a, b):
+    """``agreement`` of two (loss, {name: gradient}, {name: running
+    statistic}) steps, and the largest |a - b| / max |b| over the running
+    statistics."""
+    stats = max(float((a[2][k] - b[2][k]).abs().max()
+                      / b[2][k].abs().max().clamp_min(1e-30)) for k in b[2])
+    return agreement(a[:2], b[:2]) + (stats,)
+
+
+def dp_passes(agree):
+    return gate_passes(agree[:3], PACKED_DP_GATE) and \
+        agree[3] < PACKED_DP_GATE["stats"]
+
+
+def dp_reading(agree):
+    return f"{reading(agree[:3])}, running statistics {agree[3]:.3e}"
+
+
+def packed_dp_checks(dev_name, trained_path, ckpt_dir, hw, f, nc, batch):
+    """Phase 36 on each of two ranks (gloo; both on ``dev_name``): the
+    packed step (U-Net ``f``, ``nc`` classes, ``hw`` square, global batch
+    ``batch``) on the data mesh from the trained state in each case of
+    ``PACKED_DP_CASES`` and with each planted fault, rank 0 also on one
+    rank over the whole batch (and on a one-ulp input change); its time a
+    step and peak memory; then ``cli train --packed`` for one epoch inside
+    the group. -> this rank's readings (numbers, digests and flags)."""
+    import torch
+    import torch.distributed as dist
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
+        cli,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.config import (
+        OptimConfig,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        conv_bf16 as k45,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        dice_ce as k89,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
+        fused_bn as k6,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.parallel.mesh import (
+        create_mesh,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training import (
+        checkpoint as tckpt,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training import (
+        packed_unet,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.losses import (
+        dice_ce_loss,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.train_state import (
+        create_train_state,
+    )
+
+    dev = torch.device(dev_name)
+    rank = dist.get_rank()
+    on_card = dev.type == "cuda"
+    every = {"conv3x3_bf16": k45.conv3x3_bf16_fwd,
+             "conv3x3_bf16_wgrad": k45.conv3x3_bf16_wgrad,
+             "bn_pair_sums": k6.pair_sums,
+             "dice_ce_stats": k89.dice_ce_stats,
+             "dice_ce_bwd": k89.dice_ce_bwd}
+
+    def reset():
+        for w in every.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in every.items() if w.launches}
+
+    data = create_mesh(2, 1)
+    trained = torch.load(trained_path, map_location=dev, weights_only=True)
+    x8, y8 = train_batch(dev, batch, SEED + 20, nc, hw)
+
+    def fresh(kw, mesh):
+        model = seeded_unet(dev, f, nc)
+        model.load_state_dict(trained)
+        state = create_train_state(model, OptimConfig())
+        return state, packed_unet.make_packed_train_step(
+            dice_ce_loss, mesh=mesh, **kw)
+
+    def step(kw, mesh=data, x=x8):
+        """One step from the trained state -> ((loss, gradients, running
+        statistics), launches, digest of the state after it)."""
+        state, fn = fresh(kw, mesh)
+        reset()
+        loss = float(fn(state, x, y8))
+        _sync(dev)
+        launches = counts()
+        m = state.model
+        return ((loss, {n: p.grad.detach().double()
+                        for n, p in m.named_parameters()},
+                 {k: v.detach().clone() for k, v in m.state_dict().items()
+                  if "running" in k}), launches, state_digest(m))
+
+    out = {"launches": {}, "digest": {}}
+    dp = {}
+    for case, kw in PACKED_DP_CASES.items():
+        dp[case], out["launches"][case], out["digest"][case] = step(kw)
+    faults = {}
+    for label, kw, fault in (
+            ("K6 sums unreduced (per-rank BN statistics)", {},
+             swapped(k6, _global=lambda sums, m, group: (sums, m))),
+            ("K8 statistics unreduced (per-rank loss)", {"fused_loss": True},
+             swapped(k89, _global=lambda stats, group: stats))):
+        with fault:
+            faults[label] = (step(kw)[0], "fused" if kw else "unfused")
+    if rank == 0:
+        one = {case: step(kw, None)[0]
+               for case, kw in PACKED_DP_CASES.items()}
+        out["agree"] = {case: dp_agreement(dp[case], one[case])
+                        for case in dp}
+        out["floor"] = dp_agreement(
+            step({}, None, one_ulp_change(x8, dev))[0], one["unfused"])
+        out["faults"] = {label: dp_agreement(got, one[case])
+                         for label, (got, case) in faults.items()}
+        out["remat_vs_plain"] = dp_agreement(dp["remat"], dp["unfused"])
+        del one
+    del dp, faults
+
+    # time a step and the peak memory of this rank
+    state, fn = fresh({}, data)
+    for _ in range(2):
+        fn(state, x8, y8)
+    _sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(PACKED_DP_STEPS):
+        fn(state, x8, y8)
+    _sync(dev)
+    out["step_ms"] = (time.perf_counter() - t0) / PACKED_DP_STEPS * 1e3
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                      else float("nan"))
+    del state, fn
+
+    # the main path: cli train --packed inside the group (its local_mesh)
+    saved = []
+    save = tckpt.CheckpointManager.save
+
+    def spy(self, *args, **kwargs):
+        saved.append(rank)
+        return save(self, *args, **kwargs)
+
+    argv = ["train", "--packed", "--image-size", str(hw), "--num-classes",
+            str(nc), "--batch-size", str(batch), "--num-train",
+            str(2 * batch), "--num-val", str(batch), "--epochs", "1",
+            "--device", dev_name, "--model-kwargs",
+            json.dumps({"init_features": f}), "--checkpoint-dir", ckpt_dir]
+    with swapped(tckpt.CheckpointManager, save=spy):
+        reset()
+        t0 = time.perf_counter()
+        state = cli.main(argv)
+        _sync(dev)
+        out["train_s"] = time.perf_counter() - t0
+        out["train_launches"] = counts()
+    out["train_step"] = state.step
+    out["train_digest"] = state_digest(state.model)
+    out["saved"] = saved
+    return out
+
+
+def packed_dp_phase(dev, card, trained):
+    """Phase 36: the packed U-Net step data-parallel on two ranks of the
+    one card (gloo) against one rank on the whole batch, planted faults,
+    launches a rank, ``cli train --packed`` in the two ranks and ``eval
+    --checkpoint`` on what it wrote."""
+    import glob
+    import os
+    import tempfile
+
+    import torch
+
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch import (
+        cli,
+    )
+    from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.parallel.launch import (
+        run_ranks,
+    )
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    phase(f"36 packed U-Net step on two ranks (gloo, both on {card}): f={F}, "
+          f"{NC} classes, {HW}x{HW}, 2 x {PACKED_DP_BATCH // 2} against 1 x "
+          f"{PACKED_DP_BATCH}, from phase 7's trained state")
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trained.pt")
+        torch.save(trained, path)
+        ckpt = os.path.join(tmp, "ckpt")
+        r0, r1 = run_ranks(packed_dp_checks, 2, str(dev), path, ckpt, HW,
+                           F, NC, PACKED_DP_BATCH, backend="gloo")
+        print(f"one-ulp floor (one rank, 1e-4 of the pixels one bf16 ulp "
+              f"up): {dp_reading(r0['floor'])}")
+        for case, agree in r0["agree"].items():
+            equal = r0["digest"][case] == r1["digest"][case]
+            print(f"{case}: 2 ranks vs 1 rank: {dp_reading(agree)}; ranks' "
+                  f"parameters and buffers {'equal' if equal else 'DIFFER'}"
+                  f"; launches a step, rank 0 {r0['launches'][case]}, rank 1 "
+                  f"{r1['launches'][case]}", flush=True)
+            if not dp_passes(agree):
+                bad.append(f"{case} step")
+            if not equal:
+                bad.append(f"{case}: ranks differ")
+        print(f"remat vs plain on the two ranks: "
+              f"{dp_reading(r0['remat_vs_plain'])}")
+        for label, agree in r0["faults"].items():
+            print(f"planted fault, {label}: {dp_reading(agree)}", flush=True)
+            if dp_passes(agree):
+                bad.append(f"the gate passes {label}")
+        print(f"gate: relative loss < {PACKED_DP_GATE['loss']}, cosine > "
+              f"{PACKED_DP_GATE['cosine']}, norm change < "
+              f"{PACKED_DP_GATE['norm']}, running statistics < "
+              f"{PACKED_DP_GATE['stats']}")
+        if on_card:
+            for case, kw in PACKED_DP_CASES.items():
+                base = dict(LAUNCHES_PER_STEP[kw.get("deep", "torch")])
+                if case == "fused":
+                    base.update(dice_ce_stats=1, dice_ce_bwd=1)
+                for r, rd in enumerate((r0, r1)):
+                    got = rd["launches"][case]
+                    ok = got["bn_pair_sums"] > base["bn_pair_sums"] and \
+                        got["conv3x3_bf16"] >= base["conv3x3_bf16"] \
+                        if case == "remat" else got == base
+                    if not ok:
+                        bad.append(f"rank {r} {case} launches {got}, "
+                                   f"expected {base}")
+        print(f"{card}: step (2 x {PACKED_DP_BATCH // 2}, unfused, host "
+              f"clock over {PACKED_DP_STEPS} steps after 2) rank 0 "
+              f"{r0['step_ms']:.3f} ms, rank 1 {r1['step_ms']:.3f} ms; peak "
+              f"{r0['peak_gb']:.2f} / {r1['peak_gb']:.2f} GB a rank (two "
+              "ranks share one card: a correctness path, no multi-card "
+              "speed)", flush=True)
+
+        # the main path: cli train --packed in the two ranks, then eval
+        print(f"cli train --packed in the two ranks, one epoch of "
+              f"{2 * PACKED_DP_BATCH} B-scans: {r0['train_s']:.1f} / "
+              f"{r1['train_s']:.1f} s, steps {r0['train_step']}; launches "
+              f"rank 0 {r0['train_launches']}, rank 1 "
+              f"{r1['train_launches']}; saved by ranks {r0['saved']} + "
+              f"{r1['saved']}", flush=True)
+        want = {k: 2 * v for k, v in LAUNCHES_PER_STEP["torch"].items()}
+        for r, rd in enumerate((r0, r1)):
+            if on_card and rd["train_launches"] != want:
+                bad.append(f"rank {r} train launches, expected {want}")
+        if r0["train_digest"] != r1["train_digest"]:
+            bad.append("cli train: ranks differ")
+        if (r0["saved"], r1["saved"], r0["train_step"]) != ([0], [], 2):
+            bad.append("cli train: saves or steps")
+        files = sorted(glob.glob(os.path.join(ckpt, "ckpt_*.pt")))
+        argv = ["eval", "--model", "unet", "--num-classes", str(NC),
+                "--image-size", str(HW), "--batch-size", str(TRAIN_BATCH),
+                "--num-val", str(TRAIN_BATCH), "--device", dev.type,
+                "--model-kwargs", json.dumps({"init_features": F}),
+                "--checkpoint", files[0] if files else "missing"]
+        trainer, _ = cli.build_eval_trainer(cli.parser().parse_args(argv))
+        read = state_digest(trainer.model) == r0["train_digest"]
+        del trainer
+        with contextlib.redirect_stdout(io.StringIO()):
+            m = cli.main(argv)
+        pixels = int(m["confusion"].sum())
+        print(f"checkpoints written {[os.path.basename(f) for f in files]}; "
+              f"eval --checkpoint reads rank 0's state: {read}; confusion "
+              f"sum {pixels} (want {TRAIN_BATCH * HW * HW}), pixel accuracy "
+              f"{m['pixel_accuracy']:.4f}", flush=True)
+        if len(files) != 1 or not read or pixels != TRAIN_BATCH * HW * HW:
+            bad.append("eval --checkpoint")
+    print(f"phase 36 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if bad:
+        raise RuntimeError(f"phase 36: {bad}")
 
 
 def main() -> int:
@@ -5734,7 +6057,8 @@ def main() -> int:
         # int8 (K3)
         "library_ms": None,
     } for k in wrappers]
-    kernels += train_phases(dev, card, time_ms)
+    k456, trained = train_phases(dev, card, time_ms)
+    kernels += k456
     k89 = fused_loss_phases(dev, card, time_ms)
     kernels += [relaynet_phases(dev, card, time_ms, http_post)] + k89
     kernels += infer_eval_phases(dev, card, time_ms, model, calib, by_row)
@@ -5745,6 +6069,7 @@ def main() -> int:
     zoo2_phase(dev, card, time_ms)
     zoo3_phase(dev, card, time_ms)
     parallel_phase(dev, card, time_ms, model, calib)
+    packed_dp_phase(dev, card, trained)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,15 @@ eval scoring its validation split), ``--image-dir`` a folder of B-scans.
 ``train`` runs any such model through ``Trainer``; FourierNet and AnoGAN
 have their own trainers, BioNet none (as in JAX). ``chip_smoke.py``
 builds all of them the same way.
+
+``train`` trains over every card of the host, as the JAX CLI's ``Trainer``
+takes every local chip (``local_mesh()``): with ``--device cuda`` on a host
+of k > 1 cards it starts k ranks (``parallel/launch.run_ranks``, NCCL, a
+card each), and each rank trains on its shard of every global batch
+(``--batch-size`` a multiple of k). Inside a process group that a caller
+started, the ranks of that group are the data axis. On one card, on a
+named card (``cuda:N``) or on the CPU it trains on one rank, with no
+process group. Rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -84,7 +93,8 @@ from .inference.server import ServingLoop
 from .ops.preprocess import preprocess
 from .parallel.halo import spatial_shard_infer
 from .parallel.launch import run_ranks
-from .parallel.mesh import create_mesh, world
+from .parallel.mesh import create_mesh, local_mesh, world
+from .parallel.sharding import tree_map
 from .registry import get_model, list_models
 from .training.checkpoint import model_state_dict
 from .training.data import (
@@ -266,7 +276,8 @@ def build_training(args):
     (``training/data.make_datasets``), or synthetic Duke-DME-shaped data
     made on the device (validation from seed 99). FourierNet and AnoGAN
     train through their own trainers, and BioNet (three outputs) through
-    none: they raise ``ValueError``."""
+    none: they raise ``ValueError``. Inside a process group the trainer
+    trains over its data axis, every rank of the group (``local_mesh``)."""
     if args.model in OWN_TRAINERS:
         raise ValueError(
             f"train --model {args.model}: its forward is not a segmentation "
@@ -277,6 +288,7 @@ def build_training(args):
             f"{OUTPUTS[args.model]}, and neither package has a loss or a "
             "trainer for it")
     device = _device(args.device)
+    mesh = local_mesh() if world()[1] > 1 else None
     cfg = TrainConfig(
         model=ModelConfig(
             name=args.model, in_channels=args.in_channels,
@@ -304,7 +316,7 @@ def build_training(args):
             print(f"note: dataset has {num_classes} classes; overriding "
                   f"--num-classes {cfg.model.num_classes}")
             cfg = _with_classes(cfg, num_classes)
-        return Trainer(cfg, device), train_ds, val_ds
+        return Trainer(cfg, device, mesh), train_ds, val_ds
 
     def dataset(num, seed):
         height, width = cfg.data.image_size
@@ -313,16 +325,59 @@ def build_training(args):
                                   seed=seed)
         return SyntheticOCTDataset(dcfg, num, cfg.data.batch_size, device)
 
-    return (Trainer(cfg, device), dataset(cfg.data.num_train, 0),
+    return (Trainer(cfg, device, mesh), dataset(cfg.data.num_train, 0),
             dataset(cfg.data.num_val, 99))
 
 
-def cmd_train(args):
+def _train_ranks(args) -> int:
+    """The ranks ``train`` starts: every card where ``--device cuda`` names
+    no card, the host has more than one and no process group is active;
+    else 1 (this process trains)."""
+    device = _device(args.device)
+    if device.type != "cuda" or device.index is not None or world()[1] > 1:
+        return 1
+    return torch.cuda.device_count()
+
+
+def _fit(args):
+    """``build_training``'s trainer fitted; rank 0 logs its history.
+    -> (trainer, train state)."""
     trainer, train_ds, val_ds = build_training(args)
-    logger = MetricLogger(args.log_file)
     state = trainer.fit(train_ds, val_ds)
-    for rec in trainer.history:
-        logger.log(rec)
+    if world()[0] == 0:
+        logger = MetricLogger(args.log_file)
+        for rec in trainer.history:
+            logger.log(rec)
+    return trainer, state
+
+
+def _train_rank(args):
+    """One rank of ``train`` over the host's cards, on this rank's card
+    (``run_ranks`` set it) inside the process group. -> on rank 0 its
+    trainer's config and its train state's ``state_dict()`` on the host;
+    None on the others."""
+    args = argparse.Namespace(**{**vars(args), "device":
+                                 f"cuda:{torch.cuda.current_device()}"})
+    trainer, state = _fit(args)
+    if torch.distributed.get_rank():
+        return None
+    return trainer.cfg, tree_map(torch.Tensor.cpu, state.state_dict())
+
+
+def cmd_train(args):
+    """Train as ``build_training`` sets it up; -> the train state. Over k >
+    1 cards it starts k ranks (``_train_ranks``) and returns rank 0's state
+    rebuilt on the host (the same ``TrainState``, on the CPU)."""
+    n = _train_ranks(args)
+    if n == 1:
+        return _fit(args)[1]
+    if args.batch_size % n:
+        raise SystemExit(f"train over the host's {n} cards: --batch-size "
+                         f"{args.batch_size} must be a multiple of {n}")
+    cfg, saved = run_ranks(_train_rank, n, args, backend="nccl")[0]
+    state = Trainer(dataclasses.replace(cfg, checkpoint_dir=None),
+                    "cpu").init_state()
+    state.load_state_dict(saved)
     return state
 
 

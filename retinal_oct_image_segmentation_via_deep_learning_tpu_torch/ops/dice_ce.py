@@ -26,6 +26,14 @@ move whole tiles of pixels by 16-byte copies (their launches are
 logits and labels must be 16-byte aligned. Each wrapper runs its CUDA
 kernel (``csrc/dice_ce.cu``) for a CUDA tensor and its plain version
 (``*_reference``, float64 sums) only for a CPU tensor.
+
+Under ``parallel.collectives.data_parallel`` the loss is the global
+batch's, as JAX's over a batch sharded on "data": K8's statistics are
+summed over the data group before the fold, so every rank folds the same
+loss, and K9 writes this rank's logit gradient of that loss from the
+global statistics. The sum's backward passes no collective (the rule of
+``collectives.global_sum``): the trainer sums the parameter gradients over
+the ranks afterwards.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.collectives import all_reduce_sum, current_data_group
 from . import _build
 from .conv_int8 import _check, _check_vec, _stream
 
@@ -303,13 +312,18 @@ def loss_coefficients(stats: torch.Tensor, g: torch.Tensor, C: int,
     return torch.cat([A, B, wce]).contiguous()
 
 
+def _global(stats: torch.Tensor, group) -> torch.Tensor:
+    """K8's statistics over the data group (as they are without one)."""
+    return stats if group is None else all_reduce_sum(stats, group)
+
+
 class _DiceCE(torch.autograd.Function):
     """Forward K8 + fold, backward coefficients + K9. The kernels are looked
     up by name at call time."""
 
     @staticmethod
     def forward(ctx, x, labels, cw, dice_weight, uniform):
-        stats = dice_ce_stats(x, labels, cw)
+        stats = _global(dice_ce_stats(x, labels, cw), current_data_group())
         ctx.save_for_backward(x, labels, cw, stats)
         ctx.dice_weight, ctx.uniform = dice_weight, uniform
         return stats_to_loss(stats, x.shape[-1], dice_weight, uniform, cw)

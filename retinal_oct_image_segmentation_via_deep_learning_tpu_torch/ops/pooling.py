@@ -1,6 +1,6 @@
 """Index max-pool and max-unpool for NHWC tensors, and the plain max-pool of
-the float models (strided, padded with -inf), the average pool and the
-adaptive average pool on NCHW tensors (the JAX package's
+the float models (strided, padded with -inf), the (strided) average pool
+and the adaptive average pool on NCHW tensors (the JAX package's
 ``ops/pooling.py``), in plain PyTorch.
 
 ReLayNet pools with indices and decodes by unpooling to them. The indices
@@ -65,10 +65,12 @@ def max_pool(x: torch.Tensor, k: int = 2, stride: int | None = None,
     return x.reshape(N, C, H // k, k, W // k, k).amax(dim=(3, 5))
 
 
-def avg_pool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
-    """Non-overlapping k x k average pool of an (N, C, H, W) tensor
-    ('VALID'), summed in float32 and returned in the input's dtype."""
-    return F.avg_pool2d(x.float(), k).to(x.dtype)
+def avg_pool(x: torch.Tensor, k: int = 2,
+             stride: int | None = None) -> torch.Tensor:
+    """k x k average pool of an (N, C, H, W) tensor at ``stride`` (default
+    k; 'VALID': trailing rows and columns that no window reaches dropped),
+    summed in float32 and returned in the input's dtype."""
+    return F.avg_pool2d(x.float(), k, stride or k).to(x.dtype)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw=(1, 1)) -> torch.Tensor:

@@ -7,8 +7,10 @@ grid is built over a transposed meshgrid, point p = i*H + j at
 (x = lin_w[i], y = lin_h[j]), and the flat (W*H, 2) buffer is then read as
 (H, W, 2). ``grid_sample_bilinear`` is a pair of gathers and lerps in the
 JAX function's order of float operations, with torch ``grid_sample``'s
-reflection folding (``align_corners=True``); it is held to the JAX
-function, not to ``F.grid_sample``.
+reflection folding, or JAX's zero padding (the whole sample zeroed where
+the point lies more than one pixel outside the map; the corners inside are
+clamped, not masked one by one), and either corner convention; it is held
+to the JAX function, not to ``F.grid_sample``.
 """
 
 from __future__ import annotations
@@ -27,15 +29,26 @@ def _reflect_coord(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return hi - torch.abs(x - span)
 
 
-def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor,
+                         padding_mode: str = "reflection",
+                         align_corners: bool = True) -> torch.Tensor:
     """Bilinear sample of an (N, C, H, W) tensor at ``grid`` (N, Ho, Wo, 2),
-    last dim (gx, gy) in [-1, 1], with reflection padding and
-    ``align_corners=True`` -> (N, C, Ho, Wo)."""
+    last dim (gx, gy) in [-1, 1] -> (N, C, Ho, Wo). ``padding_mode``
+    "reflection" folds the coordinates into the map, "zeros" gives 0 where
+    a point lies outside [-1, W] x [-1, H] (pixel units), as JAX's;
+    ``align_corners`` maps -1 and 1 to the centres of the corner pixels
+    (True) or to their outer edges (False)."""
     N, C, H, W = x.shape
-    ix = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
-    iy = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
-    ix = _reflect_coord(ix, 0.0, float(W - 1))
-    iy = _reflect_coord(iy, 0.0, float(H - 1))
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        ix = (gx + 1.0) * 0.5 * (W - 1)
+        iy = (gy + 1.0) * 0.5 * (H - 1)
+    else:
+        ix = ((gx + 1.0) * W - 1.0) * 0.5
+        iy = ((gy + 1.0) * H - 1.0) * 0.5
+    if padding_mode == "reflection":
+        ix = _reflect_coord(ix, 0.0, float(W - 1))
+        iy = _reflect_coord(iy, 0.0, float(H - 1))
 
     x0 = torch.floor(ix)
     y0 = torch.floor(iy)
@@ -55,7 +68,11 @@ def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     v11 = gather(y0 + 1, x0 + 1)
     top = v00 + (v01 - v00) * wx
     bot = v10 + (v11 - v10) * wx
-    return top + (bot - top) * wy
+    out = top + (bot - top) * wy
+    if padding_mode == "zeros":
+        valid = (ix >= -1) & (ix <= W) & (iy >= -1) & (iy <= H)
+        out = torch.where(valid.unsqueeze(1), out, 0.0)
+    return out
 
 
 def _linspace(n: int, device) -> torch.Tensor:

@@ -11,8 +11,11 @@ tensors as they are. NCCL groups take CUDA tensors everywhere.
 
 ``global_sum`` is the differentiable sum over a group that the
 data-parallel losses use; ``data_parallel`` names the group that train-mode
-BatchNorm (``ops/fused_bn``) and the losses (``training/losses``) reduce
-over while it is active.
+BatchNorm (``ops/fused_bn``) and the losses (``training/losses``,
+``ops/dice_ce``) reduce over while it is active. ``data_group`` is a mesh's
+data group and ``sum_gradients`` the gradient sum over it that both train
+steps (``training/trainer``, ``training/packed_unet``) take after their
+backward.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import contextlib
 
 import torch
 import torch.distributed as dist
+
+from .mesh import DATA_AXIS, Mesh
 
 
 def _out(t: torch.Tensor, group=None, p2p: bool = False) -> torch.Tensor:
@@ -130,3 +135,21 @@ def data_size() -> int:
     """Ranks of the active data-parallel group (1 outside it)."""
     group = current_data_group()
     return 1 if group is None else group_size(group)
+
+
+def data_group(mesh: Mesh | None):
+    """The mesh's data group where its data axis has more than one rank
+    (else None: the step runs on this rank alone)."""
+    if mesh is None or mesh.axis_size(DATA_AXIS) == 1:
+        return None
+    return mesh.group(DATA_AXIS)
+
+
+def sum_gradients(model: torch.nn.Module, group) -> None:
+    """Sum the parameter gradients over ``group``, in one flat buffer."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))

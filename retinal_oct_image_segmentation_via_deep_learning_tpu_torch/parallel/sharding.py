@@ -14,13 +14,14 @@ from .collectives import broadcast
 from .mesh import DATA_AXIS, Mesh
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, tree):
+    """``fn`` on every tensor of nested dicts, lists and tuples."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, dict):
-        return type(tree)((k, _tree_map(fn, v)) for k, v in tree.items())
+        return type(tree)((k, tree_map(fn, v)) for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return tree
 
 
@@ -64,7 +65,7 @@ def replicated(mesh: Mesh) -> Replicated:
 def shard_batch(mesh: Mesh, batch: Any) -> Any:
     """This rank's part of every tensor of a (nested) batch."""
     spec = batch_sharding(mesh)
-    return _tree_map(spec.shard, batch)
+    return tree_map(spec.shard, batch)
 
 
 def shard_params(mesh: Mesh, params: Any) -> Any:
@@ -77,4 +78,4 @@ def shard_params(mesh: Mesh, params: Any) -> Any:
             for t in list(params.parameters()) + list(params.buffers()):
                 rep.place(t)
         return params
-    return _tree_map(lambda t: rep.place(t.clone()), params)
+    return tree_map(lambda t: rep.place(t.clone()), params)

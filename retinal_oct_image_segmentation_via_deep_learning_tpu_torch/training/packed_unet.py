@@ -27,6 +27,18 @@ counterpart. With ``remat=True`` each block runs under
 returns its BN statistics, and the running-stat updates (flax semantics,
 0.9 * old + 0.1 * batch, biased variance) are returned by
 ``packed_unet_apply`` and applied once, by the caller.
+
+``make_packed_train_step(..., mesh=)`` with a data axis of more than one
+rank is JAX's step ``jit``-ted over a batch sharded on "data": each rank
+takes its shard of the global batch and runs the forward, the loss and
+the backward under ``parallel.collectives.data_parallel``, so K6's sums
+(``ops/fused_bn``) and the loss's statistics (``training/losses`` or K8,
+``ops/dice_ce``) are the global batch's; the gradients are then summed
+over the ranks (``parallel.collectives.sum_gradients``). Every rank
+applies the same update, and writes the same running statistics, from
+the global mean and variance. The backward runs under the group too: with ``remat`` it
+recomputes each block's K6 statistics there, all-reduced in the same order
+on every rank.
 """
 
 from __future__ import annotations
@@ -42,6 +54,9 @@ from ..models.unet import BLOCK_PREFIXES, UPCONV_NAMES
 from ..ops.conv_bf16 import conv3x3_bf16
 from ..ops.dice_ce import dice_ce_loss_fused
 from ..ops.fused_bn import bn_train
+from ..parallel.collectives import data_group, data_parallel, sum_gradients
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import shard_batch
 from .losses import dice_ce_loss
 
 IMPLS = ("torch", "kernel")
@@ -160,11 +175,14 @@ def apply_batch_stats(model: nn.Module, new_stats) -> None:
 
 def make_packed_train_step(loss_fn, class_weights=None, *, remat: bool = False,
                            deep: str = "torch", mid: str = "torch",
-                           fused_loss: bool | None = None):
+                           fused_loss: bool | None = None,
+                           mesh: Mesh | None = None):
     """The trainer's step on ``packed_unet_apply``: ``train_step(state,
     images, labels) -> loss`` updates ``state`` (a ``TrainState`` whose
     model is a ``UNet``) in place: gradients, optimizer step, running
-    stats.
+    stats. With a ``mesh`` whose data axis has more than one rank the step
+    is data-parallel over the global batch it is given (the module
+    docstring).
 
     ``fused_loss=True`` computes the loss on K8/K9
     (``ops/dice_ce.dice_ce_loss_fused``, the same value and gradients to
@@ -182,13 +200,20 @@ def make_packed_train_step(loss_fn, class_weights=None, *, remat: bool = False,
             )
         loss_fn = dice_ce_loss_fused
     _check_impls(deep, mid)
+    group = data_group(mesh)
 
     def train_step(state, images, labels):
+        if group is not None:
+            images, labels = shard_batch(mesh, (images, labels))
         state.optimizer.zero_grad(set_to_none=True)
-        logits, new_stats = packed_unet_apply(state.model, images,
-                                              remat=remat, deep=deep, mid=mid)
-        loss = loss_fn(logits, labels, class_weights)
-        loss.backward()
+        with data_parallel(group):
+            logits, new_stats = packed_unet_apply(state.model, images,
+                                                  remat=remat, deep=deep,
+                                                  mid=mid)
+            loss = loss_fn(logits, labels, class_weights)
+            loss.backward()
+        if group is not None:
+            sum_gradients(state.model, group)
         state.apply_gradients()
         apply_batch_stats(state.model, new_stats)
         return loss.detach()

@@ -1,5 +1,6 @@
 """Trainer: train steps, validation, best checkpoint and early stopping on
-one device (the JAX package's ``training/trainer.py``).
+one device or over the data axis of a mesh (the JAX package's
+``training/trainer.py``).
 
 Per epoch: train steps (batches copied ahead by ``input_pipeline``) ->
 validation loss and per-class Dice -> checkpoint -> early stopping. With
@@ -14,13 +15,14 @@ dataset, through the model or any ``predict_fn`` (a quantized graph).
 The trainer runs on ``device``, a CUDA device unless the caller asks for the
 CPU. Given a mesh (``mesh=`` or ``cfg.mesh_shape``) whose "data" axis has
 more than one rank, each rank of the process group runs this trainer on
-the same global batches: the step takes this rank's shard of the batch,
-runs the model under ``parallel.collectives.data_parallel`` (train-mode
-BatchNorm and the losses over the global batch), sums the gradients over
-the ranks and applies the same update everywhere; the parameters start
-from rank 0's. A step on two ranks with half the batch each is the
-one-rank step on the whole batch. Validation runs the whole batch on every
-rank; rank 0 writes the checkpoints.
+the same global batches: the step (the model's or the packed one) takes
+this rank's shard of the batch, runs the model under
+``parallel.collectives.data_parallel`` (train-mode BatchNorm and the
+losses over the global batch), sums the gradients over the ranks and
+applies the same update everywhere; the parameters start from rank 0's.
+A step on two ranks with half the batch each is the one-rank step on the
+whole batch. Validation runs the whole batch on every rank; rank 0 writes
+the checkpoints.
 
 ``remat="full"`` (or ``OCTSEG_TRAIN_REMAT=full``) recomputes the whole
 forward in the backward (``torch.utils.checkpoint``); the buffers are put
@@ -50,8 +52,8 @@ from ..metrics.volume import (
     volume_confusion,
 )
 from ..ops.preprocess import preprocess
-from ..parallel.collectives import all_reduce_sum, data_parallel
-from ..parallel.mesh import DATA_AXIS, SPACE_AXIS, Mesh, create_mesh
+from ..parallel.collectives import data_group, data_parallel, sum_gradients
+from ..parallel.mesh import SPACE_AXIS, Mesh, create_mesh
 from ..parallel.sharding import shard_batch, shard_params
 from ..registry import get_model
 from ..utils.dtype import resolve_dtype
@@ -77,23 +79,6 @@ def nhwc_logits(model, images: torch.Tensor,
 REMATS = (None, "full")
 
 
-def _data_group(mesh: Mesh | None):
-    """The mesh's data group where its data axis has more than one rank."""
-    if mesh is None or mesh.axis_size(DATA_AXIS) == 1:
-        return None
-    return mesh.group(DATA_AXIS)
-
-
-def sum_gradients(model: torch.nn.Module, group) -> None:
-    """Sum the parameter gradients over ``group``, in one flat buffer."""
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    if not grads:
-        return
-    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
-
-
 def make_train_step(loss_fn: Callable, class_weights=None,
                     dtype: torch.dtype = torch.bfloat16,
                     remat: str | None = None, mesh: Mesh | None = None):
@@ -107,7 +92,7 @@ def make_train_step(loss_fn: Callable, class_weights=None,
     remat = remat or os.environ.get("OCTSEG_TRAIN_REMAT") or None
     if remat not in REMATS:
         raise ValueError(f"remat={remat!r}: one of {REMATS}")
-    group = _data_group(mesh)
+    group = data_group(mesh)
 
     def forward(model, images):
         if remat is None:
@@ -171,7 +156,7 @@ class Trainer:
                 "over 'data' only; a space axis is for inference "
                 "(parallel.halo.spatial_shard_infer)")
         self.mesh = mesh
-        self._group = _data_group(mesh)
+        self._group = data_group(mesh)
         self.dtype = resolve_dtype(cfg.compute_dtype)
         self.model = get_model(
             cfg.model.name,
@@ -221,16 +206,11 @@ class Trainer:
                     "packed_train supports only the flagship 'unet' model, "
                     f"got {cfg.model.name!r}"
                 )
-            if self._group is not None:
-                raise ValueError(
-                    "packed_train runs on one device: the packed U-Net "
-                    "step's K4/K5 convs and K6 statistics are not reduced "
-                    f"over a data axis (mesh {self.mesh.shape})")
             from .packed_unet import make_packed_train_step
 
             return make_packed_train_step(
                 self.loss_fn, self.class_weights,
-                remat=cfg.packed_train == "remat",
+                remat=cfg.packed_train == "remat", mesh=self.mesh,
             )
         return make_train_step(self.loss_fn, self.class_weights, self.dtype,
                                mesh=self.mesh)

@@ -197,6 +197,17 @@ def test_avg_pool(k):
     assert scale_rel(pooling.avg_pool(nchw(x), k), want) <= 1e-6
 
 
+@pytest.mark.parametrize("k,stride", [(2, 1), (3, 2), (3, 1), (2, 3)])
+def test_avg_pool_stride(k, stride):
+    """JAX's ``stride`` != k: overlapping windows, and windows with gaps
+    between them, 'VALID' at 17 x 12."""
+    x = np.random.default_rng(9).standard_normal((2, 17, 12, 3)).astype(
+        np.float32)
+    want = jpool.avg_pool(jnp.asarray(x), k, stride)
+    got = pooling.avg_pool(nchw(x), k, stride)
+    assert scale_rel(got, want) <= 1e-6
+
+
 @pytest.mark.parametrize("out_hw", [(1, 1), (4, 3), (5, 7)])
 def test_adaptive_avg_pool(out_hw):
     x = np.random.default_rng(7).standard_normal((2, 16, 12, 3)).astype(
@@ -216,6 +227,23 @@ def test_grid_sample_bilinear(lo, hi):
     grid = rng.uniform(lo, hi, (2, 7, 11, 2)).astype(np.float32)
     want = jsampling.grid_sample_bilinear(jnp.asarray(x), jnp.asarray(grid))
     got = sampling.grid_sample_bilinear(nchw(x), torch.from_numpy(grid))
+    assert scale_rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("lo,hi", [(-1.0, 1.0), (-1.6, 1.6), (-5.3, 4.7)])
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("padding_mode", ["reflection", "zeros"])
+def test_grid_sample_bilinear_options(padding_mode, align_corners, lo, hi):
+    """JAX's ``padding_mode`` and ``align_corners``, crossed: points
+    inside the image, up to 0.6 outside it (partly within a pixel of the
+    border, where "zeros" clamps the corners) and far outside."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 9, 13, 3)).astype(np.float32)
+    grid = rng.uniform(lo, hi, (2, 7, 11, 2)).astype(np.float32)
+    kw = {"padding_mode": padding_mode, "align_corners": align_corners}
+    want = jsampling.grid_sample_bilinear(jnp.asarray(x), jnp.asarray(grid),
+                                          **kw)
+    got = sampling.grid_sample_bilinear(nchw(x), torch.from_numpy(grid), **kw)
     assert scale_rel(got, want) <= 1e-6
 
 
