@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -107,6 +108,7 @@ from .training.fouriernet_pipeline import read_folder_dataset
 from .training.trainer import Trainer, nhwc_logits
 from .utils.dtype import resolve_dtype
 from .utils.logging import MetricLogger, export_prob_maps
+from .utils.profiling import annotate
 
 
 # the constructor argument that sets each served model's width
@@ -198,7 +200,9 @@ def build_quantized_forward(model: torch.nn.Module, name: str = "unet",
     images on ``device`` to (N, H, W) labels through the ``quantize`` graph
     of model ``name``; ``calib`` holds the folded ``layers``, the ``taps``
     and the graph's ``qparams``. Given raw ``qparams`` (a loaded artifact,
-    U-Net only), the model is neither folded nor calibrated."""
+    U-Net only), the model is neither folded nor calibrated. With tracing
+    on (``utils/profiling``) each call is the span ``serve.forward``, its
+    id the call's number, and its z-score ``serve.preprocess``."""
     if (name, quantize) not in GRAPHS:
         modes = "|".join(q for m, q in GRAPHS if m == name) or "off"
         raise SystemExit(f"--model {name} supports --quantize {modes}")
@@ -216,9 +220,13 @@ def build_quantized_forward(model: torch.nn.Module, name: str = "unet",
         qparams = attach(qparams, device)
     calib["qparams"] = qparams
     num_classes = int(qparams["head"]["w_q"].shape[0])
+    calls = itertools.count()
 
     def forward(images: torch.Tensor) -> torch.Tensor:
-        return graph(qparams, preprocess(images), num_classes)
+        with annotate("serve.forward", next(calls)):
+            with annotate("serve.preprocess"):
+                x = preprocess(images)
+            return graph(qparams, x, num_classes)
 
     return forward, calib
 

@@ -51,6 +51,8 @@ def make_server(loop: ServingLoop, host: str = "127.0.0.1",
                 "batch_size": loop.batch_size,
                 "requests_served": loop.requests_served,
                 "batches_run": loop.batches_run,
+                "batch_fill": loop.batch_fill,
+                "queue_wait_s": loop.queue_wait_s,
             })
 
         def do_POST(self):

@@ -74,6 +74,7 @@ from ..ops.head_argmax import (
     pack_head_weights,
 )
 from ..ops.stem_conv_int8 import stem_conv_int8, stem_conv_int8_reference
+from ..utils.profiling import annotate
 from .quantized import quant_weights, quantize_unet
 
 # cat conv -> activation key of its skip input (the skip's stored scale)
@@ -294,7 +295,9 @@ def unet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int, *,
     (default: ``head_fuse_default()``, width <= 32) ends blk8_conv1's K1
     launch in the head and argmax. The labels are the same bit for bit.
     Under 4-bit activations the stem is never fused (K10 has no
-    split-scale pool), as in JAX, and ``stem_fuse=True`` raises."""
+    split-scale pool), as in JAX, and ``stem_fuse=True`` raises. With
+    tracing on (``utils/profiling``) the input's quantisation is the span
+    ``serve.preprocess``."""
     N, H, W, C = x.shape
     if C != 1 or H % 16 or W % 16:
         raise ValueError(
@@ -327,9 +330,10 @@ def unet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int, *,
                   pool=name in POOLED_STAGES, head=head,
                   w_mma=lw.get("w_m"), **lw["knobs"])
 
-    h = torch.round(x.float() / s["blk0_conv0_in"]).clamp(-127, 127).to(
-        torch.int8
-    )
+    with annotate("serve.preprocess"):
+        h = torch.round(x.float() / s["blk0_conv0_in"]).clamp(-127, 127).to(
+            torch.int8
+        )
     skips = []
     if stem_fuse:
         k10 = stem_conv_int8_reference if reference else stem_conv_int8

@@ -34,6 +34,7 @@ from ..ops.head_argmax import (
     pack_head_weights,
 )
 from ..ops.pooling import max_unpool
+from ..utils.profiling import annotate
 from .relaynet_int8 import NBLOCKS, quantize_relaynet
 
 
@@ -75,7 +76,9 @@ def relaynet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int,
 
     ``reference=True`` runs the kernels' plain PyTorch versions instead, on
     any device: the check that the kernels compute the same graph. Serving
-    never sets it."""
+    never sets it. With tracing on (``utils/profiling``) the input's
+    quantisation is the span ``serve.preprocess`` and each unpool
+    ``serve.unpool``."""
     N, H, W, C = x.shape
     if C != 1 or H % 8 or W % 8:
         raise ValueError(
@@ -96,7 +99,9 @@ def relaynet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int,
         return k7(inputs, lw["w_k"], lw["scale"], lw["bias"], lw["slope"],
                   pool=pool)
 
-    h = torch.round(x.float() / s["b0_in"]).clamp(-127, 127).to(torch.int8)
+    with annotate("serve.preprocess"):
+        h = torch.round(x.float() / s["b0_in"]).clamp(-127, 127).to(
+            torch.int8)
     skips, idxs = [], []
     for i in range(3):
         skip, h, idx = conv(h, f"b{i}", pool=True)
@@ -104,6 +109,8 @@ def relaynet_psrp_forward(qparams: dict, x: torch.Tensor, num_classes: int,
         idxs.append(idx)
     h = conv(h, "b3")
     for j, (skip, idx) in enumerate(zip(reversed(skips), reversed(idxs))):
-        h = conv((skip, max_unpool(h, idx)), f"b{4 + j}")
+        with annotate("serve.unpool"):
+            up = max_unpool(h, idx)
+        h = conv((skip, up), f"b{4 + j}")
     hw = qparams["head"]
     return k3(h, hw["w_k"], hw["scale"], hw["bias"])

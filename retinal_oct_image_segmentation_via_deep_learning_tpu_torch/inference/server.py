@@ -8,6 +8,12 @@ new submits and serves what was already queued.
 
 The forward is any ``fn(images) -> labels`` on (B, H, W, C) float32 tensors
 on ``device``; it runs under ``torch.inference_mode()``.
+
+Counters, always kept: ``batches_run`` and ``requests_served``;
+``batch_fill``, the requests in each batch run, summed (over
+``batches_run`` and ``batch_size``: how full the batches were); and
+``queue_wait_s``, each served request's seconds from ``submit`` to the
+start of its batch, summed.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ class ServingLoop:
         self._started = False
         self.batches_run = 0
         self.requests_served = 0
+        self.batch_fill = 0
+        self.queue_wait_s = 0.0
 
     # -- client API ---------------------------------------------------------
 
@@ -55,7 +63,8 @@ class ServingLoop:
                 f"expected image shape {self.image_shape}, got {image.shape}"
             )
         fut: Future = Future()
-        self._q.put((np.asarray(image, np.float32), fut))
+        self._q.put((np.asarray(image, np.float32), fut,
+                     time.perf_counter()))
         return fut
 
     def predict(self, image: np.ndarray):
@@ -112,17 +121,20 @@ class ServingLoop:
         return items
 
     def _serve(self, items):
-        images = [img for img, _ in items]
+        started = time.perf_counter()
+        images = [img for img, _, _ in items]
         pad = np.zeros(self.image_shape, np.float32)
         images += [pad] * (self.batch_size - len(images))
         try:
             out = self.run_batch(np.stack(images))
         except Exception as e:  # resolve the futures with the error
-            for _, fut in items:
+            for _, fut, _ in items:
                 fut.set_exception(e)
             return
         self.batches_run += 1
-        for i, (_, fut) in enumerate(items):
+        self.batch_fill += len(items)
+        self.queue_wait_s += sum(started - t for _, _, t in items)
+        for i, (_, fut, _) in enumerate(items):
             fut.set_result(out[i])
             self.requests_served += 1
 

@@ -16,6 +16,10 @@ BatchNorm (``ops/fused_bn``) and the losses (``training/losses``,
 data group and ``sum_gradients`` the gradient sum over it that both train
 steps (``training/trainer``, ``training/packed_unet``) take after their
 backward.
+
+With tracing on (``utils/profiling``) each collective adds one to
+``collective.calls`` and the bytes this rank puts in to
+``collective.bytes``.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import contextlib
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import count
 from .mesh import DATA_AXIS, Mesh
 
 
@@ -37,6 +42,11 @@ def _out(t: torch.Tensor, group=None, p2p: bool = False) -> torch.Tensor:
                          copy=True).contiguous()
 
 
+def _counted(nbytes: int) -> None:
+    count("collective.calls")
+    count("collective.bytes", nbytes)
+
+
 def group_size(group) -> int:
     return dist.get_world_size(group)
 
@@ -45,6 +55,7 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``t`` over the ranks of ``group`` (a new tensor on
     ``t``'s device)."""
     buf = _out(t, group)
+    _counted(buf.nbytes)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
     return buf.to(t.device)
 
@@ -53,6 +64,7 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The ranks' ``t`` (one shape) concatenated along ``dim`` in the
     order of their ranks in ``group``."""
     buf = _out(t, group)
+    _counted(buf.nbytes)
     parts = [torch.empty_like(buf) for _ in range(group_size(group))]
     dist.all_gather(parts, buf, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
@@ -62,6 +74,7 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """``t`` of global rank ``src`` on every rank of ``group``, copied into
     ``t`` in place (and returned)."""
     buf = _out(t, group)
+    _counted(buf.nbytes)
     dist.broadcast(buf, src=src, group=group)
     with torch.no_grad():
         t.copy_(buf)
@@ -74,14 +87,16 @@ def exchange(to_prev: torch.Tensor | None, to_next: torch.Tensor | None,
     ``to_prev`` goes to global rank ``prev`` and ``to_next`` to ``nxt``
     (None where there is no neighbour). -> (from_prev, from_next), each
     shaped as the tensor sent the other way, on its device."""
-    ops, recv = [], {}
+    ops, recv, sent = [], {}, 0
     for peer, send, key in ((prev, to_prev, "prev"), (nxt, to_next, "next")):
         if peer is None:
             continue
         buf = _out(send, group, p2p=True)
         recv[key] = torch.empty_like(buf)
+        sent += buf.nbytes
         ops.append(dist.P2POp(dist.isend, buf, peer, group))
         ops.append(dist.P2POp(dist.irecv, recv[key], peer, group))
+    _counted(sent)
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()

@@ -39,10 +39,18 @@ applies the same update, and writes the same running statistics, from
 the global mean and variance. The backward runs under the group too: with ``remat`` it
 recomputes each block's K6 statistics there, all-reduced in the same order
 on every rank.
+
+With tracing on (``utils/profiling``) the step's phases are the spans
+``step.forward`` (``packed_unet_apply``), ``step.loss``, ``step.backward``
+and ``step.update`` (the gradient sum, the optimizer step and the running
+statistics), each with the step's number as its id, and the rows the rank
+trains on (its shard, where there is a group) count as
+``input.rows_used``.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 
 import torch
@@ -57,6 +65,7 @@ from ..ops.fused_bn import bn_train
 from ..parallel.collectives import data_group, data_parallel, sum_gradients
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import shard_batch
+from ..utils.profiling import annotate, count
 from .losses import dice_ce_loss
 
 IMPLS = ("torch", "kernel")
@@ -201,21 +210,28 @@ def make_packed_train_step(loss_fn, class_weights=None, *, remat: bool = False,
         loss_fn = dice_ce_loss_fused
     _check_impls(deep, mid)
     group = data_group(mesh)
+    steps = itertools.count()
 
     def train_step(state, images, labels):
+        k = next(steps)
         if group is not None:
             images, labels = shard_batch(mesh, (images, labels))
+        count("input.rows_used", images.shape[0])
         state.optimizer.zero_grad(set_to_none=True)
         with data_parallel(group):
-            logits, new_stats = packed_unet_apply(state.model, images,
-                                                  remat=remat, deep=deep,
-                                                  mid=mid)
-            loss = loss_fn(logits, labels, class_weights)
-            loss.backward()
-        if group is not None:
-            sum_gradients(state.model, group)
-        state.apply_gradients()
-        apply_batch_stats(state.model, new_stats)
+            with annotate("step.forward", k):
+                logits, new_stats = packed_unet_apply(state.model, images,
+                                                      remat=remat, deep=deep,
+                                                      mid=mid)
+            with annotate("step.loss", k):
+                loss = loss_fn(logits, labels, class_weights)
+            with annotate("step.backward", k):
+                loss.backward()
+        with annotate("step.update", k):
+            if group is not None:
+                sum_gradients(state.model, group)
+            state.apply_gradients()
+            apply_batch_stats(state.model, new_stats)
         return loss.detach()
 
     return train_step

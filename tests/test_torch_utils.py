@@ -3,11 +3,10 @@
 ``utils/dtype.DTypePolicy``, ``utils/debug`` (``nan_debugging`` raises
 naming the op, forward and backward, and not with ``enabled=False``;
 ``find_nonfinite``, ``assert_finite``), ``utils/profiling`` (``trace``,
-``annotate``, ``step_timer``, ``sync``, ``count_params``,
-``flops_estimate``) and the generic step's ``remat="full"`` /
-``OCTSEG_TRAIN_REMAT`` (U-Net f=4, 32x32, batch 2, float32): loss,
-gradients and running statistics bit-equal to the plain step's, the
-statistics moved once.
+``annotate``, ``sync``, ``count_params``) and the generic step's
+``remat="full"`` / ``OCTSEG_TRAIN_REMAT`` (U-Net f=4, 32x32, batch 2,
+float32): loss, gradients and running statistics bit-equal to the plain
+step's, the statistics moved once.
 """
 
 import dataclasses
@@ -145,23 +144,12 @@ def test_profiling_helpers(tmp_path):
             torch.ones(4) @ torch.ones(4)
     traces = list(tmp_path.iterdir())
     assert len(traces) == 1 and "port_region" in traces[0].read_text()
-    rec = {}
-    with profiling.step_timer(rec):
-        pass
-    assert rec["step_time_s"] >= 0
     t = {"x": torch.ones(2)}
     assert profiling.sync(t) is t
     m = UNet(1, 3, 4)
     v = unet_variables_from_state_dict(m.state_dict())
     assert profiling.count_params(m) == jprofiling.count_params(
         v["params"]) == profiling.count_params(dict(m.named_parameters()))
-    a, b = torch.ones(8, 16), torch.ones(16, 4)
-    assert profiling.flops_estimate(torch.matmul, a, b) == 2 * 8 * 16 * 4
-
-    def broken(x):
-        raise RuntimeError("no")
-
-    assert profiling.flops_estimate(broken, a) is None
     assert jax.devices()  # JAX's own helpers stay JAX's
 
 
