@@ -46,21 +46,25 @@ Phases (any failure raises; the exit code is then non-zero):
    version (N(1, 1) inputs), a second call bit-identical, its plan printed,
    and at 512^2 x 32 and 32^2 x 512 (batch 2, both modes) bit-equal to the
    numpy emulation of its order of additions
-   (``tests/test_torch_k6_order.py``); K5 twice on the same random inputs at the
+   (``tests/test_torch_k6_order.py``); K13, K14 and K6's masked mode at the
+   18 BatchNorm shapes (batch 8, bf16, the ReLU on) bit-equal to their
+   plain versions (the eager ops; K6 over the ReLU's zeroed dy on the same
+   plan), each called twice; K5 twice on the same random inputs at the
    default step's three K5 shapes, bit-identical (its fixed-order sums);
    K4 at the default step's six calls on random inputs, within one bf16
    ulp plus 2^-16 of the sum of |products| of the float64 plain version,
    and a second call bit-identical;
 7. train: the trainer as ``cli train --packed`` builds it (f=32, 10 classes,
    512x512 synthetic data, batch 8, Adam 1e-3), five steps: loss finite and
-   lower at step 5 than at step 1, and K4/K5/K6 launched 6/3/36 times per
-   step; from the state those steps reached, one step on the kernels
-   against the same step with the plain versions patched in (``GATE``:
-   loss, and per gradient tensor above a norm of 1e-3 the cosine and the
-   norm), and four planted kernel faults that this gate must reject (K4
-   leaving out every 64th of its tiles, K5 every 64th of its bands, K6
-   sums 0.5% high, K6 leaving out the rows of one block of its plan);
-   launches per step with ``mid=deep="kernel"`` 34/17/36;
+   lower at step 5 than at step 1, and K4/K5/K6/K13/K14 launched
+   6/3/36/18/18 times per step; from the state those steps reached, one
+   step on the kernels against the same step with the plain versions
+   patched in (``GATE``: loss, and per gradient tensor above a norm of
+   1e-3 the cosine and the norm), and six planted kernel faults that this
+   gate must reject (K4 leaving out every 64th of its tiles, K5 every 64th
+   of its bands, K6 sums 0.5% high, K6 leaving out the rows of one block
+   of its plan, K13 and K14 each every 64th block of its plan); launches
+   per step with ``mid=deep="kernel"`` 34/17/36/18/18;
 8. times on the card: each training kernel summed over the step's calls at
    batch 8 against its plain version and one library call; K4's device
    time (``torch.profiler``) and plan per call beside its event time and
@@ -70,6 +74,8 @@ Phases (any failure raises; the exit code is then non-zero):
    step's three calls and over all 17 convs, beside ``conv2d_weight``'s,
    the bound and the GB/s achieved on the bound's bytes; K6's and the
    library's device time per BatchNorm shape beside their event times;
+   K13's and K14's device and event time per BatchNorm shape beside the
+   eager passes they replaced and their byte bound, and summed;
    the train step at batch 8 and 16 in both conv settings (and the
    library-conv step), peak memory, and a ``torch.profiler`` breakdown of
    the step (kernels a step per kernel group; the rest split by the port
@@ -278,12 +284,12 @@ Phases (any failure raises; the exit code is then non-zero):
     largest norm change, running statistics), the one-ulp floor printed
     and two planted faults refused (K6's sums and K8's statistics left
     unreduced); both ranks' parameters and buffers equal; launches a rank
-    a step (K4 6, K5 3, K6 36; K8 1 and K9 1 fused; 34 / 17 / 36
-    ``"kernel"``); a step's time and peak memory a rank (two ranks share
-    the card: no multi-card speed); ``cli train --packed`` for one epoch
-    inside the two ranks (their ``local_mesh``): equal state, launches a
-    rank, one checkpoint written by rank 0, which ``eval --checkpoint``
-    reads.
+    a step (K4 6, K5 3, K6 36, K13 18, K14 18; K8 1 and K9 1 fused;
+    34 / 17 / 36 / 18 / 18 ``"kernel"``); a step's time and peak memory a
+    rank (two ranks share the card: no multi-card speed); ``cli train
+    --packed`` for one epoch inside the two ranks (their ``local_mesh``):
+    equal state, launches a rank, one checkpoint written by rank 0, which
+    ``eval --checkpoint`` reads.
 
 The last lines are the card's name and power limit, a JSON object with the
 kernels, then ``{"ok": true, "device": {...}}``.
@@ -334,6 +340,11 @@ REPLACES = {
     "stem_conv_int8": [_JAX + "pallas_conv_psrp.py:964 stem_conv_psrp"],
     "pool2x2_int8": [_JAX + "pallas_conv_int8.py:377 pool2x2_int8"],
     "column_softargmax": [_JAX + "pallas_kernels.py:54 fused_column_softargmax"],
+    # no Pallas kernel: XLA fuses these passes on the TPU
+    "bn_apply": [_JAX + "fused_bn.py:139 _bn_fwd_impl (its normalize, XLA) "
+                 "and the ReLU after it"],
+    "bn_dx": [_JAX + "fused_bn.py:156 _bn_bwd (its dx, XLA) and the ReLU's "
+              "backward"],
 }
 _PKG = "retinal_oct_image_segmentation_via_deep_learning_tpu_torch/"
 SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
@@ -347,7 +358,9 @@ SOURCES = {"conv3x3_int8": _PKG + "csrc/conv3x3_int8.cu",
            "dice_ce_bwd": _PKG + "csrc/dice_ce.cu",
            "stem_conv_int8": _PKG + "csrc/stem_conv_int8.cu",
            "pool2x2_int8": _PKG + "csrc/pool2x2_int8.cu",
-           "column_softargmax": _PKG + "csrc/column_softargmax.cu"}
+           "column_softargmax": _PKG + "csrc/column_softargmax.cu",
+           "bn_apply": _PKG + "csrc/bn_apply.cu",
+           "bn_dx": _PKG + "csrc/bn_apply.cu"}
 # kernel step vs plain-version step from the trained state: relative loss,
 # lowest gradient cosine and largest change of a gradient's norm, each
 # between the kernels' own floor (a one-ulp input change) and two planted
@@ -378,9 +391,10 @@ SDNET_TRAIN_BATCH = 4  # the SDNet train step (phases 24, 25)
 # the forward and once in the backward
 SDNET_K6_PER_STEP = 2 * (43 + 5)
 LAUNCHES_PER_STEP = {
-    "torch": {"conv3x3_bf16": 6, "conv3x3_bf16_wgrad": 3, "bn_pair_sums": 36},
+    "torch": {"conv3x3_bf16": 6, "conv3x3_bf16_wgrad": 3, "bn_pair_sums": 36,
+              "bn_apply": 18, "bn_dx": 18},
     "kernel": {"conv3x3_bf16": 34, "conv3x3_bf16_wgrad": 17,
-               "bn_pair_sums": 36},
+               "bn_pair_sums": 36, "bn_apply": 18, "bn_dx": 18},
 }
 
 
@@ -787,8 +801,8 @@ def swapped(module, **repl):
 
 
 def train_phases(dev, card, time_ms):
-    """Phases 6-8: the training path. -> the K4-K6 entries of the kernels
-    line, and phase 7's trained state dict (on the host)."""
+    """Phases 6-8: the training path. -> the K4-K6, K13 and K14 entries of
+    the kernels line, and phase 7's trained state dict (on the host)."""
     import torch
     import torch.nn.functional as tnf
 
@@ -817,13 +831,15 @@ def train_phases(dev, card, time_ms):
     )
 
     bf16 = torch.bfloat16
-    names = ("conv3x3_bf16", "conv3x3_bf16_wgrad", "bn_pair_sums")
+    names = ("conv3x3_bf16", "conv3x3_bf16_wgrad", "bn_pair_sums",
+             "bn_apply", "bn_dx")
     k6_plans = {}
 
     def wrappers():
         return {"conv3x3_bf16": k45.conv3x3_bf16_fwd,
                 "conv3x3_bf16_wgrad": k45.conv3x3_bf16_wgrad,
-                "bn_pair_sums": k6.pair_sums}
+                "bn_pair_sums": k6.pair_sums,
+                "bn_apply": k6.bn_apply, "bn_dx": k6.bn_dx}
 
     def reset():
         for w in wrappers().values():
@@ -915,6 +931,50 @@ def train_phases(dev, card, time_ms):
                   f"{'bit-equal' if same else 'DIFFERENT'} (plan {plan.text()})",
                   flush=True)
             bad += not same
+    # K13, K14 and K6's masked mode at the 18 BatchNorm shapes with the ReLU
+    # on, bit for bit against their plain versions (K13, K14: the eager ops
+    # the step ran before them; the masked K6: K6 over the ReLU's zeroed
+    # dy, on the same plan), a second call bit-identical; scale and shift
+    # from x's own statistics, as the step makes them
+    for h, c in bn_shapes():
+        x, dy = normal((nb, h, h, c), 1.0), normal((nb, h, h, c))
+        var, mean = torch.var_mean(x.float().reshape(-1, c), dim=0,
+                                   correction=0)
+        inv = torch.rsqrt(var + k6.EPS)
+        scale = (torch.rand(c, generator=g, device=dev) + 0.5) * inv
+        shift = torch.randn(c, generator=g, device=dev) * 0.5 - mean * scale
+        gk, c1, c0 = (torch.randn(c, generator=g, device=dev) * 0.1
+                      for _ in range(3))
+        mask = (scale, shift)
+        closed = k6.relu_closed(x, scale, shift)
+        dym = dy.masked_fill(closed, 0)
+        checks = {
+            "bn_apply": ([k6.bn_apply(x, scale, shift, True)
+                          for _ in range(2)],
+                         k6.bn_apply_reference(x, scale, shift, True)),
+            "bn_dx": ([k6.bn_dx(dy, x, gk, c1, c0, mask) for _ in range(2)],
+                      k6.bn_dx_reference(dym, x, gk, c1, c0)),
+            "masked K6": ([k6.pair_sums(dy, x, mask=mask) for _ in range(2)],
+                          k6.pair_sums(dym, x)),
+        }
+        same_plan = k6.launch_plan(dy, x, masked=True) == \
+            k6.launch_plan(dym, x)
+        torch.cuda.synchronize()
+        mism = {}
+        for k, (got, want) in checks.items():
+            mism[k] = sum(int((t != want).sum()) for t in got)
+            if k in max_err:
+                max_err[k] = max(max_err[k], max(
+                    float((t.float() - want.float()).abs().max())
+                    for t in got))
+        print(f"K13/K14/masked K6 {h:4d}^2 x {c:4d}: mismatches "
+              f"{', '.join(f'{k} {v}' for k, v in mism.items())} (over two "
+              f"calls each); ReLU closed on {float(closed.float().mean()):.1%}"
+              f"; the masked plan {'is' if same_plan else 'is NOT'} K6's; "
+              f"plan {k6._apply_launch(x, x, backward=False, relu=True).text()}",
+              flush=True)
+        bad += sum(mism.values()) + (not same_plan)
+        del x, dy, dym, closed, checks
     # K5 sums in a fixed order: two calls on the same random inputs at the
     # default step's three K5 shapes give the same bits. K4 at the step's
     # six calls on random data: within one bf16 ulp of the float64 plain
@@ -1008,7 +1068,9 @@ def train_phases(dev, card, time_ms):
         kern = loss_and_grads(weights)
         with swapped(k45, conv3x3_bf16_fwd=k45.conv3x3_bf16_reference,
                      conv3x3_bf16_wgrad=k45.conv3x3_bf16_wgrad_reference), \
-                swapped(k6, pair_sums=k6.pair_sums_reference):
+                swapped(k6, pair_sums=k6.pair_sums_reference,
+                        bn_apply=k6.bn_apply_reference,
+                        bn_dx=k6.bn_dx_reference):
             agree = agreement(kern, loss_and_grads(weights))
         floor = agreement(kern, loss_and_grads(weights, x_ulp))
         print(f"one step from {label}, kernels vs plain versions: "
@@ -1048,11 +1110,11 @@ def train_phases(dev, card, time_ms):
             .repeat_interleave(plan.twk, 2)
         return wgrad(x, (dy * mask[:, :, :w, None]).contiguous())
 
-    def k6_sums_high(a, b=None):
+    def k6_sums_high(a, b=None, mask=None):
         """K6 with its sums 0.5% high."""
-        return sums(a, b) * 1.005
+        return sums(a, b, mask) * 1.005
 
-    def k6_drops_block(a, b=None):
+    def k6_drops_block(a, b=None, mask=None):
         """K6 with the rows of one block of its plan (its unit of work, from
         ``launch_plan``) left out: the block that holds the centre pixel of
         the first image (the retina)."""
@@ -1062,12 +1124,37 @@ def train_phases(dev, card, time_ms):
         rows = plan.rows(((h // 2) * w + w // 2) // plan.rows_block)
         kept = a.reshape(-1, c).clone()
         kept[rows.start:rows.stop] = 0
-        return sums(kept.view(a.shape), b)
+        return sums(kept.view(a.shape), b, mask)
+
+    apply_, dx_ = k6.bn_apply, k6.bn_dx
+
+    def blocks_left_out(t, backward):
+        """``t`` (K13's y or K14's dx) with the rows of every 64th block of
+        the kernel's plan (its unit of work, from ``_apply_launch``: block
+        g takes row steps g, g + grid, ...) zero, counted from the block
+        that holds the centre pixel of the first image (the retina)."""
+        n, h, w, c = t.shape
+        plan = k6._apply_launch(t, backward=backward, relu=True)
+        block = torch.arange(plan.M, device=t.device) // plan.rows_step \
+            % plan.grid
+        first = ((h // 2) * w + w // 2) // plan.rows_step % plan.grid
+        out = t.reshape(-1, c).clone()
+        out[(block - first) % 64 == 0] = 0
+        return out.view(t.shape)
+
+    def k13_drops_blocks(x, scale, shift, relu=False):
+        """K13 leaving out every 64th block of its plan."""
+        return blocks_left_out(apply_(x, scale, shift, relu), False)
+
+    def k14_drops_blocks(dy, x, g, c1, c0, mask=None):
+        """K14 leaving out every 64th block of its plan."""
+        return blocks_left_out(dx_(dy, x, g, c1, c0, mask), True)
 
     # the real wrappers count their launches under their module names,
     # which point at the faults while these run
     k4_drops_tiles.launches = k5_drops_tiles.launches = 0
     k6_sums_high.launches = k6_drops_block.launches = 0
+    k13_drops_blocks.launches = k14_drops_blocks.launches = 0
     faults = {}
     for label, fault in (
         ("K4 leaves out 1/64 of its tiles",
@@ -1077,6 +1164,10 @@ def train_phases(dev, card, time_ms):
         ("K6 sums 0.5% high", swapped(k6, pair_sums=k6_sums_high)),
         ("K6 leaves out the rows of one block",
          swapped(k6, pair_sums=k6_drops_block)),
+        ("K13 leaves out 1/64 of its blocks",
+         swapped(k6, bn_apply=k13_drops_blocks)),
+        ("K14 leaves out 1/64 of its blocks",
+         swapped(k6, bn_dx=k14_drops_blocks)),
     ):
         with fault:
             faults[label] = agreement(kern, loss_and_grads(trained))
@@ -1274,6 +1365,48 @@ def train_phases(dev, card, time_ms):
           f"{k6_dev['fwd library'] + k6_dev['bwd library']:.4f} ms (fwd "
           f"{k6_dev['fwd library']:.4f}, bwd {k6_dev['bwd library']:.4f})",
           flush=True)
+    # K13 and K14 (the ReLU on) per BatchNorm shape: event and device time
+    # beside the eager passes they replaced (forward: the fp32 normalize,
+    # its cast and torch.relu; backward: threshold_backward and the fp32
+    # dx with its casts) and the byte bound (K13: x read, y written, 4
+    # bytes an element; K14: dy and x read, dx written, 6). At batch 8 the
+    # 64² and 32² shapes' tensors fit in the card's 50 MB L2, so repeated
+    # calls there can read above the bound's rate; k13_probe.py times the
+    # step's own batch of 32
+    k1314_dev = {"bn_apply": 0.0, "bn_dx": 0.0}
+    for h, c in bn_shapes():
+        x, dy = normal((nb, h, h, c), 1.0), normal((nb, h, h, c))
+        m = nb * h * h
+        scale = torch.rand(c, generator=g, device=dev) + 0.5
+        shift = torch.randn(c, generator=g, device=dev)
+        gk, c1, c0 = (torch.randn(c, generator=g, device=dev) * 0.1
+                      for _ in range(3))
+        mask = (scale, shift)
+        y = k6.bn_apply_reference(x, scale, shift, True)
+        for k, fn, plain, ops, nbytes in (
+            ("bn_apply", lambda: k6.bn_apply(x, scale, shift, True),
+             lambda: k6.bn_apply_reference(x, scale, shift, True),
+             3 * m * c, 4 * m * c),
+            ("bn_dx", lambda: k6.bn_dx(dy, x, gk, c1, c0, mask),
+             lambda: k6.bn_dx_reference(
+                 torch.ops.aten.threshold_backward(dy, y, 0), x, gk, c1, c0),
+             5 * m * c, 6 * m * c),
+        ):
+            ms, pms, dms = time_ms(fn), time_ms(plain, 3), device_ms(fn)
+            k1314_dev[k] += dms
+            b_ms, b_by = add(k, True, ms, pms, 0.0, (ops, nbytes),
+                             PEAK["fp32"])
+            print(f"time b{nb} {'K13' if k == 'bn_apply' else 'K14'} "
+                  f"{h:4d}^2 x {c:4d}: kernel device {dms:.4f} ms "
+                  f"({nbytes / dms / 1e6:.0f} GB/s, {100 * b_ms / dms:.1f}% "
+                  f"of the bound's rate), event {ms:.4f}; plain {pms:.4f}; "
+                  f"bound {b_ms:.4f} ({b_by})", flush=True)
+        del x, dy, y
+    print(f"time b{nb} over the default step's 18 BatchNorms, device: K13 "
+          f"{k1314_dev['bn_apply']:.4f} ms ({100 * rows['bn_apply']['bytes'] / k1314_dev['bn_apply']:.1f}% "
+          f"of the bound's rate), K14 {k1314_dev['bn_dx']:.4f} ms "
+          f"({100 * rows['bn_dx']['bytes'] / k1314_dev['bn_dx']:.1f}%)",
+          flush=True)
     for k, r in rows.items():
         print(f"time b{nb} {k} summed over the default step's calls: kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
@@ -1324,7 +1457,7 @@ def train_phases(dev, card, time_ms):
                      "the rest of the forward (skip concats, head, "
                      "running-stat updates)"),
                  bn_train=labelled(packed_unet.bn_train,
-                                   "bn_train: normalize (dx in the backward)"),
+                                   "bn_train: K13 (K14 in the backward)"),
                  _CONVS={"torch": labelled(convs["torch"],
                                            "library conv and its casts"),
                          "kernel": labelled(convs["kernel"],
@@ -1342,7 +1475,9 @@ def train_phases(dev, card, time_ms):
                           {"K4 conv3x3_bf16": ("conv3x3_bf16_fwd",
                                                "conv3x3_bf16_mma"),
                            "K5 conv3x3_bf16_wgrad": "conv3x3_bf16_wgrad",
-                           "K6 bn_pair_sums": "pair_sums"}, split=True)
+                           "K6 bn_pair_sums": "pair_sums",
+                           "K13 bn_apply": "bn_apply_kernel",
+                           "K14 bn_dx": "bn_dx_kernel"}, split=True)
     del state, step
 
     out = [{
@@ -1358,6 +1493,12 @@ def train_phases(dev, card, time_ms):
     out[0].update(device_ms=k4["device"], plan=k4_plans)
     out[2].update(body="pair_sums_kernel (one cooperative launch a call)",
                   device_ms=k6_dev["fwd"] + k6_dev["bwd"], plan=k6_plans)
+    # no single PyTorch call fuses the BatchNorm apply with the ReLU, or
+    # its dx with the ReLU's backward
+    out[3].update(body="bn_apply_kernel", library_ms=None,
+                  device_ms=k1314_dev["bn_apply"])
+    out[4].update(body="bn_dx_kernel", library_ms=None,
+                  device_ms=k1314_dev["bn_dx"])
     return out, {k: v.cpu() for k, v in trained.items()}
 
 
@@ -1413,6 +1554,7 @@ def fused_loss_phases(dev, card, time_ms):
     every = {"conv3x3_bf16": k45.conv3x3_bf16_fwd,
              "conv3x3_bf16_wgrad": k45.conv3x3_bf16_wgrad,
              "bn_pair_sums": k6.pair_sums,
+             "bn_apply": k6.bn_apply, "bn_dx": k6.bn_dx,
              "dice_ce_stats": k89.dice_ce_stats,
              "dice_ce_bwd": k89.dice_ce_bwd}
 
@@ -1948,7 +2090,8 @@ def device_ms(fn, runs=20):
     more), and the events it keeps carry their full durations. So each
     kernel's time is the mean of its recorded events times its launches a
     call: the most it recorded in one window over the calls, rounded up
-    (every kernel here launches a whole number of times a call)."""
+    (every kernel here launches a whole number of times a call). A window
+    that kept no event at all is taken again, up to nine windows in all."""
     import math
 
     import torch
@@ -1959,14 +2102,18 @@ def device_ms(fn, runs=20):
     torch.cuda.synchronize()
     n = max(1, runs // 2)
     kernels = {}  # name -> [recorded us, recorded events, most in a window]
-    for _window in range(3):
+    kept = 0  # windows that kept an event
+    for _window in range(9):
+        if kept == 3:
+            break
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or not e.count:
-                continue
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count]
+        kept += bool(events)
+        for e in events:
             k = kernels.setdefault(e.key, [0.0, 0, 0])
             k[0] += getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
@@ -2823,15 +2970,17 @@ def sdnet_phases(dev, card, time_ms):
 
     sums = k6.pair_sums
 
-    def f32_sums(a, b=None):
+    def f32_sums(a, b=None, mask=None):
         """K6's plain version with float32 sums."""
+        if mask is not None:
+            a = a.masked_fill(k6.relu_closed(b, *mask), 0)
         a2 = a.reshape(-1, a.shape[-1]).float()
         b2 = a2 if b is None else b.reshape(-1, b.shape[-1]).float()
         return torch.stack([a2.sum(0), (a2 * b2).sum(0)])
 
-    def k6_sums_high(a, b=None):
+    def k6_sums_high(a, b=None, mask=None):
         """K6 with its sums 0.5% high."""
-        return sums(a, b) * 1.005
+        return sums(a, b, mask) * 1.005
 
     # K6's wrapper counts its launches under its module name, which points
     # at the fault while it runs
@@ -4103,12 +4252,12 @@ def k6_gate(label, trainer, images, labels, k6, bad, on_card):
 
     sums = k6.pair_sums
 
-    def k6_sums_high(a, b=None):
+    def k6_sums_high(a, b=None, mask=None):
         """K6 with its sums 0.5% high."""
-        return sums(a, b) * 1.005
+        return sums(a, b, mask) * 1.005
 
-    def plain_one_ulp_high(a, b=None):
-        s = k6.pair_sums_reference(a, b)
+    def plain_one_ulp_high(a, b=None, mask=None):
+        s = k6.pair_sums_reference(a, b, mask)
         return torch.nextafter(s, torch.full_like(s, math.inf))
 
     k6_sums_high.launches = 0  # the wrapper counts under its module name
@@ -4163,12 +4312,12 @@ def k6_odd_channels(dev, label, trainer, images, labels, k6, bad):
     saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
     sums, seen = k6.pair_sums, {}
 
-    def record(a, b=None):
+    def record(a, b=None, mask=None):
         if a.shape[-1] % 8:
             dtype = a.dtype if b is None or b.dtype == a.dtype \
                 else torch.float32  # the wrapper's cast
             seen[(tuple(a.shape), dtype, b is not None)] = None
-        return sums(a, b)
+        return sums(a, b, mask)
 
     record.launches = 0  # the wrapper counts under its module name
     try:
@@ -5254,6 +5403,7 @@ def packed_dp_checks(dev_name, trained_path, ckpt_dir, hw, f, nc, batch):
     every = {"conv3x3_bf16": k45.conv3x3_bf16_fwd,
              "conv3x3_bf16_wgrad": k45.conv3x3_bf16_wgrad,
              "bn_pair_sums": k6.pair_sums,
+             "bn_apply": k6.bn_apply, "bn_dx": k6.bn_dx,
              "dice_ce_stats": k89.dice_ce_stats,
              "dice_ce_bwd": k89.dice_ce_bwd}
 

@@ -99,7 +99,7 @@ def main() -> int:
             cu.write_text(text)
             jobs[name] = (so, subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                 "-shared", "-o", str(so), str(cu)],
+                 "-I", str(_build.CSRC), "-shared", "-o", str(so), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for name, (so, proc) in jobs.items():
             out, _ = proc.communicate()

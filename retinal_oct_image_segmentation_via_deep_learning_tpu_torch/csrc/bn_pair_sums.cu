@@ -28,6 +28,12 @@
 // into the add (a numpy emulation of this order matches the kernel bit for
 // bit: tests/test_torch_k6_order.py).
 //
+// Masked mode (MASK, backward only; ops/fused_bn.py: pair_sums(mask=)): a
+// = dy is taken as 0 where the forward's ReLU was closed, found again from
+// b = x, scale and shift as K13 found y (bn_round.cuh), in registers: the
+// sums of K6 over relu's zeroed gradient, in the same order, with no pass
+// to zero it.
+//
 // Bound on the card: the bytes read (each input element once; about ten
 // fp32 operations an element, a fraction of the issue rate).
 
@@ -35,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bn_round.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -110,14 +118,19 @@ struct Chunk<float, 1> {
     __device__ __forceinline__ float at(int) const { return v; }
 };
 
-// acc[j] = (s0, e0, s1, e1) of channel j of the lane's group.
-template <typename T, int VEC>
+// acc[j] = (s0, e0, s1, e1) of channel j of the lane's group; with MASK,
+// x's value is taken as 0 where relu_closed(y, ms[j], mh[j]).
+template <typename T, int VEC, bool MASK>
 __device__ __forceinline__ void add_row(float (&acc)[VEC][4],
                                         const Chunk<T, VEC>& x,
-                                        const Chunk<T, VEC>& y) {
+                                        const Chunk<T, VEC>& y,
+                                        const float (&ms)[VEC],
+                                        const float (&mh)[VEC]) {
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-        const float av = x.at(j);
+        float av = x.at(j);
+        if constexpr (MASK)
+            if (relu_closed<T>(y.at(j), ms[j], mh[j])) av = 0.0f;
         kahan_add(acc[j][0], acc[j][1], av);
         kahan_add(acc[j][2], acc[j][3], __fmul_rn(av, y.at(j)));
     }
@@ -131,9 +144,10 @@ constexpr int PASS2_LOADS = 8;  // partials a lane has in flight in pass 2
 
 // Rows r, r + rows_step, ... (fewer than UNROLL + 1 steps: below r1) of a
 // lane added in that order, all their loads issued first.
-template <typename T, bool TWO, int VEC>
+template <typename T, bool TWO, int VEC, bool MASK>
 __device__ __forceinline__ void add_rows(float (&acc)[VEC][4], const T* pa,
-                                         const T* pb, long long r,
+                                         const T* pb, const float (&ms)[VEC],
+                                         const float (&mh)[VEC], long long r,
                                          long long r1, int rows_step, int C,
                                          bool full) {
     constexpr int U = UNROLL<T, TWO>;
@@ -149,8 +163,8 @@ __device__ __forceinline__ void add_rows(float (&acc)[VEC][4], const T* pa,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
         if (full || r + (long long)u * rows_step < r1) {
-            if constexpr (TWO) add_row(acc, xa[u], xb[u]);
-            else add_row(acc, xa[u], xa[u]);
+            if constexpr (TWO) add_row<T, VEC, MASK>(acc, xa[u], xb[u], ms, mh);
+            else add_row<T, VEC, MASK>(acc, xa[u], xa[u], ms, mh);
         }
     }
 }
@@ -158,11 +172,14 @@ __device__ __forceinline__ void add_rows(float (&acc)[VEC][4], const T* pa,
 // grid (G), block (THREADS): thread t = ry * lanes + lane holds row ry of
 // the block step and channel group c0 + lane. part: fp32 [2][2C][G], the s
 // plane then the e plane, output i = k * C + c of block g at [i * G + g].
-template <typename T, bool TWO, int VEC>
+// scale, shift: fp32 (C), read only with MASK (TWO).
+template <typename T, bool TWO, int VEC, bool MASK>
 __global__ void __launch_bounds__(THREADS, 2) pair_sums_kernel(
     const T* __restrict__ a, const T* __restrict__ b,
+    const float* __restrict__ scale, const float* __restrict__ shift,
     float* __restrict__ part, float* __restrict__ out, long long M, int C,
     int lanes, int rows_step, long long rows_block) {
+    static_assert(TWO || !MASK, "the mask applies to the backward's dy");
     constexpr int U = UNROLL<T, TWO>;
     __shared__ float sh[4 * VEC][THREADS];
     const int t = threadIdx.x, g = blockIdx.x, G = gridDim.x;
@@ -182,11 +199,21 @@ __global__ void __launch_bounds__(THREADS, 2) pair_sums_kernel(
         if (ry < rows_step && cgp < groups) {
             const T* pa = a + (size_t)cgp * VEC;
             const T* pb = b + (size_t)cgp * VEC;
+            float ms[VEC], mh[VEC];
+            if constexpr (MASK) {
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) {
+                    ms[j] = __ldg(scale + cgp * VEC + j);
+                    mh[j] = __ldg(shift + cgp * VEC + j);
+                }
+            }
             long long r = r0 + ry;
             for (; r + (long long)(U - 1) * rows_step < r1; r += U * rows_step)
-                add_rows<T, TWO, VEC>(acc, pa, pb, r, r1, rows_step, C, true);
+                add_rows<T, TWO, VEC, MASK>(acc, pa, pb, ms, mh, r, r1,
+                                            rows_step, C, true);
             if (r < r1)
-                add_rows<T, TWO, VEC>(acc, pa, pb, r, r1, rows_step, C, false);
+                add_rows<T, TWO, VEC, MASK>(acc, pa, pb, ms, mh, r, r1,
+                                            rows_step, C, false);
         }
         // the block's tree over the rows_step lanes of each channel group:
         // item i += item i + h (h = ceil(n / 2)) for i < n - h, until one is
@@ -252,18 +279,40 @@ __global__ void __launch_bounds__(THREADS, 2) pair_sums_kernel(
     }
 }
 
-template <typename T>
-const void* kernel_of(bool two, int vec) {
-    if (vec == 8)
-        return two ? reinterpret_cast<const void*>(pair_sums_kernel<T, true, 8>)
-                   : reinterpret_cast<const void*>(pair_sums_kernel<T, false, 8>);
-    return two ? reinterpret_cast<const void*>(pair_sums_kernel<T, true, 1>)
-               : reinterpret_cast<const void*>(pair_sums_kernel<T, false, 1>);
+template <typename T, int VEC>
+const void* kernel_of(bool two, bool mask) {
+    if (mask)
+        return reinterpret_cast<const void*>(pair_sums_kernel<T, true, VEC, true>);
+    return two ? reinterpret_cast<const void*>(pair_sums_kernel<T, true, VEC, false>)
+               : reinterpret_cast<const void*>(pair_sums_kernel<T, false, VEC, false>);
 }
 
-const void* kernel_for(int bf16, int two, int vec) {
-    return bf16 ? kernel_of<__nv_bfloat16>(two != 0, vec)
-                : kernel_of<float>(two != 0, vec);
+const void* kernel_for(int bf16, int two, int vec, int mask = 0) {
+    if (bf16)
+        return vec == 8 ? kernel_of<__nv_bfloat16, 8>(two != 0, mask != 0)
+                        : kernel_of<__nv_bfloat16, 1>(two != 0, mask != 0);
+    return vec == 8 ? kernel_of<float, 8>(two != 0, mask != 0)
+                    : kernel_of<float, 1>(two != 0, mask != 0);
+}
+
+int launch(const void* fn, void** args, int grid, void* stream) {
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        fn, dim3(grid), dim3(THREADS), args, 0,
+        static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) cudaGetLastError();  // clear it; reported below
+    return static_cast<int>(err);
+}
+
+int resident(const void* fn, void* blocks) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                             THREADS, 0);
+    *static_cast<int*>(blocks) = per_sm * sms;
+    return static_cast<int>(err);
 }
 
 }  // namespace
@@ -280,28 +329,39 @@ extern "C" int octseg_bn_pair_sums(const void* a, const void* b, void* part,
                                    long long rows_block, int bf16,
                                    void* stream) {
     if (vec != 1 && vec != 8) return static_cast<int>(cudaErrorInvalidValue);
-    const void* fn = kernel_for(bf16, b != nullptr, vec);
     const void* bb = b != nullptr ? b : a;
-    void* args[] = {&a, &bb, &part, &out, &M, &C, &lanes, &rows_step,
-                    &rows_block};
-    const cudaError_t err = cudaLaunchCooperativeKernel(
-        fn, dim3(grid), dim3(THREADS), args, 0,
-        static_cast<cudaStream_t>(stream));
-    if (err != cudaSuccess) cudaGetLastError();  // clear it; reported below
-    return static_cast<int>(err);
+    const void* none = nullptr;
+    void* args[] = {&a, &bb, &none, &none, &part, &out, &M, &C, &lanes,
+                    &rows_step, &rows_block};
+    return launch(kernel_for(bf16, b != nullptr, vec), args, grid, stream);
+}
+
+// The masked mode: as octseg_bn_pair_sums in the backward (a = dy, b = x),
+// with a taken as 0 where the forward's ReLU was closed (scale, shift: the
+// forward's fp32 (C) terms). The plan is K6's; grid must not exceed
+// octseg_bn_pair_sums_masked_resident's count.
+extern "C" int octseg_bn_pair_sums_masked(const void* a, const void* b,
+                                          const void* scale,
+                                          const void* shift, void* part,
+                                          void* out, long long M, int C,
+                                          int vec, int lanes, int rows_step,
+                                          int grid, long long rows_block,
+                                          int bf16, void* stream) {
+    if (vec != 1 && vec != 8) return static_cast<int>(cudaErrorInvalidValue);
+    void* args[] = {&a, &b, &scale, &shift, &part, &out, &M, &C, &lanes,
+                    &rows_step, &rows_block};
+    return launch(kernel_for(bf16, 1, vec, 1), args, grid, stream);
 }
 
 // *blocks = the blocks of the (bf16, two, vec) instance the current device
 // holds at once: the occupancy API's blocks an SM times the SMs.
 extern "C" int octseg_bn_pair_sums_resident(int bf16, int two, int vec,
                                             void* blocks) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel_for(bf16, two, vec), THREADS, 0);
-    *static_cast<int*>(blocks) = per_sm * sms;
-    return static_cast<int>(err);
+    return resident(kernel_for(bf16, two, vec), blocks);
+}
+
+// *blocks = the same for the masked mode's (bf16, vec) instance.
+extern "C" int octseg_bn_pair_sums_masked_resident(int bf16, int vec,
+                                                   void* blocks) {
+    return resident(kernel_for(bf16, 1, vec, 1), blocks);
 }

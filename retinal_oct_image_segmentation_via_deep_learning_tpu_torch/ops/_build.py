@@ -53,6 +53,12 @@ SIGNATURES = {
     "octseg_bn_pair_sums": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _L,
                             _I, _P],
     "octseg_bn_pair_sums_resident": [_I, _I, _I, _P],
+    "octseg_bn_pair_sums_masked": [_P] * 6 + [_L, _I, _I, _I, _I, _I, _L,
+                                              _I, _P],
+    "octseg_bn_pair_sums_masked_resident": [_I, _I, _P],
+    "octseg_bn_apply": [_P] * 4 + [_L] + [_I] * 7 + [_P],
+    "octseg_bn_dx": [_P] * 8 + [_L] + [_I] * 7 + [_P],
+    "octseg_bn_apply_resident": [_I] * 4 + [_P],
     "octseg_dice_ce_stats": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "octseg_dice_ce_stats_resident": [_I, _I, _I, _P],
     "octseg_dice_ce_bwd": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],

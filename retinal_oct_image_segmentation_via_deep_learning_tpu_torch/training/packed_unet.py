@@ -18,9 +18,12 @@ cast to bf16 at use.
     transposed convs        ``F.conv_transpose2d`` + bf16 bias (the dilated
                             form of the JAX ``_ct``)
     head 1x1                bf16 matmul + bf16 bias
+    BatchNorm + ReLU        K6 sums, K13 (forward); K6 masked, K14 (dx)
     loss (``fused_loss``)   K8/K9 (``ops/dice_ce``) on the NHWC logits
 
-Every BatchNorm is ``ops/fused_bn.bn_train`` (K6 statistics). The defaults
+Every BatchNorm, with the ReLU after it, is ``ops/fused_bn.bn_train(...,
+relu=True)``: K6 statistics, then on the card K13 (normalize and ReLU) in
+the forward and K6's masked mode and K14 (dx) in the backward. The defaults
 of ``mid`` and ``deep`` are JAX's ("xla"); its TPU tile size ``tg`` has no
 counterpart. With ``remat=True`` each block runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward; each block
@@ -93,9 +96,8 @@ def _check_impls(deep: str, mid: str) -> None:
 
 
 def _conv_bn_relu(h, conv: nn.Conv2d, bn: nn.BatchNorm2d, impl: str):
-    y, mean, var = bn_train(_CONVS[impl](h.to(_BF16), conv.weight),
-                            bn.weight, bn.bias)
-    return torch.relu(y), mean, var
+    return bn_train(_CONVS[impl](h.to(_BF16), conv.weight), bn.weight,
+                    bn.bias, relu=True)
 
 
 def _pool(h: torch.Tensor) -> torch.Tensor:

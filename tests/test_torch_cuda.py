@@ -46,6 +46,21 @@ from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops import (
 from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.ops.preprocess import (
     preprocess,
 )
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.config import (
+    OptimConfig,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.models.unet import (
+    UNet,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training import (
+    packed_unet,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.losses import (
+    dice_ce_loss,
+)
+from retinal_oct_image_segmentation_via_deep_learning_tpu_torch.training.train_state import (
+    create_train_state,
+)
 from test_torch_k3_mma import crafted_case as k3_case
 from test_torch_k6_order import SHAPES as K6_ORDER_SHAPES
 from test_torch_k6_order import emulate as k6_emulate
@@ -464,6 +479,156 @@ def test_bn_train_cuda_matches_cpu(dev, dtype):
     atol = 1e-5 if dtype == torch.float32 else 0.05
     for got, want in zip(outs[1], outs[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+# the packed step's BatchNorm shapes at 512², f=32, batch 32 (its 18: four
+# each of the first four, two of the last)
+BN_STEP_SHAPES = [(32, 512, 512, 32), (32, 256, 256, 64),
+                  (32, 128, 128, 128), (32, 64, 64, 256), (32, 32, 32, 512)]
+
+
+def _bn_pass_case(dev, shape, dtype, seed=0, offset=0):
+    """x and dy (offset by ``offset`` elements into their buffers: 2- or
+    4-byte aligned where it is odd) and the per-channel terms of one
+    BatchNorm. In the even channels scale is a power of two and shift =
+    -0.5 * scale, and a tenth of x is 0.5 there: y is exactly 0 (ties at
+    the ReLU)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, n = shape[-1], int(np.prod(shape))
+
+    def placed(t):
+        """``t`` in ``dtype``, ``offset`` elements into a buffer of its
+        own."""
+        buf = torch.empty(n + offset, dtype=dtype, device=dev)
+        return buf[offset:].view(shape).copy_(t)
+
+    x = torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+    tie = torch.rand(shape, generator=gen, device=dev) < 0.1
+    tie[..., 1::2] = False
+    x = placed(torch.where(tie, 0.5, x))
+    dy = placed(torch.randn(shape, generator=gen, device=dev))
+    scale = torch.rand(c, generator=gen, device=dev) + 0.5
+    scale[::2] = 2.0 ** torch.randint(-2, 3, scale[::2].shape,
+                                      generator=gen, device=dev)
+    shift = torch.randn(c, generator=gen, device=dev)
+    shift[::2] = -0.5 * scale[::2]
+    g, c1, c0 = (torch.randn(c, generator=gen, device=dev)
+                 for _ in range(3))
+    return x, dy, scale, shift, g, c1, c0
+
+
+def _check_bn_passes(x, dy, scale, shift, g, c1, c0, relu):
+    """K13, K14 and (with the ReLU) K6's masked mode against the plain
+    path on the card, bit for bit, each twice; -> the plans launched."""
+    mask = (scale, shift) if relu else None
+    before = (k6.bn_apply.launches, k6.bn_dx.launches, k6.pair_sums.launches)
+    y = [k6.bn_apply(x, scale, shift, relu) for _ in range(2)]
+    dx = [k6.bn_dx(dy, x, g, c1, c0, mask) for _ in range(2)]
+    want_y = k6.bn_apply_reference(x, scale, shift, relu)
+    want_dx = k6.bn_dx_reference(dy, x, g, c1, c0, mask)
+    sums, want_sums = [], None
+    if relu:
+        sums = [k6.pair_sums(dy, x, mask=mask) for _ in range(2)]
+        dym = torch.ops.aten.threshold_backward(
+            dy, k6.bn_apply_reference(x, scale, shift, True), 0)
+        want_sums = k6.pair_sums(dym, x)
+        assert k6.launch_plan(dy, x, masked=True) == k6.launch_plan(dym, x)
+        assert (dym == 0).sum() > (dy == 0).sum()
+    torch.cuda.synchronize()
+    assert (k6.bn_apply.launches, k6.bn_dx.launches,
+            k6.pair_sums.launches) == (before[0] + 2, before[1] + 2,
+                                       before[2] + (3 if relu else 0))
+    for name, got, want in (("K13", y, want_y), ("K14", dx, want_dx),
+                            ("K6 masked", sums, want_sums)):
+        for t in got:
+            assert t.dtype == want.dtype and torch.equal(t, want), name
+    if relu:
+        assert (want_y == 0).any()
+    return k6._apply_launch(x, dy, want_dx, backward=True, relu=relu)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", BN_STEP_SHAPES)
+def test_k13_k14_masked_k6_equal_the_plain_path(dev, shape, relu):
+    """At the packed step's BatchNorm shapes in bf16: K13's y, K14's dx and
+    K6's masked sums equal the plain path's (the eager ops, and K6 over
+    relu's zeroed dy on the same plan) bit for bit, a repeat call
+    identical; 8 channels a lane."""
+    plan = _check_bn_passes(*_bn_pass_case(dev, shape, torch.bfloat16, 1),
+                            relu)
+    assert plan.vec == 8
+
+
+@pytest.mark.parametrize("shape,dtype,offset,vec", [
+    ((4, 64, 64, 32), torch.float32, 0, 8),
+    ((2, 32, 32, 512), torch.float32, 0, 8),
+    ((2, 30, 34, 3), torch.bfloat16, 0, 1),   # C % 8 != 0
+    ((4, 16, 16, 20), torch.float32, 0, 1),
+    ((3, 7, 9, 1), torch.bfloat16, 0, 1),
+    ((2, 64, 64, 32), torch.bfloat16, 1, 1),  # not 16-byte aligned
+    ((2, 16, 16, 64), torch.float32, 3, 1),
+    ((5, 3000), torch.bfloat16, 0, 8),        # C > 8 * 256 channels
+])
+@pytest.mark.parametrize("relu", [True, False])
+def test_k13_k14_masked_k6_other_widths(dev, shape, dtype, offset, vec,
+                                        relu):
+    """As above in float32, at C % 8 != 0, on views that are not 16-byte
+    aligned (the scalar lane) and at more channel groups than a block's
+    threads."""
+    plan = _check_bn_passes(*_bn_pass_case(dev, shape, dtype, 2, offset),
+                            relu)
+    assert plan.vec == vec
+
+
+def _packed_step(dev):
+    model = UNet(1, 10, 32, generator=torch.Generator().manual_seed(0)).to(dev)
+    state = create_train_state(model, OptimConfig())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, 64, 64, 1), generator=gen, device=dev).to(
+        torch.bfloat16)
+    y = torch.randint(0, 10, (2, 64, 64), generator=gen, device=dev)
+    step = packed_unet.make_packed_train_step(dice_ce_loss)
+    step(state, x, y)  # warm: every plan and the library built
+    return lambda: step(state, x, y)
+
+
+def test_packed_step_launches_k6_k13_k14(dev):
+    """One packed step (f=32, 64², batch 2) launches K6 36 times, K13 18
+    and K14 18."""
+    run = _packed_step(dev)
+    wrappers = (k6.pair_sums, k6.bn_apply, k6.bn_dx)
+    before = [w.launches for w in wrappers]
+    run()
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [36, 18, 18]
+
+
+def test_bn_train_on_a_channels_first_view_takes_the_kernels(dev):
+    """A non-contiguous input (``models/blocks.BatchNorm``'s view of NCHW)
+    takes the kernels too, as the contiguous input does (K6 twice, K13 and
+    K14 once each), with the same y and gradients bit for bit; a float16
+    input raises."""
+    x, dy, _, _, g, _, _ = _bn_pass_case(dev, (2, 16, 24, 40),
+                                         torch.bfloat16, 3)
+    beta = torch.randn(40, device=dev)
+    view = x.permute(0, 3, 1, 2).contiguous().movedim(1, -1)
+    assert not view.is_contiguous()
+    wrappers = (k6.pair_sums, k6.bn_apply, k6.bn_dx)
+    outs = []
+    for inp in (x, view):
+        leaves = [inp.detach().requires_grad_(), g.clone().requires_grad_(),
+                  beta.clone().requires_grad_()]
+        before = [w.launches for w in wrappers]
+        yv = k6.bn_train(*leaves, relu=True)[0]
+        grads = torch.autograd.grad(yv, leaves, dy)
+        torch.cuda.synchronize()
+        assert [w.launches - b for w, b in zip(wrappers, before)] == \
+            [2, 1, 1]
+        outs.append((yv.detach(), *grads))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k6.bn_train(x.half(), g, beta, relu=True)
 
 
 @pytest.mark.parametrize("n,h,w,cins,cout,kh,pool", [

@@ -427,6 +427,34 @@ def test_packed_fused_loss_step_matches_unfused(packed_case):
     assert checked > 30
 
 
+def _conv_bn_then_relu(h, conv, bn, impl):
+    """The packed step's conv-BN-ReLU as it was before the ReLU joined
+    ``bn_train``: the ReLU as its own op after it."""
+    y, mean, var = tpacked.bn_train(
+        tpacked._CONVS[impl](h.to(torch.bfloat16), conv.weight), bn.weight,
+        bn.bias)
+    return torch.relu(y), mean, var
+
+
+@pytest.mark.parametrize("kw", [{}, {"remat": True},
+                                {"deep": "kernel", "mid": "kernel"}],
+                         ids=["torch", "remat", "kernel"])
+def test_packed_step_with_relu_in_bn_train_equals_the_step_before(
+        packed_case, monkeypatch, kw):
+    """The packed step with the ReLU inside ``bn_train`` (K13, K14 and
+    K6's masked mode on the card; their plain versions here) gives the
+    loss and every gradient of the step that ran ``torch.relu`` after it,
+    bit for bit."""
+    x, y = packed_case["x"], packed_case["y"]
+    loss, grads = _step_grads(x, y, **kw)
+    monkeypatch.setattr(tpacked, "_conv_bn_relu", _conv_bn_then_relu)
+    loss_before, grads_before = _step_grads(x, y, **kw)
+    assert loss == loss_before
+    assert grads.keys() == grads_before.keys()
+    for name, g in grads.items():
+        assert torch.equal(g, grads_before[name]), name
+
+
 def test_fused_loss_switch_reads_the_environment(packed_case, monkeypatch):
     """``fused_loss=None`` reads ``OCTSEG_PACKED_FUSED_LOSS`` as the JAX
     package does; the trainer reaches it that way."""
